@@ -8,17 +8,26 @@ Phases, each printing one JSON line:
 1. env     -- the card (nvidia-smi name and power limit), torch and CUDA.
 2. build   -- nvcc builds every kernel of csrc/ (in parallel) into build/.
 3. kernels -- each kernel on the card against its plain PyTorch version on
-              the same inputs, at the main path's shapes, with timings.
+              the same inputs, at its path's shapes, with timings.
 4. main    -- SLAMSystem on the card at bench.py's configuration: a 640x480
               SyntheticSequence, a dense 70x70x40 map of 0.1 m voxels, point
-              budget 8192, fusion every 20 frames, no meshing, the in-repo
+              budget 8192, fusion every 20 frames, meshing off, the in-repo
               study_mixed prior at epoch 300.  41 frames (fusions at 0, 20,
               40); launch counts, ms/frame, n_occupied and ATE.
-5. profile -- torch.profiler over 3 more frames: device time by kernel.
+5. mesh    -- a second SLAMSystem on the same frames with the meshing
+              defaults (r = 4, max_std 0.15, an incremental extract on each
+              fusion frame); per-extract ms, blocks and launches, ms/frame,
+              and the final mesh's error against the analytic surface.
+6. offline -- save_map of the mesh phase's map, then the offline mesher
+              (mesh_tool, r = 8) in-process; ms, triangles, dispatch sizes,
+              launches and the mesh's error.
+7. profile -- torch.profiler over 3 more main-path frames: device time by
+              kernel.
+8. mesh_profile -- torch.profiler over one full (no_cache) r = 4 extract.
 
-Then one line {"kernels": [...]} with every kernel's launches on the main
-path, error against its plain version, times and bound, the nvidia-smi line,
-and last {"ok": true, "device": {...}}.  Any failed check exits nonzero.
+Then one line {"kernels": [...]} with every kernel's launches on its path,
+error against its plain version, times and bound, the nvidia-smi line, and
+last {"ok": true, "device": {...}}.  Any failed check exits nonzero.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -27,6 +36,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,6 +50,8 @@ PEAK_BYTES_PER_S = 3.35e12
 HYPER = Path(__file__).resolve().parent / "di-checkpoints/study_mixed/hyper.json"
 N_MAIN = 41          # frames on the main path: fusions at 0, 20 and 40
 N_PROFILE = 3
+MESH_MAX_STD = 0.15  # the online default; the offline run uses it too
+MAX_MESH_ERR = 0.05  # m, 95th percentile distance to the analytic surface
 
 
 def emit(obj) -> None:
@@ -115,6 +127,43 @@ def check_decoder(packed, fused_mod, dev):
             "shape": f"N={n}, f32", "flops": flops, "bytes": nbytes}
 
 
+def check_decode_fused(packed, fused_mod, dev):
+    """Kernel 3 vs its plain version at N = 2^20 (one offline r = 8
+    dispatch), 1 and 524,287, on lattice-range inputs.  Tolerance: sdf/std
+    atol 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst, main_inputs = 0.0, None
+    for n in (1 << 20, 1, 524287):
+        lat = torch.randn(n, 29, generator=gen, device=dev) * 0.3
+        rel = torch.rand(n, 3, generator=gen, device=dev) * 1.75 - 1.0
+        got = fused_mod.decode_fused(packed, lat, rel)
+        ref = fused_mod.decode_fused_plain(packed, lat, rel)
+        torch.cuda.synchronize()
+        for name, g, r in (("sdf", got[0], ref[0]), ("std", got[1], ref[1])):
+            err = (g - r).abs()
+            if not torch.isfinite(g).all() or bool((err > 1e-5).any()):
+                fail(f"decode_fused {name} at N={n}: max abs err {err.max().item():.3g}")
+            worst = max(worst, err.max().item())
+        if n == 1 << 20:
+            main_inputs = (lat, rel)
+    lat, rel = main_inputs
+    n = lat.shape[0]
+    flops = 2.0 * fused_mod.FWD_MACS * n
+    nbytes = 4.0 * (n * 29 + n * 3 + fused_mod.PACKED_SIZE + n * 2)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    return {"name": "decode_fused", "route": "cuda",
+            "source": "difusion_tpu_torch/csrc/decoder_grad.cu",
+            "replaces": "difusion_tpu/ops/decoder_fused.py:105",
+            "max_abs_err": worst,
+            "ms": time_ms(lambda: fused_mod.decode_fused(packed, lat, rel), 10,
+                          per_batch=5),
+            "plain_ms": time_ms(lambda: fused_mod.decode_fused_plain(packed, lat, rel),
+                                5, per_batch=3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_note": "no single PyTorch call computes the decoder MLP",
+            "shape": f"N={n}, f32", "flops": flops, "bytes": nbytes}
+
+
 def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, dev):
     """Kernel 2 vs its plain version on the real 240x320 unprojected point
     map of a rendered frame, w = 6.  Counts must match exactly; sums
@@ -165,15 +214,49 @@ def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, dev):
             "flops": flops, "bytes": nbytes}
 
 
+def profiled(fn) -> dict:
+    """Run fn under torch.profiler: wall ms, device ms and busy share, and
+    the top device-side rows (kernels, copies; a CPU op's self device time
+    repeats the time of the kernels it launched, so CPU rows are left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    return {"wall_ms": wall_ms, "device_calls": sum(r[2] for r in rows),
+            "device_ms": device_ms if rows else "not measured",
+            "device_busy_share": device_ms / wall_ms if rows else "not measured",
+            "top": [{"op": key[:80], "ms": us / 1e3, "calls": c}
+                    for us, key, c in rows[:15]]}
+
+
+def check_mesh(phase: str, tris, merr) -> None:
+    if len(tris) == 0:
+        fail(f"{phase}: no triangles")
+    if not np.isfinite(tris).all():
+        fail(f"{phase}: non-finite vertices")
+    if not merr["mesh_err_p95"] <= MAX_MESH_ERR:
+        fail(f"{phase}: mesh error p95 {merr['mesh_err_p95']:.4f} m > {MAX_MESH_ERR} m")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA GPU", file=sys.stderr)
         return 2
+    from difusion_tpu_torch import mesh_tool
     from difusion_tpu_torch.core import map as M
     from difusion_tpu_torch.core import tracker as tracker_mod
+    from difusion_tpu_torch.core.meshing import MeshExtractor
     from difusion_tpu_torch.core.tracker import TrackerConfig
-    from difusion_tpu_torch.data.production import SyntheticSequence
+    from difusion_tpu_torch.data.production import SyntheticSequence, mesh_error_stats
     from difusion_tpu_torch.ops import _build, imgproc
     from difusion_tpu_torch.ops import decoder_fused as fused_mod
     from difusion_tpu_torch.ops import stencil as stencil_mod
@@ -208,11 +291,12 @@ def main() -> int:
                           ignore_count_th=16.0, encoder_count_th=600.0)
     tcfg = TrackerConfig(point_budget=8192)
     system = SLAMSystem(map_cfg, tcfg, dec, enc, calib, integrate_interval=20,
-                        depth_cut=(0.5, 5.0), device=dev)
+                        depth_cut=(0.5, 5.0), meshing=False, device=dev)
 
     kernels = [check_decoder(system.tracker.packed, fused_mod, dev),
                check_stencil(frames[0], system.tracker.tcfg, calib, stencil_mod,
-                             tracker_mod, imgproc, dev)]
+                             tracker_mod, imgproc, dev),
+               check_decode_fused(system.tracker.packed, fused_mod, dev)]
     emit({"phase": "kernels", "checked": [k["name"] for k in kernels]})
 
     # ---- main path: counts reset just before, read just after ----
@@ -258,30 +342,105 @@ def main() -> int:
         fail("non-finite pose")
     if not ate <= 0.05:
         fail(f"ATE {ate:.4f} m > 0.05 m")
-    for k in kernels:
+    for k in kernels[:2]:
         k["launches"] = counts.get(k["name"], 0)
+        k["path"] = "main"
 
-    # ---- device time by kernel over a few more frames ----
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # ---- mesh phase: the same frames with the meshing defaults ----
+    msys = SLAMSystem(map_cfg, tcfg, dec, enc, calib, integrate_interval=20,
+                      depth_cut=(0.5, 5.0), device=dev)
+    extracts = []
+    mesher_extract = msys.mesher.extract
+
+    def timed_extract(state, **kw):
+        before = _build.launch_counts().get("decode_fused", 0)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
+        out = mesher_extract(state, **kw)
+        torch.cuda.synchronize()
+        extracts.append(dict(msys.mesher.last_stats,
+                             ms=(time.perf_counter() - t0) * 1e3,
+                             decode_fused_launches=_build.launch_counts().get(
+                                 "decode_fused", 0) - before))
+        return out
+    msys.mesher.extract = timed_extract
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    mesh_frame_ms = []
+    for k in range(N_MAIN):
+        t0 = time.perf_counter()
+        msys.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
+        torch.cuda.synchronize()
+        mesh_frame_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _build.launch_counts()
+    tris, _ = msys.mesher.triangles()
+    merr = mesh_error_stats(tris)
+    mposes = msys.tracker.all_pd_pose
+    mate = ate_rmse(seq.gt_trajectory[:N_MAIN], mposes)
+    fusion = [k for k in range(N_MAIN) if k % 20 == 0]
+    emit({"phase": "mesh", "frames": N_MAIN, "resolution": msys.mesher.r,
+          "max_std": MESH_MAX_STD, "extracts": extracts, "launches": counts,
+          "triangles": len(tris),
+          "ms_per_frame": statistics.mean(mesh_frame_ms[2:]),
+          "tracking_frame_ms_median": statistics.median(
+              [t for k, t in enumerate(mesh_frame_ms) if k >= 2 and k not in fusion]),
+          "fusion_mesh_frame_ms": [mesh_frame_ms[k] for k in fusion],
+          "ate_rmse_m": mate, **merr})
+    if len(extracts) != len(fusion):
+        fail(f"{len(extracts)} mesh extracts on {len(fusion)} fusion frames")
+    for e in extracts:
+        if e["blocks"] > 0 and e["decode_fused_launches"] < 1:
+            fail(f"an extract of {e['blocks']} blocks launched no decode_fused")
+    check_mesh("mesh", tris, merr)
+    if not mate <= 0.05:
+        fail(f"mesh phase ATE {mate:.4f} m > 0.05 m")
+    kernels[2]["launches"] = counts.get("decode_fused", 0)
+    kernels[2]["path"] = "mesh (online extracts on the fusion frames)"
+
+    # ---- offline: save the map, mesh it at r = 8 with the offline tool ----
+    with tempfile.TemporaryDirectory() as tmp:
+        map_path, ply_path = f"{tmp}/map.npz", f"{tmp}/mesh.ply"
+        msys.save_map(map_path)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        tool = mesh_tool.main([map_path, ply_path, "--hyper", str(HYPER), "--epoch",
+                               "300", "--resolution", "8", "--max-std",
+                               str(MESH_MAX_STD)])
+        torch.cuda.synchronize()
+        tool_ms = (time.perf_counter() - t0) * 1e3
+        counts = _build.launch_counts()
+        stats = dict(tool.last_stats)
+        tris, _ = tool.triangles()
+        ply_bytes = Path(ply_path).stat().st_size
+        _, state = M.load_map(map_path, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tool.extract(state, max_std=MESH_MAX_STD, no_cache=True)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+    merr = mesh_error_stats(tris)
+    emit({"phase": "offline", "resolution": 8, "max_std": MESH_MAX_STD,
+          "tool_ms": tool_ms, "warm_extract_ms": warm_ms, "launches": counts,
+          "triangles": len(tris), "ply_bytes": ply_bytes, **stats, **merr})
+    if counts.get("decode_fused", 0) < 1:
+        fail("the offline mesher launched no decode_fused")
+    check_mesh("offline", tris, merr)
+    kernels[2]["launches_offline"] = counts.get("decode_fused", 0)
+
+    # ---- device time by kernel: 3 more main-path frames, one full extract.
+    # Last, so that no phase above runs after the profiler has run.
+    def profile_frames():
         for k in range(N_MAIN, N_MAIN + N_PROFILE):
             system.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): a CPU op's self device time
-    # repeats the time of the kernels it launched
-    rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    device_ms = sum(r[0] for r in rows) / 1e3
-    emit({"phase": "profile", "frames": N_PROFILE, "wall_ms": wall_ms,
-          "device_ms": device_ms if rows else "not measured",
-          "device_busy_share": device_ms / wall_ms if rows else "not measured",
-          "top": [{"op": key[:80], "ms": us / 1e3, "calls": c}
-                  for us, key, c in rows[:15]]})
+    emit({"phase": "profile", "frames": N_PROFILE, **profiled(profile_frames)})
+    full = MeshExtractor(map_cfg, msys.decoder, voxel_resolution=msys.mesher.r,
+                         max_triangles=1 << 22)
+    full.extract(msys.state, max_std=MESH_MAX_STD, no_cache=True)     # warm-up
+    emit({"phase": "mesh_profile", "extract": "no_cache, r=4",
+          **profiled(lambda: full.extract(msys.state, max_std=MESH_MAX_STD,
+                                          no_cache=True)),
+          **full.last_stats})
 
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,11 +1,12 @@
 """Dense latent voxel map as fixed-capacity tensor state (counterpart of
-difusion_tpu/core/map.py:40-280).
+difusion_tpu/core/map.py:40-280 and its save/load, :477-504).
 
 A bounded scene is a dense cell grid; ``indexer`` maps each cell to a latent
 slot (-1 free).  Fusion allocates slots in cell order with a prefix sum,
 encodes each observed point into the 8 voxels around it and folds the codes
 into each voxel's running mean.  Every step is a fixed-shape tensor op, so a
-fusion makes no device-to-host sync.
+fusion makes no device-to-host sync.  :func:`save_map` / :func:`load_map`
+carry map state across the two packages in the JAX package's npz format.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..device import const
+from ..device import const, resolve_device
 from ..models.encoder import Encoder
 from ..ops.imgproc import recip
 
@@ -64,6 +65,12 @@ def linearize(cfg: MapConfig, xyz_id: torch.Tensor) -> torch.Tensor:
     """(..., 3) integer cell coords -> (...,) linear id."""
     _, ny, nz = cfg.n_xyz
     return xyz_id[..., 2] + nz * xyz_id[..., 1] + (nz * ny) * xyz_id[..., 0]
+
+
+def unlinearize(cfg: MapConfig, idx: torch.Tensor) -> torch.Tensor:
+    """(...,) linear id -> (..., 3) integer cell coords."""
+    _, ny, nz = cfg.n_xyz
+    return torch.stack([idx // (ny * nz), (idx // nz) % ny, idx % nz], dim=-1)
 
 
 def normalize_points(cfg: MapConfig, xyz: torch.Tensor) -> torch.Tensor:
@@ -204,3 +211,42 @@ def gather_latent_rel(cfg: MapConfig, state: MapState, xyz: torch.Tensor,
                          torch.zeros((), dtype=row.dtype, device=row.device))
     rel = pn - cell.to(pn.dtype) - 0.5
     return latent, rel, valid
+
+
+_CFG_FIELDS = ("bound_min", "n_xyz", "voxel_size", "latent_dim", "capacity",
+               "prune_min_vox_obs", "ignore_count_th", "encoder_count_th")
+
+
+def save_map(path, cfg: MapConfig, state: MapState) -> None:
+    """Write the map as the JAX package's ``save_map`` does (npz with
+    ``state.*`` and ``cfg.*`` keys), so its ``load_map`` reads it."""
+    arrays = {f"state.{name}": getattr(state, name).cpu().numpy()
+              for name in MapState._fields}
+    # the JAX package's MapState also carries the latent optimizer's fields,
+    # which the port does not run: written as zeros, ignored on load
+    arrays["state.optimized"] = np.zeros(cfg.capacity, bool)
+    arrays["state.opt_overflow"] = np.zeros((), np.int32)
+    arrays.update({f"cfg.{name}": np.asarray(getattr(cfg, name)) for name in _CFG_FIELDS})
+    np.savez_compressed(path, **arrays)
+
+
+def load_map(path, device="cuda") -> Tuple[MapConfig, MapState]:
+    """Read a dense-map npz written by either package onto ``device``."""
+    dev = resolve_device(device)
+    with np.load(path) as data:
+        if "cfg.table_size" in data:
+            raise NotImplementedError(
+                f"{path} is a hash-map snapshot; the port has no hash map "
+                "(core/hash_map.py) yet")
+        cfg = MapConfig(
+            bound_min=tuple(float(x) for x in data["cfg.bound_min"]),
+            n_xyz=tuple(int(x) for x in data["cfg.n_xyz"]),
+            voxel_size=float(data["cfg.voxel_size"]),
+            latent_dim=int(data["cfg.latent_dim"]),
+            capacity=int(data["cfg.capacity"]),
+            prune_min_vox_obs=int(data["cfg.prune_min_vox_obs"]),
+            ignore_count_th=float(data["cfg.ignore_count_th"]),
+            encoder_count_th=float(data["cfg.encoder_count_th"]))
+        state = MapState(**{name: torch.from_numpy(data[f"state.{name}"]).to(dev)
+                            for name in MapState._fields})
+    return cfg, state

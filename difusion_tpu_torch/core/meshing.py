@@ -1,0 +1,307 @@
+"""Incremental mesh extraction on the dense map (counterpart of
+difusion_tpu/core/meshing.py: ``_mesh_prep_dense``, ``_batch_tables``,
+``_eval_and_negate``, ``_MeshExtractorBase`` and ``MeshExtractor``).
+
+Per extract:
+
+1. On the device, the slots in the 6-neighbourhood of a dirty slot that
+   clear the confidence threshold compact to the front with
+   ``torch.nonzero`` -- the extract's one count sync -- and their n
+   (cell, slot) rows download in one transfer.
+2. Blocks pad to a power-of-two bucket B.  Each block's (2r)^3 lattice is
+   decoded in chunks of at most ``max_eval_points`` sites, with latents
+   gathered on the device.  The production decoder goes through kernel 3
+   (``ops.decoder_fused.decode_fused``: the CUDA kernel on the card, its
+   plain version on the CPU); any other decoder through ``Decoder.decode``.
+3. Sparse marching cubes runs in block chunks against the full lattice
+   buffers, so chunk seams are exact; each chunk costs one count read and
+   one packed download.
+4. The triangles splice into a host-side cache keyed by latent slot: a
+   re-meshed slot's old triangles are replaced.
+
+Left out: the coarse-to-fine fast mode (``_eval_and_negate_fast``), the
+hash-map backend (``HashMeshExtractor``) and sharded decoding.
+"""
+from __future__ import annotations
+
+import logging
+from functools import lru_cache
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import const
+from ..models.decoder import Decoder
+from ..ops import decoder_fused as _fused
+from ..ops.marching_cubes import marching_cubes_sparse, mc_triangles_np
+from ..ops.sampling import block_lattice
+from . import map as M
+
+_NEIGHBORS7 = ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0),
+               (0, -1, 0), (0, 0, 1), (0, 0, -1))
+
+
+def _mesh_prep_dense(cfg: M.MapConfig, state: M.MapState, no_cache: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device-side dirty-block resolution.  A slot participates iff its cell
+    lies in the 6-neighbourhood of a dirty cell (equivalently: one of its 7
+    face neighbours, itself included, maps to a dirty slot) and it clears
+    the confidence threshold.  Returns (cells (n, 3), slots (n,)) int64,
+    slots ascending."""
+    dev = state.indexer.device
+    dirty = (state.obs_count > 0.0) if no_cache else state.mesh_dirty
+    cell = M.unlinearize(cfg, torch.clamp(state.positions, min=0).to(torch.int64))
+    flag = torch.zeros(cfg.capacity, dtype=torch.bool, device=dev)
+    for off in _NEIGHBORS7:
+        nb = cell + const(off, dev, torch.int64)
+        inb = M.in_bounds(cfg, nb)
+        nb_slot = state.indexer[torch.clamp(M.linearize(cfg, nb), 0, cfg.n_cells - 1)]
+        nb_dirty = (nb_slot >= 0) & dirty[
+            torch.clamp(nb_slot, 0, cfg.capacity - 1).to(torch.int64)]
+        flag = flag | (inb & nb_dirty)
+    flag = flag & (state.positions >= 0) & (state.obs_count > cfg.ignore_count_th)
+    slots = torch.nonzero(flag)[:, 0]                  # the one count sync
+    return cell[slots], slots
+
+
+def _batch_tables(slots: torch.Tensor, B: int, capacity: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``slot_pad`` (B,): the slot list padded with slot 0; ``slot_to_batch``
+    (capacity + 1,): each live slot's batch row, -1 elsewhere (the last
+    entry stays -1 for free slots)."""
+    n, dev = slots.shape[0], slots.device
+    slot_pad = torch.zeros(B, dtype=torch.int64, device=dev)
+    slot_pad[:n] = slots
+    slot_to_batch = torch.full((capacity + 1,), -1, dtype=torch.int64, device=dev)
+    slot_to_batch[slots] = torch.arange(n, device=dev)
+    return slot_pad, slot_to_batch
+
+
+@lru_cache(maxsize=16)
+def _lattice(r: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(block_lattice(r)).to(device)
+
+
+def _decode_lattice(decoder: Decoder, packed: Optional[torch.Tensor],
+                    lat: torch.Tensor, xyz: torch.Tensor):
+    """Forward-only decode: kernel 3 for the production decoder (``packed``
+    given), ``Decoder.decode`` for a decoder the kernel does not support."""
+    if packed is not None:
+        return _fused.decode_fused(packed, lat, xyz)
+    return decoder.decode(lat, xyz)
+
+
+def _eval_and_negate(decoder: Decoder, packed: Optional[torch.Tensor],
+                     table: torch.Tensor, slot_chunk: torch.Tensor, r: int):
+    """Decode the (2r)^3 lattice of each block in ``slot_chunk`` (latents
+    gathered from the full ``table``) and negate the sdf (the MC
+    inside/outside convention).  The per-site inputs are materialised as
+    contiguous (C*K, 29) and (C*K, 3) tensors, as the kernel takes them."""
+    latents = table[slot_chunk]
+    C, L = latents.shape
+    lattice = _lattice(r, table.device)                 # (K, 3)
+    K = lattice.shape[0]
+    lat = latents[:, None, :].expand(C, K, L).reshape(C * K, L)
+    xyz = lattice[None].expand(C, K, 3).reshape(C * K, 3)
+    sdf, std = _decode_lattice(decoder, packed, lat, xyz)
+    side = 2 * r
+    return (-sdf).reshape(C, side, side, side), std.reshape(C, side, side, side)
+
+
+def _next_bucket(n: int, minimum: int = 64) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _jet_lut() -> np.ndarray:
+    """(256, 3) float64: matplotlib's ``cm.jet`` lookup table, rebuilt from
+    its segment data as ``LinearSegmentedColormap`` builds it (the machine
+    with the card has no matplotlib)."""
+    segments = {
+        "red": ((0.0, 0, 0), (0.35, 0, 0), (0.66, 1, 1), (0.89, 1, 1), (1.0, 0.5, 0.5)),
+        "green": ((0.0, 0, 0), (0.125, 0, 0), (0.375, 1, 1), (0.64, 1, 1),
+                  (0.91, 0, 0), (1.0, 0, 0)),
+        "blue": ((0.0, 0.5, 0.5), (0.11, 1, 1), (0.34, 1, 1), (0.65, 0, 0), (1.0, 0, 0)),
+    }
+    n = 256
+    xind = (n - 1) * np.linspace(0, 1, n)
+    out = []
+    for name in ("red", "green", "blue"):
+        data = np.array(segments[name])
+        x, y0, y1 = data[:, 0] * (n - 1), data[:, 1], data[:, 2]
+        ind = np.searchsorted(x, xind)[1:-1]
+        distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+        lut = np.concatenate([[y1[0]], distance * (y0[ind] - y1[ind - 1]) + y1[ind - 1],
+                              [y0[-1]]])
+        out.append(np.clip(lut, 0.0, 1.0))
+    return np.stack(out, axis=1)
+
+
+_JET = _jet_lut()
+
+
+class MeshExtractor:
+    """Dense-map mesher with a host-side triangle cache keyed by latent slot.
+
+    ``max_eval_points`` bounds the lattice sites a decode dispatch and (over
+    4) the candidate cubes a marching-cubes chunk, so a full ``no_cache``
+    extract of a large map runs in bounded memory."""
+
+    def __init__(self, cfg: M.MapConfig, decoder: Decoder,
+                 voxel_resolution: int = 4, max_triangles: int = 1 << 20,
+                 interpolate: bool = True, max_eval_points: int = 1 << 20):
+        self.cfg = cfg
+        self.decoder = decoder
+        self.packed = (_fused.pack_fused_decoder(decoder)
+                       if _fused.supports_spec(decoder.spec) else None)
+        self.r = int(voxel_resolution)
+        self.max_triangles = int(max_triangles)
+        self.interpolate = interpolate
+        self.max_eval_points = int(max_eval_points)
+        self.voxel_size = cfg.voxel_size
+        self.world_origin = np.asarray(cfg.bound_min, np.float32)
+        # host<->device traffic of the last extract, excluding the triangle
+        # output itself; and its sizes (blocks, bucket, dispatches)
+        self.last_transfer_bytes = 0
+        self.last_stats: dict = {}
+        self.clear_cache()
+
+    # -- cache ---------------------------------------------------------------
+    def clear_cache(self):
+        self._tris = np.zeros((0, 3, 3), np.float32)
+        self._std = np.zeros((0, 3), np.float32)
+        self._slot = np.zeros((0,), np.int64)
+
+    def triangles(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Triangle soup: (T, 3, 3) world-space vertices, (T, 3) stds."""
+        return self._tris, self._std
+
+    def vertices_faces(self) -> Tuple[np.ndarray, np.ndarray]:
+        verts = self._tris.reshape(-1, 3)
+        faces = np.arange(verts.shape[0]).reshape(-1, 3)
+        return verts, faces
+
+    # -- extraction ----------------------------------------------------------
+    def extract(self, state: M.MapState, max_std: float = 2000.0,
+                no_cache: bool = False) -> M.MapState:
+        """Re-mesh the blocks around dirty slots (every observed block with
+        ``no_cache``) and return the state with its dirty flags cleared."""
+        cfg = self.cfg
+        if no_cache:
+            self.clear_cache()
+        cells_d, slots_d = _mesh_prep_dense(cfg, state, no_cache)
+        state = state._replace(mesh_dirty=torch.zeros_like(state.mesh_dirty))
+        n = slots_d.shape[0]
+        self.last_transfer_bytes = 4
+        self.last_stats = {"blocks": n}
+        if n == 0:
+            return state
+        # the only state->host transfer: the n live (cell, slot) rows
+        rows = torch.cat([cells_d, slots_d[:, None]], dim=1).cpu().numpy()
+        cells, slots = rows[:, :3], rows[:, 3]
+        self.last_transfer_bytes += n * 12 + n * 4
+
+        dev = state.latents.device
+        B = _next_bucket(n)
+        slot_pad_d, slot_to_batch_d = _batch_tables(slots_d, B, cfg.capacity)
+        _, ny, nz = cfg.n_xyz
+        lin_local = (cells[:, 0] * ny * nz + cells[:, 1] * nz
+                     + cells[:, 2]).astype(np.int32)
+        valid_blocks = np.full(B, -1, np.int32)
+        valid_blocks[:n] = lin_local
+
+        # decoder evaluation in chunks of <= max_eval_points lattice sites
+        per_block = (2 * self.r) ** 3
+        C = min(_next_bucket(max(self.max_eval_points // per_block, 1)), B)
+        parts = [_eval_and_negate(self.decoder, self.packed, state.latents,
+                                  slot_pad_d[s0:s0 + C], self.r)
+                 for s0 in range(0, B, C)]
+        cube_sdf = torch.cat([p[0] for p in parts])
+        cube_std = torch.cat([p[1] for p in parts])
+
+        # marching cubes over block chunks; each chunk's corner blending
+        # reads ANY evaluated neighbour through slot_to_batch
+        n_sub = self.r ** 3
+        C_mc = min(_next_bucket(max(self.max_eval_points // (4 * n_sub), 64)), B)
+        self.last_stats.update(bucket=B, sites_per_dispatch=C * per_block,
+                               decode_dispatches=B // C, mc_chunks=B // C_mc)
+        tri_parts, std_parts, blk_parts = [], [], []
+        emitted = 0
+        for s0 in range(0, B, C_mc):
+            vb = torch.from_numpy(valid_blocks[s0:s0 + C_mc]).to(dev)
+            self.last_transfer_bytes += int(vb.numel()) * 4
+            budget = min(self.max_triangles, 5 * n_sub * C_mc)
+            result = marching_cubes_sparse(
+                state.indexer, slot_to_batch_d, vb, cube_sdf, cube_std, cfg.n_xyz,
+                self.r, budget, max_std=max_std, interpolate=self.interpolate)
+            tris_c, stds_c, blocks_c, cnt = mc_triangles_np(result)
+            emitted += cnt
+            tri_parts.append(tris_c)
+            std_parts.append(stds_c)
+            blk_parts.append(blocks_c)
+        tris = np.concatenate(tri_parts)
+        stds = np.concatenate(std_parts)
+        blocks = np.concatenate(blk_parts)
+        if emitted > self.max_triangles or len(tris) > self.max_triangles:
+            logging.warning("marching cubes: triangle budget too small (%d > %d)",
+                            max(emitted, len(tris)), self.max_triangles)
+            tris = tris[:self.max_triangles]
+            stds = stds[:self.max_triangles]
+            blocks = blocks[:self.max_triangles]
+
+        # world space: grid units -> meters
+        tris = tris * self.voxel_size + self.world_origin[None, None, :]
+
+        # per-triangle slot for the cache splice
+        lin_to_slot = np.full(cfg.n_cells, -1, np.int64)
+        lin_to_slot[lin_local] = slots
+        tri_slot = lin_to_slot[blocks]
+
+        remeshed = np.zeros(cfg.capacity, bool)
+        remeshed[slots] = True
+        keep_mask = ~remeshed[self._slot] if len(self._slot) else np.zeros(0, bool)
+        self._tris = np.concatenate([self._tris[keep_mask], tris])
+        self._std = np.concatenate([self._std[keep_mask], stds])
+        self._slot = np.concatenate([self._slot[keep_mask], tri_slot])
+        return state
+
+    # -- export --------------------------------------------------------------
+    def write_obj(self, path: str):
+        verts, faces = self.vertices_faces()
+        with open(path, "w") as f:
+            for v in verts:
+                f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+            for face in faces + 1:
+                f.write(f"f {face[0]} {face[1]} {face[2]}\n")
+
+    def write_ply(self, path: str, std_range: Optional[Tuple[float, float]] = None):
+        """Binary PLY with per-vertex uncertainty colour (jet colormap, as
+        matplotlib's ``cm.jet`` quantises it: entry min(int(256 t), 255))."""
+        verts, faces = self.vertices_faces()
+        stds = self._std.reshape(-1)
+        if len(stds):
+            lo, hi = std_range if std_range is not None else (stds.min(), stds.max())
+            t = np.clip((stds - lo) / max(hi - lo, 1e-12), 0.0, 1.0)
+            idx = np.minimum((t * 256).astype(np.int64), 255)
+            colors = (_JET[idx] * 255).astype(np.uint8)
+        else:
+            colors = np.zeros((0, 3), np.uint8)
+        vrec = np.empty(len(verts), np.dtype([("xyz", "<f4", 3), ("rgb", "u1", 3)]))
+        vrec["xyz"] = verts
+        vrec["rgb"] = colors
+        frec = np.empty(len(faces), np.dtype([("n", "u1"), ("idx", "<i4", 3)]))
+        frec["n"] = 3
+        frec["idx"] = faces
+        with open(path, "wb") as f:
+            f.write((
+                "ply\nformat binary_little_endian 1.0\n"
+                f"element vertex {len(verts)}\n"
+                "property float x\nproperty float y\nproperty float z\n"
+                "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+                f"element face {len(faces)}\n"
+                "property list uchar int vertex_indices\nend_header\n").encode())
+            f.write(vrec.tobytes())
+            f.write(frec.tobytes())

@@ -1,6 +1,8 @@
-// Fused decoder forward + d(sdf)/d(xyz) for the GN SDF term, f32, sm_90a.
+// Fused decoder kernels, f32, sm_90a: kernel 1 (forward + d(sdf)/d(xyz), for
+// the GN SDF term) and kernel 3 (forward only, for the mesher's lattice
+// decode, at the end of this file).  Both read the same packed weights.
 //
-// Replaces the Pallas TPU kernel difusion_tpu/ops/decoder_fused.py
+// Kernel 1 replaces the Pallas TPU kernel difusion_tpu/ops/decoder_fused.py
 // `_mlp_grad_kernel` (reached through `decode_grad_fused_packed`).  Per point
 // it runs the whole probabilistic-SDF decoder (5 linears, latent
 // re-injection at layer 3, tanh sdf head, std = 0.05 + 0.5 softplus read
@@ -77,10 +79,10 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
   for (int i = threadIdx.x; i < count / 4; i += NT) d4[i] = __ldg(s4 + i);
 }
 
-template <int TN>
-__device__ __forceinline__ void zero(float (&acc)[4][8]) {
+template <int TN, int TM>
+__device__ __forceinline__ void zero(float (&acc)[TM][8]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 }
@@ -286,6 +288,154 @@ decode_grad_kernel(const float* __restrict__ latent, const float* __restrict__ r
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 3: the decoder forward alone (sdf, std), for the mesher's lattice
+// decode.  Replaces the Pallas TPU kernel difusion_tpu/ops/decoder_fused.py
+// `_mlp_kernel` (reached through `decode_fused_packed`).
+//
+// What bounds it: arithmetic.  49,408 multiply-adds a point against 136
+// bytes of input and output, so at N = 2^20 lattice sites 103.6 GFLOP need
+// >= 1.55 ms at 67 TFLOP/s f32 while the bytes need 0.04 ms.
+//
+// Design.  The layer walk of kernel 1 over the same packed W^T segments, but
+// with no backward there are no relu masks to keep: a block of 256 threads
+// takes 128 points (8 rows x 8 columns a thread), which halves the weight
+// re-staging per point.  One activation buffer suffices, because every
+// layer reads it to the end of its GEMM, syncs, and only then overwrites
+// it.  The A operand is read as float4 along k (one 16-byte load feeds 4
+// k-steps), so a k-step costs 2 + 8 shared loads for 64 FMAs.  The two
+// 1-wide heads reduce straight from the layer-3 registers across the 16
+// threads that share a row group (shuffles), so h3 never reaches shared
+// memory.  Plain FP32 FMA, as kernel 1.  Ragged N: rows past n load zeros
+// and store nothing.
+constexpr int FBM = 128;          // points per block
+constexpr int FTM = FBM / 16;     // rows per thread
+constexpr int FLDX = 36;          // input row stride, float4-aligned
+constexpr int FWD_SMEM_BYTES = (HID * HID + FBM * LDA + FBM * FLDX) * 4;  // 157,696 B
+
+// acc[i][j] += sum_k A[ty+16i][k] * W[k][tx+16j], A read 4 k-steps at a time
+template <int TN>
+__device__ __forceinline__ void gemm4(float (&acc)[FTM][8], const float* A, int lda,
+                                      int K, const float* W, int ldw, int tx,
+                                      int ty) {
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 a[FTM];
+#pragma unroll
+    for (int i = 0; i < FTM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * lda + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float b[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = W[(k + kk) * ldw + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < FTM; ++i) {
+        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// buf = relu(acc + b)
+template <int TN>
+__device__ __forceinline__ void bias_relu_fwd(const float (&acc)[FTM][8],
+                                              const float* __restrict__ bias,
+                                              float* buf, int tx, int ty) {
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const float bj = __ldg(bias + tx + 16 * j);
+#pragma unroll
+    for (int i = 0; i < FTM; ++i) {
+      const float v = acc[i][j] + bj;
+      buf[(ty + 16 * i) * LDA + tx + 16 * j] = v > 0.f ? v : 0.f;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+decode_fwd_kernel(const float* __restrict__ latent, const float* __restrict__ rel,
+                  const float* __restrict__ P, float* __restrict__ sdf_out,
+                  float* __restrict__ std_out, int n) {
+  extern __shared__ float4 smem4[];
+  float* W = reinterpret_cast<float*>(smem4);  // one layer's weights
+  float* buf = W + HID * HID;                  // activations [128][LDA]
+  float* xs = buf + FBM * LDA;                 // inputs [128][FLDX]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int n0 = blockIdx.x * FBM;
+
+  for (int idx = tid; idx < FBM * DIN; idx += NT) {
+    const int r = idx / DIN, k = idx % DIN, g = n0 + r;
+    float v = 0.f;
+    if (g < n) v = k < LAT ? latent[(size_t)g * LAT + k] : rel[(size_t)g * 3 + k - LAT];
+    xs[r * FLDX + k] = v;
+  }
+  stage(W, P + OFF_F0, DIN * HID);
+  __syncthreads();
+
+  float acc[FTM][8];
+  zero<8>(acc);
+  gemm4<8>(acc, xs, FLDX, DIN, W, HID, tx, ty);               // layer 0
+  __syncthreads();
+  bias_relu_fwd<8>(acc, P + OFF_B0, buf, tx, ty);
+  stage(W, P + OFF_F1, HID * HID);
+  __syncthreads();
+
+  zero<8>(acc);
+  gemm4<8>(acc, buf, LDA, HID, W, HID, tx, ty);               // layer 1
+  __syncthreads();
+  bias_relu_fwd<8>(acc, P + OFF_B1, buf, tx, ty);
+  stage(W, P + OFF_F2, HID * H2);
+  __syncthreads();
+
+  zero<6>(acc);
+  gemm4<6>(acc, buf, LDA, HID, W, H2, tx, ty);                // layer 2: 128 -> 96
+  __syncthreads();
+  bias_relu_fwd<6>(acc, P + OFF_B2, buf, tx, ty);
+  stage(W, P + OFF_F3, HID * HID);
+  __syncthreads();
+
+  zero<8>(acc);
+  gemm4<8>(acc, buf, LDA, H2, W, HID, tx, ty);                // layer 3: [h2 | x]
+  gemm4<8>(acc, xs, FLDX, DIN, W + H2 * HID, HID, tx, ty);
+
+  // heads: sdf = tanh(h3 . w_sdf + b), std = 0.05 + 0.5 softplus(h3 . w_std + b)
+  float b3[8], ws[8], wd[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    b3[j] = __ldg(P + OFF_B3 + tx + 16 * j);
+    ws[j] = __ldg(P + OFF_WSDF + tx + 16 * j);
+    wd[j] = __ldg(P + OFF_WSTD + tx + 16 * j);
+  }
+  const float b_sdf = __ldg(P + OFF_BHEAD), b_std = __ldg(P + OFF_BHEAD + 1);
+#pragma unroll
+  for (int i = 0; i < FTM; ++i) {
+    float zs = 0.f, zd = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float h = acc[i][j] + b3[j];
+      h = h > 0.f ? h : 0.f;
+      zs = fmaf(h, ws[j], zs);
+      zd = fmaf(h, wd[j], zd);
+    }
+#pragma unroll
+    for (int s = 8; s >= 1; s >>= 1) {   // the 16 lanes of a row group
+      zs += __shfl_xor_sync(0xffffffffu, zs, s);
+      zd += __shfl_xor_sync(0xffffffffu, zd, s);
+    }
+    const int g = n0 + ty + 16 * i;
+    if (tx == i && g < n) {
+      zs += b_sdf;
+      zd += b_std;
+      sdf_out[g] = tanhf(zs);
+      std_out[g] = 0.05f + 0.5f * (fmaxf(zd, 0.f) + log1pf(expf(-fabsf(zd))));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int decode_grad_packed_size() { return PACKED_SIZE; }
@@ -301,5 +451,19 @@ extern "C" int decode_grad_launch(const float* latent, const float* rel,
   const int grid = (n + BM - 1) / BM;
   decode_grad_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
       latent, rel, packed, sdf, std_, grad, n);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 3: latent (n, 29), rel (n, 3), packed (PACKED_SIZE,) f32 contiguous
+// on the device; writes sdf (n,), std (n,).  Returns cudaGetLastError().
+extern "C" int decode_fwd_launch(const float* latent, const float* rel,
+                                 const float* packed, float* sdf, float* std_,
+                                 int n, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n + FBM - 1) / FBM;
+  decode_fwd_kernel<<<grid, NT, FWD_SMEM_BYTES, (cudaStream_t)stream>>>(
+      latent, rel, packed, sdf, std_, n);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """RGB-D sequences (counterpart of difusion_tpu/data/production.py:32-60,
 205-340): the ``RGBDSequence`` iterator protocol yielding host-side numpy
-``FrameData``, and the analytic ``SyntheticSequence`` renderer that drives
-the tests and the on-card smoke run without a dataset.
+``FrameData``, the analytic ``SyntheticSequence`` renderer that drives the
+tests and the on-card smoke run without a dataset, and the mesh's error
+against that analytic surface (:func:`mesh_error_stats`).
 """
 from __future__ import annotations
 
@@ -43,6 +44,33 @@ class RGBDSequence:
 
     def __next__(self) -> FrameData:
         raise NotImplementedError
+
+
+def surface_height(x: np.ndarray, y: np.ndarray,
+                   corrugation: float = 0.1) -> np.ndarray:
+    """The analytic surface ``z = 2 + a (sin 5x + 0.7 cos 4y)`` rendered by
+    :class:`SyntheticSequence`."""
+    return 2.0 + corrugation * (np.sin(5.0 * x) + 0.7 * np.cos(4.0 * y))
+
+
+def mesh_error_stats(tris: np.ndarray, corrugation: float = 0.1) -> dict:
+    """Mesh accuracy against the analytic surface: per-vertex distance to
+    ``z = surface_height(x, y)``, first-order normalized by the local
+    surface slope (|z error| / sqrt(1 + |grad h|^2)).  Returns mean / RMSE /
+    95th percentile in meters and the vertex count."""
+    v = np.asarray(tris, np.float64).reshape(-1, 3)
+    if len(v) == 0:
+        return {"mesh_err_mean": float("nan"), "mesh_err_rmse": float("nan"),
+                "mesh_err_p95": float("nan"), "n_vertices": 0}
+    a = corrugation
+    dz = v[:, 2] - surface_height(v[:, 0], v[:, 1], a)
+    gx = 5.0 * a * np.cos(5.0 * v[:, 0])
+    gy = -2.8 * a * np.sin(4.0 * v[:, 1])
+    dist = np.abs(dz) / np.sqrt(1.0 + gx * gx + gy * gy)
+    return {"mesh_err_mean": float(dist.mean()),
+            "mesh_err_rmse": float(np.sqrt((dist ** 2).mean())),
+            "mesh_err_p95": float(np.percentile(dist, 95)),
+            "n_vertices": int(len(v))}
 
 
 class SyntheticSequence(RGBDSequence):

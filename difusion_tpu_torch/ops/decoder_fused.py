@@ -1,14 +1,20 @@
-"""Fused decoder forward + d(sdf)/d(xyz): kernel 1 of the port.
+"""Fused decoder kernels: kernel 1 (forward + d(sdf)/d(xyz)) and kernel 3
+(forward only).
 
-Counterpart of difusion_tpu/ops/decoder_fused.py:189-296
-(``_mlp_grad_kernel`` / ``decode_grad_fused``), which the GN SDF term calls
-on every iteration.  :func:`decode_grad_fused` launches the hand-written
-CUDA kernel ``csrc/decoder_grad.cu`` on CUDA tensors and runs
-:func:`decode_grad_plain` on CPU tensors.  There is no other route: a CUDA
-tensor never reaches the plain version through the wrapper.
+* :func:`decode_grad_fused` is the counterpart of
+  difusion_tpu/ops/decoder_fused.py:189-296 (``_mlp_grad_kernel`` /
+  ``decode_grad_fused``), which the GN SDF term calls on every iteration.
+* :func:`decode_fused` is the counterpart of :105-181 (``_mlp_kernel`` /
+  ``decode_fused``), the mesher's lattice decode.
+
+Each wrapper launches its hand-written CUDA kernel (both in
+``csrc/decoder_grad.cu``) on CUDA tensors and runs its plain version
+(:func:`decode_grad_plain`, :func:`decode_fused_plain`) on CPU tensors.
+There is no other route: a CUDA tensor never reaches a plain version
+through a wrapper.
 
 Weights are packed once per decoder by :func:`pack_fused_decoder` into one
-flat f32 buffer whose layout the kernel and the plain version share (each
+flat f32 buffer whose layout both kernels and the plain versions share (each
 weight in both orientations: ``W^T`` for the forward, ``W`` for the
 backward, plus the xyz columns of the two input-side weights).
 """
@@ -75,12 +81,10 @@ def unpack(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
     return out
 
 
-def decode_grad_plain(packed: torch.Tensor, latent: torch.Tensor,
-                      rel: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: the written-out forward and the
-    explicit sdf-only backward recurrence (decoder_fused.py:198-202)."""
-    p = unpack(packed)
+def _forward(p: Dict[str, torch.Tensor], latent: torch.Tensor,
+             rel: torch.Tensor):
+    """The written-out forward over the packed segments: (x, h0..h3, sdf,
+    std)."""
     x = torch.cat([latent, rel], dim=1)
     h0 = torch.relu(x @ p["f0"] + p["b0"])
     h1 = torch.relu(h0 @ p["f1"] + p["b1"])
@@ -88,6 +92,23 @@ def decode_grad_plain(packed: torch.Tensor, latent: torch.Tensor,
     h3 = torch.relu(torch.cat([h2, x], dim=1) @ p["f3"] + p["b3"])
     sdf = torch.tanh(h3 @ p["w_sdf"] + p["b_head"][0])
     std = 0.05 + 0.5 * F.softplus(h3 @ p["w_std"] + p["b_head"][1])
+    return x, h0, h1, h2, h3, sdf, std
+
+
+def decode_fused_plain(packed: torch.Tensor, latent: torch.Tensor,
+                       rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 3: the written-out forward."""
+    *_, sdf, std = _forward(unpack(packed), latent, rel)
+    return sdf, std
+
+
+def decode_grad_plain(packed: torch.Tensor, latent: torch.Tensor,
+                      rel: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 1: the written-out forward and the
+    explicit sdf-only backward recurrence (decoder_fused.py:198-202)."""
+    p = unpack(packed)
+    x, h0, h1, h2, h3, sdf, std = _forward(p, latent, rel)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     dz3 = torch.where(h3 > 0, (1.0 - sdf * sdf)[:, None] * p["w_sdf"], zero)
     dz2 = torch.where(h2 > 0, dz3 @ p["g3"], zero)
@@ -97,42 +118,64 @@ def decode_grad_plain(packed: torch.Tensor, latent: torch.Tensor,
     return sdf, std, grad
 
 
-def _launch_cuda(packed, latent, rel):
+def _check_inputs(what, packed, latent, rel):
     n = latent.shape[0]
     for name, t, shape in (("latent", latent, (n, LAT)), ("rel", rel, (n, 3)),
                            ("packed", packed, (PACKED_SIZE,))):
         if t.device != latent.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"decode_grad_fused: {name} must be a contiguous "
+            raise ValueError(f"{what}: {name} must be a contiguous "
                              f"float32 {shape} tensor on {latent.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    sdf = torch.empty(n, device=latent.device)
-    std = torch.empty(n, device=latent.device)
-    grad = torch.empty(n, 3, device=latent.device)
-    if n == 0:
-        return sdf, std, grad
+
+
+def _launch(name, entry, packed, latent, rel, outs):
+    """Launch ``entry`` of csrc/decoder_grad.cu on (latent, rel, packed) ->
+    ``outs`` on the current stream, check it and count it."""
     lib = _build.load("decoder_grad")
-    fn = lib.decode_grad_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     if lib.decode_grad_packed_size() != PACKED_SIZE:
         raise RuntimeError("decoder_grad.cu packed layout disagrees with "
                            "ops/decoder_fused.py")
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * (3 + len(outs)) + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     with torch.cuda.device(latent.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(latent.data_ptr(), rel.data_ptr(), packed.data_ptr(),
-                 sdf.data_ptr(), std.data_ptr(), grad.data_ptr(), n, stream)
-    _build.check(err, "decode_grad_fused")
-    _build.count_launch("decode_grad_fused")
-    return sdf, std, grad
+                 *(o.data_ptr() for o in outs), latent.shape[0], stream)
+    _build.check(err, name)
+    _build.count_launch(name)
 
 
 def decode_grad_fused(packed: torch.Tensor, latent: torch.Tensor,
                       rel: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(N, 29) latents, (N, 3) voxel-local xyz -> sdf (N,), std (N,),
-    d sdf / d xyz (N, 3).  CUDA tensors launch the kernel (or raise); CPU
+    d sdf / d xyz (N, 3).  CUDA tensors launch kernel 1 (or raise); CPU
     tensors run :func:`decode_grad_plain`."""
-    if latent.is_cuda:
-        return _launch_cuda(packed, latent, rel)
-    return decode_grad_plain(packed, latent, rel)
+    if not latent.is_cuda:
+        return decode_grad_plain(packed, latent, rel)
+    _check_inputs("decode_grad_fused", packed, latent, rel)
+    n = latent.shape[0]
+    outs = (torch.empty(n, device=latent.device),
+            torch.empty(n, device=latent.device),
+            torch.empty(n, 3, device=latent.device))
+    if n:
+        _launch("decode_grad_fused", "decode_grad_launch", packed, latent, rel, outs)
+    return outs
+
+
+def decode_fused(packed: torch.Tensor, latent: torch.Tensor,
+                 rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, 29) latents, (N, 3) voxel-local xyz -> sdf (N,), std (N,).  CUDA
+    tensors launch kernel 3 (or raise); CPU tensors run
+    :func:`decode_fused_plain`.  N = 0 launches nothing."""
+    if not latent.is_cuda:
+        return decode_fused_plain(packed, latent, rel)
+    _check_inputs("decode_fused", packed, latent, rel)
+    n = latent.shape[0]
+    outs = (torch.empty(n, device=latent.device),
+            torch.empty(n, device=latent.device))
+    if n:
+        _launch("decode_fused", "decode_fwd_launch", packed, latent, rel, outs)
+    return outs

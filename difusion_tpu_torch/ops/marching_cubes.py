@@ -1,0 +1,321 @@
+"""Sparse marching cubes with cross-block (sdf, std) interpolation
+(counterpart of difusion_tpu/ops/marching_cubes.py), as plain PyTorch.
+
+* Each active block evaluated the decoder on a ``2r`` lattice covering the
+  voxel plus a half-voxel margin.  Block-corner values blend the overlapping
+  lattices of up to 8 neighbouring blocks: trilinear ramp weights times the
+  predicted std.  A corner whose *own-block* sample is missing invalidates
+  its cubes.
+* Per-(block, subcell) triangle emission uses the 256-case tables
+  (:mod:`.mc_tables`) and per-vertex std-aware interpolation, pruning
+  triangles with any vertex std above ``max_std``.
+* Triangles compact by a prefix sum into a fixed ``max_triangles`` buffer:
+  extra triangles are dropped and the true count is reported.
+
+Every step is a fixed-shape tensor op in the JAX package's order (the 8
+corner choices, the ``sdf_interp`` chain, the 5 triangle slabs), so the
+triangles come out in the same order and agree to f32 rounding.  The
+numpy-built constant tables upload once per ``(r, device)``.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .mc_tables import CORNER_OFFSETS, EDGE_CORNERS, TRI_TABLE
+
+
+class McResult(NamedTuple):
+    triangles: torch.Tensor   # (9, T) f32: rows = vertex*3 + coord, voxel units
+    tri_std: torch.Tensor     # (3, T) f32 per-vertex std
+    tri_block: torch.Tensor   # (T,) int32 linearized block id (-1 padding)
+    count: torch.Tensor       # () int64 total emitted (may exceed T)
+
+
+def mc_triangles_np(res: McResult) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Host-side unpack: (tris (C, 3, 3), stds (C, 3), blocks (C,), count)
+    where C = min(count, buffer size).  One count read, then ONE download of
+    the packed (13, cb) buffer, cb the count rounded up to a power of two."""
+    total = int(res.count)
+    cap = res.triangles.shape[1]
+    count = min(total, cap)
+    cb = 1
+    while cb < count:
+        cb *= 2
+    cb = min(cb, cap)
+    packed = _pack_mc_outputs(res.triangles, res.tri_std, res.tri_block, cb).cpu().numpy()
+    tris = packed[0:9, :count].T.reshape(count, 3, 3)
+    stds = packed[9:12, :count].T
+    blocks = packed[12, :count].view(np.int32)
+    return tris, stds, blocks, total
+
+
+def _pack_mc_outputs(triangles, tri_std, tri_block, cb: int) -> torch.Tensor:
+    """(13, cb) f32 download buffer: 9 triangle rows, 3 std rows, the block
+    ids bit-cast to f32 in row 12 (the host views them back as int32)."""
+    blk = tri_block[:cb].view(torch.float32)
+    return torch.cat([triangles[:, :cb], tri_std[:, :cb], blk[None]], dim=0)
+
+
+def _corner_tables(r: int):
+    """Per-dim blending tables for corner index c in [0..r]: for the m/p
+    samples give (block offset, lattice index, weight) and which of the two
+    is the own-block sample."""
+    c = np.arange(r + 1)
+    rbound = (r - 1) // 2
+    rstart = r // 2
+    rmid = r / 2.0
+    lower = c <= rbound
+    off_m = np.where(lower, -1, 0).astype(np.int32)
+    idx_m = np.where(lower, c + rstart + r, c + rstart).astype(np.int32)
+    w_m = np.where(lower, (rmid - c) / r, (rmid + r - c) / r).astype(np.float32)
+    off_p = np.where(lower, 0, 1).astype(np.int32)
+    idx_p = np.where(lower, c + rstart, c + rstart - r).astype(np.int32)
+    w_p = np.where(lower, (c + rmid) / r, (c - rmid) / r).astype(np.float32)
+    own_is_p = lower  # in the lower branch the own-block sample is 'p'
+    return off_m, idx_m, w_m, off_p, idx_p, w_p, own_is_p
+
+
+def _corner_grid(r: int) -> np.ndarray:
+    """((r+1)^3, 3) corner coordinates, x-major."""
+    ar = np.arange(r + 1)
+    return np.stack(np.meshgrid(ar, ar, ar, indexing="ij"), axis=-1).reshape(-1, 3)
+
+
+@lru_cache(maxsize=32)
+def _blend_consts(r: int, device: torch.device):
+    """Per corner choice (cx, cy, cz): block offsets (3, nc), lattice index
+    (nc,), weight (nc,) and the own-block flag (nc,), on ``device``; plus the
+    own-lattice index of the non-interpolating variant."""
+    off_m, idx_m, w_m, off_p, idx_p, w_p, own_is_p = _corner_tables(r)
+    off_t, idx_t, w_t = (off_m, off_p), (idx_m, idx_p), (w_m, w_p)
+    cgrid = _corner_grid(r)
+    side = 2 * r
+    choices = []
+    for cx in range(2):
+        for cy in range(2):
+            for cz in range(2):
+                choice = (cx, cy, cz)
+                off_c = np.stack([off_t[ch][cgrid[:, a]] for a, ch in enumerate(choice)])
+                idx_c = [idx_t[ch][cgrid[:, a]] for a, ch in enumerate(choice)]
+                w_c = (w_t[cx][cgrid[:, 0]] * w_t[cy][cgrid[:, 1]]
+                       * w_t[cz][cgrid[:, 2]])
+                lat = (idx_c[0] * side * side + idx_c[1] * side + idx_c[2])
+                is_own = np.logical_and.reduce(
+                    [own_is_p[cgrid[:, a]] == bool(ch) for a, ch in enumerate(choice)])
+                choices.append((torch.from_numpy(off_c.astype(np.int64)).to(device),
+                                torch.from_numpy(lat.astype(np.int64)).to(device),
+                                torch.from_numpy(w_c).to(device),
+                                torch.from_numpy(is_own).to(device)))
+    rstart = r // 2
+    own_lat = ((cgrid[:, 0] + rstart) * side * side
+               + (cgrid[:, 1] + rstart) * side + (cgrid[:, 2] + rstart))
+    return choices, torch.from_numpy(own_lat.astype(np.int64)).to(device)
+
+
+def _block_pos(valid_blocks: torch.Tensor, n_xyz) -> torch.Tensor:
+    _, ny, nz = n_xyz
+    vb = torch.clamp(valid_blocks, min=0).to(torch.int64)
+    return torch.stack([vb // (ny * nz), (vb // nz) % ny, vb % nz], dim=-1)
+
+
+def _batch_of(slot_to_batch: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """slot_to_batch[slot], where a free slot (-1) reads the table's last
+    entry (-1), as the JAX package's clip to -1 and wrap-around does."""
+    n = slot_to_batch.shape[0]
+    idx = torch.clamp(slot.to(torch.int64), -1, n - 2)
+    return slot_to_batch[torch.where(idx < 0, n - 1, idx)]
+
+
+def corner_field(indexer: torch.Tensor, slot_to_batch: torch.Tensor,
+                 valid_blocks: torch.Tensor, cube_sdf: torch.Tensor,
+                 cube_std: torch.Tensor, n_xyz: Tuple[int, int, int],
+                 r: int, interpolate: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blend block lattices into block-corner values.
+
+    Returns (corner_sdf, corner_std, corner_valid), each (B, r+1, r+1, r+1)
+    for B = len(valid_blocks).  ``cube_sdf``/``cube_std`` may hold MORE rows
+    than B (``slot_to_batch`` indexes into them): a chunked extract emits
+    triangles for a block subset while interpolating corners against every
+    evaluated neighbour.  Invalid corners are NaN.
+    """
+    dev = cube_sdf.device
+    B = valid_blocks.shape[0]
+    side = 2 * r
+    nc = (r + 1) ** 3
+    shape4 = (B, r + 1, r + 1, r + 1)
+    block_ok = valid_blocks >= 0
+    bpos = _block_pos(valid_blocks, n_xyz)                               # (B, 3)
+    cube_sdf_f = cube_sdf.reshape(-1, side ** 3)
+    cube_std_f = cube_std.reshape(-1, side ** 3)
+    choices, own_lat = _blend_consts(r, dev)
+    nan = float("nan")
+
+    if not interpolate:
+        # own-lattice corner samples only (non-interp variant)
+        own_batch = _batch_of(slot_to_batch,
+                              indexer[torch.clamp(valid_blocks, min=0).to(torch.int64)])
+        valid = block_ok & (own_batch >= 0)
+        bsafe = torch.clamp(own_batch, min=0).to(torch.int64)
+        sdf = cube_sdf_f[bsafe][:, own_lat]
+        std = cube_std_f[bsafe][:, own_lat]
+        v = valid[:, None].expand(B, nc)
+        return (torch.where(v, sdf, nan).reshape(shape4),
+                torch.where(v, std, nan).reshape(shape4),
+                v.reshape(shape4))
+
+    _, ny, nz = n_xyz
+    num = torch.zeros(B, nc, device=dev)
+    den = torch.zeros(B, nc, device=dev)
+    wsum = torch.zeros(B, nc, device=dev)
+    own_invalid = torch.zeros(B, nc, dtype=torch.bool, device=dev)
+    for off_c, lat, w_c, is_own in choices:
+        oob = torch.zeros(B, nc, dtype=torch.bool, device=dev)
+        coords = []
+        for a in range(3):
+            ca = bpos[:, a][:, None] + off_c[a][None, :]                 # (B, nc)
+            oob = oob | (ca < 0) | (ca >= n_xyz[a])
+            coords.append(torch.clamp(ca, 0, n_xyz[a] - 1))
+        cell = coords[0] * (ny * nz) + coords[1] * nz + coords[2]
+        slot = indexer[cell]
+        batch = _batch_of(slot_to_batch, slot)
+        valid = (~oob) & (slot >= 0) & (batch >= 0) & block_ok[:, None]
+        bsafe = torch.clamp(batch, min=0).to(torch.int64)
+        s = cube_sdf_f[bsafe, lat[None, :]]
+        t = cube_std_f[bsafe, lat[None, :]]
+        w = w_c[None, :]
+        wt = torch.where(valid, w * t, 0.0)
+        num = num + torch.where(valid, s * wt, 0.0)
+        den = den + wt
+        wsum = wsum + torch.where(valid, w, 0.0)
+        own_invalid = own_invalid | (is_own[None, :] & ~valid)
+
+    corner_valid = (~own_invalid) & (den > 0)
+    corner_sdf = torch.where(corner_valid, num / torch.clamp(den, min=1e-30), nan)
+    corner_std = torch.where(corner_valid, den / torch.clamp(wsum, min=1e-30), nan)
+    return (corner_sdf.reshape(shape4), corner_std.reshape(shape4),
+            corner_valid.reshape(shape4))
+
+
+@lru_cache(maxsize=32)
+def _mc_consts(r: int, device: torch.device):
+    """Subcell corner indices into the (r+1)^3 corner field (8, n), the
+    subcell corner positions pa/pb of each edge and coordinate (12 x 3 x
+    (n,) pairs, in grid units of the block), and the triangle table."""
+    rp = r + 1
+    sub = np.stack(np.meshgrid(*([np.arange(r)] * 3), indexing="ij"),
+                   axis=-1).reshape(-1, 3)                                # (n, 3)
+    corner_idx = np.stack([
+        ((sub[:, 0] + dx) * rp * rp + (sub[:, 1] + dy) * rp + (sub[:, 2] + dz))
+        for dx, dy, dz in CORNER_OFFSETS])                                # (8, n)
+    edge_pos = []
+    for e in range(12):
+        a, b = (int(x) for x in EDGE_CORNERS[e])
+        edge_pos.append([
+            (torch.from_numpy((sub[:, c] + CORNER_OFFSETS[a][c]).astype(np.float32) / r)
+             .to(device),
+             torch.from_numpy((sub[:, c] + CORNER_OFFSETS[b][c]).astype(np.float32) / r)
+             .to(device))
+            for c in range(3)])
+    return (torch.from_numpy(corner_idx.astype(np.int64)).to(device), edge_pos,
+            torch.from_numpy(TRI_TABLE.astype(np.int64)).to(device))
+
+
+def marching_cubes_sparse(indexer: torch.Tensor, slot_to_batch: torch.Tensor,
+                          valid_blocks: torch.Tensor, cube_sdf: torch.Tensor,
+                          cube_std: torch.Tensor, n_xyz: Tuple[int, int, int],
+                          r: int, max_triangles: int, max_std: float = 2000.0,
+                          interpolate: bool = True) -> McResult:
+    """Emit triangles for all active blocks.  ``cube_sdf`` must already
+    carry the sign flip (the mesher negates the decoder output)."""
+    dev = cube_sdf.device
+    _, ny, nz = n_xyz
+    B = valid_blocks.shape[0]
+    rp = r + 1
+    n = r ** 3                                       # subcells per block
+    c_sdf, c_std, c_ok = corner_field(indexer, slot_to_batch, valid_blocks,
+                                      cube_sdf, cube_std, n_xyz, r, interpolate)
+    cs = c_sdf.reshape(B, rp ** 3)
+    ct = c_std.reshape(B, rp ** 3)
+    cv = c_ok.reshape(B, rp ** 3)
+    corner_idx, edge_pos_c, tri_table = _mc_consts(r, dev)
+
+    v_sdf = [cs[:, corner_idx[i]] for i in range(8)]                  # 8 x (B, n)
+    v_std = [ct[:, corner_idx[i]] for i in range(8)]
+    v_ok = [cv[:, corner_idx[i]] for i in range(8)]
+
+    cube_ok = v_ok[0]
+    for i in range(1, 8):
+        cube_ok = cube_ok & v_ok[i]
+    cube_type = sum((v_sdf[i] < 0).to(torch.int64) << i for i in range(8))
+    cube_type = torch.where(cube_ok, cube_type, 0)                    # (B, n)
+
+    # subcell corner positions in grid units: block_pos + (sub + corner)/r
+    bpos = _block_pos(valid_blocks, n_xyz).to(torch.float32)         # (B, 3)
+
+    # edge vertices: per edge, per coord a (B, n) position, and a (B, n) std
+    edge_pos = []     # [e][c] -> (B, n)
+    edge_std = []     # [e]    -> (B, n)
+    for e in range(12):
+        a, b = (int(x) for x in EDGE_CORNERS[e])
+        va, vb_ = v_sdf[a], v_sdf[b]
+        # sdf_interp: the later where wins
+        w2 = -va / torch.where(torch.abs(vb_ - va) < 1e-30, 1e-30, vb_ - va)
+        w2 = torch.where(torch.abs(va - vb_) < 1e-5, 0.0, w2)
+        w2 = torch.where(torch.abs(vb_) < 1e-5, 1.0, w2)
+        w2 = torch.where(torch.abs(va) < 1e-5, 0.0, w2)
+        pos_c = []
+        for c in range(3):
+            pa, pb = edge_pos_c[e][c]
+            pos_c.append(pa[None, :] * (1.0 - w2) + pb[None, :] * w2
+                         + bpos[:, c][:, None])
+        edge_pos.append(pos_c)
+        edge_std.append(v_std[a] * (1.0 - w2) + v_std[b] * w2)
+
+    epos = [torch.stack([edge_pos[e][c] for e in range(12)], dim=-1)   # (B, n, 12)
+            for c in range(3)]
+    estd = torch.stack(edge_std, dim=-1)                               # (B, n, 12)
+
+    tri_edges = tri_table[cube_type]                                   # (B, n, 16)
+    block_of_sub = valid_blocks[:, None].expand(B, n)
+
+    # candidate triangles: 5 per subcell, rows (9, B*n) per slab
+    rows, srows, masks = [], [], []
+    for t in range(5):
+        e = tri_edges[..., 3 * t:3 * t + 3]                            # (B, n, 3)
+        exists = (e[..., 0] >= 0) & cube_ok
+        esafe = torch.clamp(e, min=0)
+        vstd_t, vrow_t = [], []
+        for k in range(3):
+            ek = esafe[..., k:k + 1]                                   # (B, n, 1)
+            vstd_t.append(torch.gather(estd, -1, ek)[..., 0])
+            for c in range(3):
+                vrow_t.append(torch.gather(epos[c], -1, ek)[..., 0])  # row k*3+c
+        exists = exists & (vstd_t[0] <= max_std) & (vstd_t[1] <= max_std) \
+            & (vstd_t[2] <= max_std)
+        rows.append(torch.stack([v.reshape(-1) for v in vrow_t]))      # (9, B*n)
+        srows.append(torch.stack([v.reshape(-1) for v in vstd_t]))     # (3, B*n)
+        masks.append(exists.reshape(-1))
+
+    all_tris = torch.cat(rows, dim=1)                                  # (9, 5*B*n)
+    all_stds = torch.cat(srows, dim=1)                                 # (3, 5*B*n)
+    all_mask = torch.cat(masks)                                        # (5*B*n,)
+    all_block = block_of_sub.reshape(-1).repeat(5)
+
+    # ordered compaction: every dropped or overflowing candidate lands in the
+    # extra column max_triangles, which is sliced off, so the write order of
+    # duplicate indices does not matter
+    order = torch.cumsum(all_mask.to(torch.int64), 0) - 1
+    out_idx = torch.where(all_mask & (order < max_triangles), order, max_triangles)
+    triangles = torch.zeros(9, max_triangles + 1, device=dev)
+    triangles[:, out_idx] = all_tris
+    tri_std = torch.zeros(3, max_triangles + 1, device=dev)
+    tri_std[:, out_idx] = all_stds
+    tri_block = torch.full((max_triangles + 1,), -1, dtype=torch.int32, device=dev)
+    tri_block[out_idx] = all_block.to(torch.int32)
+    return McResult(triangles[:, :-1], tri_std[:, :-1], tri_block[:-1],
+                    all_mask.sum())

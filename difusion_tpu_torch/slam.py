@@ -1,12 +1,14 @@
-"""Online SLAM on the dense map: track + fuse (counterpart of
-difusion_tpu/slam.py:142-360, per-frame path, no meshing and no latent
+"""Online SLAM on the dense map: track + fuse + mesh (counterpart of
+difusion_tpu/slam.py:142-360 and 551-552, per-frame path, no latent
 optimization).
 
 Per frame: ``SDFTracker.track_camera_packed`` (the first frame takes its
-given pose), and every ``integrate_interval`` frames ``integrate_keyframe``
-with the tracked pose applied to the frame's point cloud.  The JAX package
-can also run K frames as one ``lax.scan`` dispatch; the port runs the same
-per-frame program in a Python loop.
+given pose); every ``integrate_interval`` frames ``integrate_keyframe``
+with the tracked pose applied to the frame's point cloud; and every
+``meshing_interval`` frames (by default the integrate interval) a
+synchronous incremental mesh extract.  The JAX package can also run K frames
+as one ``lax.scan`` dispatch and mesh in a worker thread; the port runs the
+same per-frame program in a Python loop.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from .core import map as M
 from .core import tracker as tracker_mod
+from .core.meshing import MeshExtractor
 from .core.tracker import SDFTracker, TrackerConfig
 from .data.production import FrameData
 from .device import resolve_device
@@ -30,18 +33,29 @@ __all__ = ["SLAMSystem", "load_prior"]
 
 
 class SLAMSystem:
-    """Track + fuse over an RGB-D stream on ``device`` (``"cuda"`` unless the
-    caller asks for ``"cpu"``)."""
+    """Track + fuse + mesh over an RGB-D stream on ``device`` (``"cuda"``
+    unless the caller asks for ``"cpu"``)."""
 
     def __init__(self, map_cfg: M.MapConfig, tcfg: TrackerConfig,
                  decoder: Decoder, encoder: Encoder, calib: Intrinsic,
                  integrate_interval: int = 20,
                  depth_cut: tuple = (0.5, 5.0),
-                 meshing: bool = False,
+                 mesh_resolution: int = 4,
+                 max_triangles: int = 1 << 22,
+                 mesh_max_std: float = 0.15,
+                 mesh_fast: bool = False,
+                 meshing: bool = True,
+                 meshing_interval: int = -1,
+                 run_async: bool = False,
                  latent_optimize: bool = False,
                  device="cuda"):
-        if meshing:
-            raise NotImplementedError("meshing is not ported yet")
+        if mesh_fast:
+            raise NotImplementedError(
+                "mesh_fast=True is not ported yet: it needs the coarse-to-fine "
+                "lattice decode (_eval_and_negate_fast)")
+        if run_async:
+            raise NotImplementedError("run_async (meshing in a worker thread) "
+                                      "is not ported yet")
         if latent_optimize:
             raise NotImplementedError("latent optimization is not ported yet")
         self.device = resolve_device(device)
@@ -54,11 +68,17 @@ class SLAMSystem:
         self.tracker = SDFTracker(map_cfg, tcfg, self.decoder, calib,
                                   self.device)
         self.integrate_interval = integrate_interval
+        self.mesher = MeshExtractor(map_cfg, self.decoder,
+                                    voxel_resolution=mesh_resolution,
+                                    max_triangles=max_triangles) if meshing else None
+        self.meshing_interval = (meshing_interval if meshing_interval > 0
+                                 else integrate_interval)
+        self.mesh_max_std = mesh_max_std
         self.first_iso: Optional[Isometry] = None
 
     def process_frame(self, frame: FrameData,
                       packed: Optional[torch.Tensor] = None) -> Pose:
-        """Track (and every ``integrate_interval`` frames fuse) one frame.
+        """Track (and on schedule fuse and mesh) one frame.
         Returns the device pose.  ``packed``: optionally the frame's
         :func:`~.core.tracker.pack_frame` buffer already on the device."""
         set_pose = None
@@ -76,4 +96,10 @@ class SLAMSystem:
             w_pts, w_nrm, w_mask = tr.last_pc_world(pose)
             self.state = M.integrate_keyframe(self.map_cfg, self.encoder,
                                               self.state, w_pts, w_nrm, w_mask)
+        if self.mesher is not None and (tr.n_tracked - 1) % self.meshing_interval == 0:
+            self.state = self.mesher.extract(self.state, max_std=self.mesh_max_std)
         return pose
+
+    def save_map(self, path) -> None:
+        """Write the map in the JAX package's npz format."""
+        M.save_map(path, self.map_cfg, self.state)

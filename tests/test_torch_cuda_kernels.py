@@ -45,6 +45,22 @@ def test_decode_grad_kernel_matches_plain(dev, packed, n):
     torch.testing.assert_close(got[2], ref[2], atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("n", [0, 1, 63, 65, 4097, (1 << 20) + 3])
+def test_decode_fused_kernel_matches_plain(dev, packed, n):
+    """Kernel 3 against its plain version, sdf/std atol 1e-5, over the
+    mesher's lattice range; one counted launch per call, none for N = 0."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    lat = torch.randn(n, 29, generator=gen, device=dev) * 0.3
+    rel = torch.rand(n, 3, generator=gen, device=dev) * 1.75 - 1.0
+    before = _build.launch_counts().get("decode_fused", 0)
+    got = fused.decode_fused(packed, lat, rel)
+    ref = fused.decode_fused_plain(packed, lat, rel)
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get("decode_fused", 0) == before + (n > 0)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("shape,window", [((37, 53), 2), ((8, 32), 6), ((240, 320), 6)])
 def test_window_stats_kernel_matches_plain(dev, shape, window):
     """Counts exactly; the sums too, since the kernel rounds every product
@@ -70,6 +86,9 @@ def test_wrappers_reject_bad_inputs(dev, packed):
         fused.decode_grad_fused(packed, lat.double(), torch.zeros(8, 3, device=dev))
     with pytest.raises(ValueError):
         fused.decode_grad_fused(packed, lat, torch.zeros(8, 3, device=dev).T.contiguous().T)
+    with pytest.raises(ValueError):   # a broadcast latent is not contiguous
+        fused.decode_fused(packed, torch.zeros(1, 29, device=dev).expand(8, 29),
+                           torch.zeros(8, 3, device=dev))
     m = torch.zeros(4, 5, device=dev)
     with pytest.raises(ValueError):
         stencil.window_stat_sums(m, m, m, torch.zeros(4, 6, device=dev), 2, 0.1, 0.1)

@@ -63,6 +63,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     cfg = M.MapConfig(bound_min=(0.0, 0.0, 0.0), n_xyz=(4, 4, 4), voxel_size=0.1)
     with pytest.raises(RuntimeError, match="CUDA"):
         SLAMSystem(cfg, TrackerConfig(), dec, enc, Intrinsic(100.0, 100.0, 8.0, 8.0))
+    from difusion_tpu_torch import mesh_tool
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh_tool.main(["map.npz", "mesh.ply", "--hyper", str(hyper)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.load_map("map.npz")
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,258 @@
+"""Parity of the port's mesher (kernel 3's plain version, the dense
+MeshExtractor with its cache splice, map save/load, the exporters and the
+offline mesh tool) against the JAX package on the CPU, with the in-repo
+prior.  Map state crosses between the packages through the npz snapshot."""
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import conftest  # noqa: F401  (JAX on the CPU)
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from difusion_tpu.core import hash_map as JHM
+from difusion_tpu.core import map as JM
+from difusion_tpu.core.meshing import MeshExtractor as JMeshExtractor
+from difusion_tpu.models.decoder import DecoderSpec as JDecoderSpec
+from difusion_tpu.models.decoder import decode as jax_decode
+from difusion_tpu.models.decoder import fold_decoder_params, init_decoder_params
+from difusion_tpu.ops import decoder_fused as jax_fused
+from difusion_tpu.slam import load_prior as jax_load_prior
+from difusion_tpu_torch import mesh_tool
+from difusion_tpu_torch.core import map as M
+from difusion_tpu_torch.core.meshing import MeshExtractor
+from difusion_tpu_torch.models.decoder import Decoder, DecoderSpec
+from difusion_tpu_torch.models.weights import from_jax_params, load_prior
+from difusion_tpu_torch.ops import _build
+from difusion_tpu_torch.ops import decoder_fused as fused
+
+HYPER = Path(__file__).resolve().parents[1] / "di-checkpoints/study_mixed/hyper.json"
+CFG = dict(bound_min=(-2.0, -2.0, -0.5), n_xyz=(40, 40, 40), voxel_size=0.1,
+           latent_dim=29, capacity=1 << 12, prune_min_vox_obs=4,
+           ignore_count_th=1.0, encoder_count_th=600.0)
+MAX_STD = 0.15
+
+
+@pytest.fixture(scope="module")
+def prior():
+    """The JAX package's folded prior and the port's decoder built from the
+    same numpy trees, so both sides hold identical weights."""
+    dec, enc, spec = jax_load_prior(str(HYPER), 300)
+    t_dec, _ = from_jax_params(jax.tree.map(np.asarray, dec),
+                               jax.tree.map(np.asarray, enc), DecoderSpec(*spec),
+                               device="cpu")
+    return dec, enc, spec, t_dec
+
+
+def _surface(seed, x0, n=8000):
+    """Points and normals on the corrugated surface over a 1 m patch."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(x0 - 0.5, x0 + 0.5, n)
+    y = rng.uniform(-0.5, 0.5, n)
+    z = 2.0 + 0.1 * (np.sin(5 * x) + 0.7 * np.cos(4 * y))
+    nrm = np.stack([0.5 * np.cos(5 * x), -0.28 * np.sin(4 * y), -np.ones(n)], 1)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return (jnp.asarray(np.stack([x, y, z], 1).astype(np.float32)),
+            jnp.asarray(nrm.astype(np.float32)), jnp.ones(n, bool))
+
+
+def _to_port(cfg, state, path):
+    """JAX state -> npz (JAX save_map) -> the port's (cfg, state)."""
+    JM.save_map(str(path), cfg, state)
+    return M.load_map(path, device="cpu")
+
+
+@pytest.fixture(scope="module", params=[3, 4], ids=lambda r: f"r{r}")
+def meshes(request, prior, tmp_path_factory):
+    """Both meshers on the same fused state, then again after a second,
+    overlapping fusion (an incremental extract through the cache splice).
+    Records (triangles, stds, transfer bytes, re-meshed blocks) per step."""
+    dec, enc, spec, t_dec = prior
+    r = request.param
+    tmp = tmp_path_factory.mktemp(f"mesh_r{r}")
+    jcfg = JM.MapConfig(**CFG)
+    jm = JMeshExtractor(jcfg, dec, spec, voxel_resolution=r, max_triangles=1 << 16)
+    tm = None
+    steps = []
+    js = JM.create_map_state(jcfg)
+    for k, x0 in enumerate((0.0, 0.35)):
+        js = JM.integrate_keyframe(jcfg, enc, js, *_surface(k, x0))
+        tcfg, ts = _to_port(jcfg, js, tmp / f"map{k}.npz")
+        if tm is None:
+            tm = MeshExtractor(tcfg, t_dec, voxel_resolution=r, max_triangles=1 << 16)
+        js = jm.extract(js, max_std=MAX_STD)
+        ts = tm.extract(ts, max_std=MAX_STD)
+        assert not bool(ts.mesh_dirty.any())
+        steps.append(dict(jax=jm.triangles(), port=tm.triangles(),
+                          jax_bytes=jm.last_transfer_bytes,
+                          port_bytes=tm.last_transfer_bytes,
+                          blocks=tm.last_stats["blocks"],
+                          observed=int((ts.obs_count > CFG["ignore_count_th"]).sum())))
+    return steps, jm, tm
+
+
+@pytest.mark.parametrize("step", [0, 1], ids=["first", "incremental"])
+def test_mesh_extract_matches_jax(meshes, step):
+    """Triangle count exact; triangles and stds atol 1e-5 in the JAX
+    package's own order (blocks by slot, the MC slab order, the cache
+    splice), which is stricter than comparing them sorted: a lexsort of
+    vertices that agree to ~1e-7 can break ties differently.  Host transfer
+    accounting equal.  Step 1 re-meshes only the blocks the second fusion
+    touched and keeps the rest from the cache."""
+    steps, _, _ = meshes
+    s = steps[step]
+    (jt, jstd), (tt, tstd) = s["jax"], s["port"]
+    assert len(tt) == len(jt) > 500
+    np.testing.assert_allclose(tt, jt, atol=1e-5)
+    np.testing.assert_allclose(tstd, jstd, atol=1e-5)
+    assert s["port_bytes"] == s["jax_bytes"]
+    if step == 1:
+        assert 0 < s["blocks"] < s["observed"]
+
+
+def test_decode_fused_plain_matches_jax_kernel_and_decode(prior):
+    """Kernel 3's plain version == the Pallas kernel in interpret mode and
+    == models.decoder.decode at N = 777 (ragged against the tile), f32 atol
+    2e-6; on CPU tensors the wrapper is the plain version and counts no
+    launch."""
+    dec, _, spec, t_dec = prior
+    rng = np.random.default_rng(5)
+    lat = rng.normal(0, 0.3, (777, 29)).astype(np.float32)
+    rel = rng.uniform(-1.0, 0.75, (777, 3)).astype(np.float32)
+    packed = fused.pack_fused_decoder(t_dec)
+    got = fused.decode_fused_plain(packed, torch.from_numpy(lat), torch.from_numpy(rel))
+    kern = jax_fused.decode_fused(dec, spec, jnp.asarray(lat), jnp.asarray(rel),
+                                  tile=256, interpret=True)
+    ref = jax_decode(dec, spec, jnp.asarray(lat), jnp.asarray(rel))
+    for want in (kern, ref):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-6, rtol=0)
+    before = _build.launch_counts().get("decode_fused", 0)
+    via = fused.decode_fused(packed, torch.from_numpy(lat), torch.from_numpy(rel))
+    assert all(torch.equal(a, b) for a, b in zip(via, got))
+    assert _build.launch_counts().get("decode_fused", 0) == before
+
+
+def test_save_map_round_trip_to_jax(prior, tmp_path):
+    """A port snapshot loads in the JAX package (the optimizer's fields as
+    zeros) and back in the port unchanged."""
+    _, enc, _, _ = prior
+    jcfg = JM.MapConfig(**CFG)
+    js = JM.integrate_keyframe(jcfg, enc, JM.create_map_state(jcfg), *_surface(7, 0.0))
+    tcfg, ts = _to_port(jcfg, js, tmp_path / "a.npz")
+    M.save_map(tmp_path / "b.npz", tcfg, ts)
+    jcfg2, js2 = JM.load_map(str(tmp_path / "b.npz"))
+    assert jcfg2 == jcfg
+    for f in JM.MapState._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(js2, f)),
+                                      np.asarray(getattr(js, f)), err_msg=f)
+    tcfg2, ts2 = M.load_map(tmp_path / "b.npz", device="cpu")
+    assert tcfg2 == tcfg
+    for f in M.MapState._fields:
+        assert torch.equal(getattr(ts2, f), getattr(ts, f)), f
+
+
+def test_exporters_match_jax(meshes, tmp_path):
+    """For the same triangles, write_ply's bytes (with the port's own jet
+    table) and write_obj's text equal the JAX package's."""
+    _, jm, tm = meshes
+    out = MeshExtractor(tm.cfg, tm.decoder)
+    out._tris, out._std = jm.triangles()
+    for name, rng in (("a.ply", None), ("b.ply", (0.05, 0.1))):
+        jm.write_ply(str(tmp_path / f"j{name}"), std_range=rng)
+        out.write_ply(str(tmp_path / f"t{name}"), std_range=rng)
+        assert (tmp_path / f"t{name}").read_bytes() == (tmp_path / f"j{name}").read_bytes()
+    jm.write_obj(str(tmp_path / "j.obj"))
+    out.write_obj(str(tmp_path / "t.obj"))
+    assert (tmp_path / "t.obj").read_text() == (tmp_path / "j.obj").read_text()
+
+
+def test_mesh_tool_matches_no_cache_extract(prior, tmp_path):
+    """The offline tool on a port snapshot == a no_cache extract with the
+    same prior, at r = 4 without std pruning."""
+    _, enc, _, _ = prior
+    jcfg = JM.MapConfig(**CFG)
+    js = JM.integrate_keyframe(jcfg, enc, JM.create_map_state(jcfg), *_surface(3, 0.0))
+    tcfg, ts = _to_port(jcfg, js, tmp_path / "map.npz")
+    tool = mesh_tool.main([str(tmp_path / "map.npz"), str(tmp_path / "m.ply"),
+                           "--hyper", str(HYPER), "--resolution", "4",
+                           "--device", "cpu"])
+    dec, _, _ = load_prior(HYPER, 300, device="cpu")
+    ref = MeshExtractor(tcfg, dec, voxel_resolution=4, max_triangles=int(1e7))
+    ref.extract(ts, no_cache=True)
+    (a, sa), (b, sb) = tool.triangles(), ref.triangles()
+    assert len(a) > 500
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(sa, sb)
+    assert (tmp_path / "m.ply").stat().st_size > 1000
+
+
+def test_chunked_extract_matches_unchunked(prior):
+    """A max_eval_points budget that splits the lattice decode into several
+    dispatches and marching cubes into several chunks reproduces the
+    one-dispatch mesh: corner blending reads neighbours across chunk
+    seams."""
+    _, enc, _, t_dec = prior
+    jcfg = JM.MapConfig(**CFG)
+    js = JM.integrate_keyframe(jcfg, enc, JM.create_map_state(jcfg), *_surface(4, 0.0))
+    tcfg = M.MapConfig(**CFG)
+    ts = M.MapState(**{f: torch.from_numpy(np.array(getattr(js, f)))
+                       for f in M.MapState._fields})
+    one = MeshExtractor(tcfg, t_dec, voxel_resolution=3)
+    one.extract(ts, max_std=MAX_STD)
+    chunked = MeshExtractor(tcfg, t_dec, voxel_resolution=3,
+                            max_eval_points=64 * 6 ** 3)
+    chunked.extract(ts, max_std=MAX_STD)
+    assert one.last_stats["decode_dispatches"] == 1
+    assert chunked.last_stats["decode_dispatches"] == chunked.last_stats["bucket"] // 64 > 1
+    assert chunked.last_stats["mc_chunks"] > 1
+    # chunks emit their triangles one after the other: compare them sorted
+    a, b = (np.concatenate([t.reshape(len(t), 9), sd], axis=1)
+            for t, sd in (one.triangles(), chunked.triangles()))
+    assert len(b) == len(a) > 500
+    np.testing.assert_allclose(b[np.lexsort(b.T)], a[np.lexsort(a.T)], atol=1e-6)
+
+
+def test_unsupported_decoder_meshes_through_decode(prior, tmp_path):
+    """A decoder kernel 3 does not take (64-wide, re-injection at layer 2)
+    decodes through Decoder.decode, as the JAX mesher's XLA route does, and
+    meshes like it: count exact, triangles in order atol 1e-5.  Random
+    weights and latents give many sign changes."""
+    _, enc, _, _ = prior
+    spec = JDecoderSpec(latent_size=29, dims=(64, 64, 64, 64), latent_in=(2,))
+    dec = fold_decoder_params(init_decoder_params(spec, jax.random.key(0)))
+    t_dec = Decoder(DecoderSpec(*spec), jax.tree.map(np.asarray, dec))
+    assert not fused.supports_spec(t_dec.spec)
+    jcfg = JM.MapConfig(**CFG)
+    js = JM.integrate_keyframe(jcfg, enc, JM.create_map_state(jcfg), *_surface(5, 0.0))
+    js = js._replace(latents=jnp.asarray(np.random.default_rng(6).normal(
+        0, 0.8, js.latents.shape).astype(np.float32)))
+    tcfg, ts = _to_port(jcfg, js, tmp_path / "map.npz")
+    jm = JMeshExtractor(jcfg, dec, spec, voxel_resolution=2, max_triangles=1 << 16)
+    tm = MeshExtractor(tcfg, t_dec, voxel_resolution=2, max_triangles=1 << 16)
+    assert tm.packed is None
+    jm.extract(js, max_std=100.0)
+    tm.extract(ts, max_std=100.0)
+    (jt, jsd), (tt, tsd) = jm.triangles(), tm.triangles()
+    assert len(tt) == len(jt) > 500
+    np.testing.assert_allclose(tt, jt, atol=1e-5)
+    np.testing.assert_allclose(tsd, jsd, atol=1e-5)
+
+
+def test_unported_mesher_options_raise(prior, tmp_path):
+    """Hash-map snapshots, --fast and --shard name what is missing."""
+    hcfg = JHM.HashMapConfig(voxel_size=0.1, latent_dim=29, capacity=256,
+                             table_size=1024)
+    JHM.save_map(str(tmp_path / "hash.npz"), hcfg, JHM.create_hash_map_state(hcfg))
+    jcfg = JM.MapConfig(**CFG)
+    JM.save_map(str(tmp_path / "dense.npz"), jcfg, JM.create_map_state(jcfg))
+    base = [str(tmp_path / "out.ply"), "--hyper", str(HYPER), "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="hash"):
+        mesh_tool.main([str(tmp_path / "hash.npz"), *base])
+    with pytest.raises(NotImplementedError, match="_eval_and_negate_fast"):
+        mesh_tool.main([str(tmp_path / "dense.npz"), *base, "--fast"])
+    with pytest.raises(NotImplementedError, match="shard"):
+        mesh_tool.main([str(tmp_path / "dense.npz"), *base, "--shard"])
