@@ -1,55 +1,92 @@
-// Fused decoder kernels, f32, sm_90a: kernel 1 (forward + d(sdf)/d(xyz), for
-// the GN SDF term) and kernel 3 (forward only, for the mesher's lattice
-// decode, at the end of this file).  Both read the same packed weights.
+// Fused decoder kernels on Hopper's tensor cores (3xTF32, f32 accumulation),
+// sm_90a: kernel 1 (forward + d(sdf)/d(xyz), for the GN SDF term) and
+// kernel 3 (forward only, for the mesher's lattice decode).  Both read the
+// same packed weights and share the warp-level machinery of mlp_tc.cuh.
 //
 // Kernel 1 replaces the Pallas TPU kernel difusion_tpu/ops/decoder_fused.py
-// `_mlp_grad_kernel` (reached through `decode_grad_fused_packed`).  Per point
-// it runs the whole probabilistic-SDF decoder (5 linears, latent
-// re-injection at layer 3, tanh sdf head, std = 0.05 + 0.5 softplus read
-// from the last hidden layer) and then backpropagates the sdf ONLY to the 3
-// xyz inputs (the latent is stop-gradiented; relu'(0) = 0):
+// `_mlp_grad_kernel` (reached through `decode_grad_fused_packed`); kernel 3
+// replaces `_mlp_kernel` (`decode_fused_packed`).  Per point they run the
+// probabilistic-SDF decoder (5 linears, latent re-injection at layer 3, tanh
+// sdf head, std = 0.05 + 0.5 softplus read from the last hidden layer);
+// kernel 1 then backpropagates the sdf ONLY to the 3 xyz inputs (the latent
+// is stop-gradiented; relu'(0) = 0):
 //
 //   dz3 = (1 - sdf^2) w_sdf * [h3 > 0]
 //   dz2 = (dz3 W3a) * [h2 > 0];  dz1 = (dz2 W2) * [h1 > 0];  dz0 = (dz1 W1) * [h0 > 0]
 //   dsdf/dxyz = dz3 W3b[:, xyz] + dz0 W0[:, xyz]
 //
-// What bounds it on an H100: arithmetic.  Per point the forward is 49,408
-// multiply-adds and the backward 41,728 (~0.18 MFLOP), so one 8192-point
-// evaluation is ~1.49 GFLOP against ~1.5 MB of input, weights and output.
-// At the card's 67 TFLOP/s f32 (non-tensor-core) peak (H100 SXM, 700 W) that
-// is >= 22 us, while the bytes need < 1 us.
+// What bounds them on an H100: arithmetic.  Per point the forward is 49,408
+// multiply-adds and the backward 41,728.  Kernel 1 at N = 8192 is 1.49 GFLOP
+// against ~2 MB of bytes; kernel 3 at N = 2^20 is 103.6 GFLOP against
+// ~140 MB.  3xTF32 triples the tensor-core work, so at the card's 495 TFLOP/s
+// TF32 dense peak (H100 SXM, 700 W) the bounds are 9.0 us and 0.63 ms, 2.5x
+// below the f32 SIMT bounds (67 TFLOP/s: 22.3 us and 1.55 ms).
 //
-// Design.  The TPU kernel kept the zero-padded (6, 128, 128) f32 weight
-// stack resident in VMEM (384 KB); a block here has at most 227 KB of shared
-// memory, and even the unpadded live weights are ~190 KB.  So a block of 256
-// threads takes 64 points and walks the layers in order, staging ONE layer's
-// weights at a time (largest 64 KB) from the L2-resident packed buffer into
-// shared memory, next to two 64-point activation buffers and the input rows.
-// Every layer is a block GEMM out[64][Nout] = act[64][K] @ W[K][Nout] where
-// each thread owns a 4 x (Nout/16) register tile (rows ty+16i, cols tx+16j),
-// in plain FP32 FMA: wgmma is bf16/TF32 and would break the f32 parity with
-// the JAX reference.  The backward pass needs only the relu masks of h0..h3:
-// a thread's backward tile of layer l is exactly its forward tile of layer
-// l, so each thread keeps its 32 mask bits per layer in a register and the
-// activations never leave the SM.  The packed buffer holds each weight in
-// both orientations (W^T for the forward, W for the backward), so every
-// stage is a contiguous float4 copy.  Ragged N: rows past n load zeros and
-// store nothing.
+// Design (mlp_tc.cuh has the fragment algebra).  The block's rows live in
+// shared memory, [rows][136] f32; a layer is a chain of m16n8k8 tf32 mma over
+// 8-wide k-tiles, three per (m-tile, k-tile, n-tile).  The warps of a block
+// split every layer's output columns into 4 parts of 32 and its rows into
+// groups of 16 MT (MT m-tiles: 1 for kernel 1, 2 for kernel 3), so a warp's
+// accumulator is 16 MT x 32 and one 16-byte load of a B fragment feeds 3 MT
+// mma.  Bias, relu and the relu-mask bits (for the backward, which walks the
+// same tiling) act on the accumulator fragments in place; between two
+// barriers (the other parts' warps read the same rows) the output overwrites
+// the rows.  The two 1-wide heads and the two xyz row-dots are per-lane
+// partial dots reduced over the 4 lanes of a row quad by shuffles, and over
+// the 4 column parts through shared memory.
+//
+// Weights stream in layer order (f0 f1 f2 f3, then g3 g2 g1 for kernel 1) in
+// chunks of 4 k-tiles (32 KB at N = 128) through a ring of shared-memory
+// slots, each chunk one TMA bulk copy that thread 0 issues RING - 1 chunks
+// ahead; per-slot mbarriers (full, empty) let each warp run on as soon as
+// its data is there, so the warps drift apart and one warp's shared-memory
+// loads overlap another's mma, and layer l+1's weights arrive while layer l
+// multiplies.  Every 2 k-tiles the mma partials, summed from zero, join the
+// f32 accumulator with a rounded FADD (mlp_tc.cuh says why).
+//
+// Designs tried on the H100 and dropped: a warp carrying 16 full rows in
+// registers from layer to layer spilled past 255 registers; a cp.async ring
+// with a __syncthreads per k-tile held all warps in step, so their
+// shared-memory loads and their mma ran one after the other, not overlapped.
+//
+// Rows per block.  Each block reads every weight chunk once from L2 (hi and
+// lo: 704 KB for kernel 1, 384 KB for kernel 3's forward), so more rows per
+// block mean less L2 traffic but fewer blocks.  Kernel 1: 16 warps (4 row
+// groups x 4 parts), 64 rows, 128 blocks at N = 8192 on 132 SMs (90 MB of L2
+// reads); 32 rows would double that traffic for blocks the SMs cannot hold
+// at once.  Kernel 3: 12 warps (3 row groups of 32 x 4 parts), 96 rows
+// (4.2 GB of L2 reads per 2^20 sites): with 16 warps of 32 rows the 128
+// registers a thread of a 512-thread block spilled.
+//
+// Shared memory (of 227 KB a block): the ring (5 slots of 32 KB for kernel 1,
+// 4 for kernel 3), then per row the inputs (40 f32), the activations (136
+// f32) and the 4 parts' head partials (and for kernel 1 their xyz row-dots),
+// kernel 1's parked masks and the ring's mbarriers: 223,312 B for kernel 1,
+// 201,792 B for kernel 3.  Row strides of 8 mod 32 floats put the 8-byte
+// fragment loads and stores of a half-warp on distinct banks.  Ragged N:
+// rows past n load zeros and store nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mlp_tc.cuh"
+
 namespace {
+
+using namespace mlp_tc;
 
 constexpr int LAT = 29;
 constexpr int DIN = 32;     // latent + xyz
 constexpr int HID = 128;
 constexpr int H2 = 96;      // layer 2 shrinks so [h2 | x] stays 128 wide
-constexpr int BM = 64;      // points per block
-constexpr int NT = 256;     // threads per block: 16 x 16 tiles
-constexpr int LDA = 144;    // activation row stride: rows r, r+1 land 16 banks apart
-constexpr int LDX = DIN + 1;
+constexpr int LDX = 40;     // input row stride (floats)
+constexpr int LDA = 136;    // activation row stride (floats)
+constexpr int KC = 4;       // weight k-tiles a ring slot holds
+constexpr int FLUSH = 2;    // k-tiles summed on the tensor cores between FADDs
+constexpr int SLOT = KC * (HID / 8) * 32;  // float4s a slot holds: 32 KB
 
-// packed layout (floats); must match ops/decoder_fused.py:pack_fused_decoder
+// packed layout (floats); must match ops/decoder_fused.py:pack_fused_decoder.
+// The f32 segments serve the plain versions; the kernels read the biases,
+// heads, xyz columns and the hi/lo fragment-ordered segment at OFF_TC.
 constexpr int OFF_F0 = 0;                      // W0^T  [32][128]
 constexpr int OFF_F1 = OFF_F0 + DIN * HID;     // W1^T  [128][128]
 constexpr int OFF_F2 = OFF_F1 + HID * HID;     // W2^T  [128][96]
@@ -66,374 +103,406 @@ constexpr int OFF_B3 = OFF_B2 + H2;
 constexpr int OFF_WSDF = OFF_B3 + HID;
 constexpr int OFF_WSTD = OFF_WSDF + HID;
 constexpr int OFF_BHEAD = OFF_WSTD + HID;      // b_sdf, b_std, 0, 0
-constexpr int PACKED_SIZE = OFF_BHEAD + 4;
+constexpr int OFF_TC = OFF_BHEAD + 4;          // f0 f1 f2 f3 g3 g2 g1, hi/lo fragments
+constexpr int TC_FLOATS = 2 * (OFF_W3XYZ - OFF_F0);
+constexpr int PACKED_SIZE = OFF_TC + TC_FLOATS;
+static_assert(OFF_TC % 4 == 0, "the fragment segment must be 16-byte aligned");
+static_assert(OFF_B0 % 2 == 0 && OFF_B2 % 2 == 0 && OFF_WSDF % 2 == 0,
+              "bias and head vectors are read as float2");
 
-constexpr int SMEM_FLOATS = HID * HID + 2 * BM * LDA + BM * LDX;
-constexpr int SMEM_BYTES = SMEM_FLOATS * 4;    // 148,224 B
+// chunks of KC k-tiles in the stream: every layer's depth is a multiple of
+// 8 KC, so no chunk straddles two layers
+constexpr int CHUNKS_FWD = (DIN + HID + HID + HID) / (8 * KC);  // 13
+constexpr int CHUNKS_ALL = CHUNKS_FWD + (HID + H2 + HID) / (8 * KC);  // 24
+static_assert(DIN % (8 * KC) == 0 && H2 % (8 * KC) == 0, "chunks must not straddle layers");
 
-// copy `count` floats (a multiple of 4, 16-byte aligned) global -> shared
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      int count) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < count / 4; i += NT) d4[i] = __ldg(s4 + i);
-}
-
-template <int TN, int TM>
-__device__ __forceinline__ void zero(float (&acc)[TM][8]) {
+// chunk j of the stream: offset and size (float4s) in the fragment segment
+struct DecoderSpan {
+  __device__ static __forceinline__ void span(int j, int& off, int& cnt) {
+    const int chunks[7] = {DIN / (8 * KC), HID / (8 * KC), HID / (8 * KC), HID / (8 * KC),
+                           HID / (8 * KC), H2 / (8 * KC), HID / (8 * KC)};
+    const int ns[7] = {HID, HID, H2, HID, H2, HID, HID};
+    off = 0;
+    cnt = 0;
+    bool found = false;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-}
-
-// acc[i][j] += sum_k A[ty+16i][k] * W[k][tx+16j]
-template <int TN>
-__device__ __forceinline__ void gemm(float (&acc)[4][8], const float* A, int lda,
-                                     int K, const float* W, int ldw, int tx,
-                                     int ty) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[4], b[TN];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * lda + k];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = W[k * ldw + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// h = relu(acc + b) -> buf; returns the [h > 0] bits of this thread's tile
-template <int TN>
-__device__ __forceinline__ uint32_t bias_relu_store(
-    const float (&acc)[4][8], const float* __restrict__ bias, float* buf,
-    int tx, int ty) {
-  uint32_t m = 0;
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const float bj = __ldg(bias + tx + 16 * j);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v = acc[i][j] + bj;
-      if (v > 0.f) {
-        m |= 1u << (i * TN + j);
-      } else {
-        v = 0.f;
+    for (int l = 0; l < 7; ++l) {
+      const int c = KC * ns[l] * 4;  // KC k-tiles x (N/8 n-tiles) x 32 lanes x 1 float4
+      if (!found) {
+        if (j < chunks[l]) {
+          off += j * c;
+          cnt = c;
+          found = true;
+        } else {
+          j -= chunks[l];
+          off += chunks[l] * c;
+        }
       }
-      buf[(ty + 16 * i) * LDA + tx + 16 * j] = v;
     }
   }
-  return m;
+};
+
+__device__ __forceinline__ float2 ldg2(const float* v, int i) {
+  return __ldg(reinterpret_cast<const float2*>(v) + i);
 }
 
-// dz = acc * [h > 0] -> buf
-template <int TN>
-__device__ __forceinline__ void mask_store(const float (&acc)[4][8], uint32_t m,
-                                           float* buf, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      buf[(ty + 16 * i) * LDA + tx + 16 * j] =
-          ((m >> (i * TN + j)) & 1u) ? acc[i][j] : 0.f;
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// row r = tid/4 of buf[.][0:128] dotted with the 3 columns of w[128][3];
-// 4 lanes per row, reduced with shuffles (valid in the part-0 lane)
-__device__ __forceinline__ void row_dot3(const float* buf, const float* __restrict__ w,
-                                         int r, int part, float (&out)[3]) {
-  float g0 = 0.f, g1 = 0.f, g2 = 0.f;
-  const float* h = buf + r * LDA;
-  for (int c = part * 32; c < part * 32 + 32; ++c) {
-    const float d = h[c];
-    g0 = fmaf(d, __ldg(w + 3 * c + 0), g0);
-    g1 = fmaf(d, __ldg(w + 3 * c + 1), g1);
-    g2 = fmaf(d, __ldg(w + 3 * c + 2), g2);
+// this lane's A values of k-tile kt of a [.][LD] row buffer for the warp's
+// MT m-tiles: p0 points at row g, col 2t of m-tile 0 (m-tile m is 16 m rows
+// on; each holds rows g, g+8 at cols 8kt + 2t, +1)
+template <int LD, int MT>
+__device__ __forceinline__ void load_frag(const float* p0, int kt, float (&a)[MT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const float* p = p0 + 16 * m * LD + 8 * kt;
+    const float2 r0 = *reinterpret_cast<const float2*>(p);
+    const float2 r1 = *reinterpret_cast<const float2*>(p + 8 * LD);
+    a[m][0] = r0.x;
+    a[m][1] = r0.y;
+    a[m][2] = r1.x;
+    a[m][3] = r1.y;
   }
-#pragma unroll
-  for (int s = 1; s < 4; s <<= 1) {
-    g0 += __shfl_xor_sync(0xffffffffu, g0, s);
-    g1 += __shfl_xor_sync(0xffffffffu, g1, s);
-    g2 += __shfl_xor_sync(0xffffffffu, g2, s);
-  }
-  out[0] = g0;
-  out[1] = g1;
-  out[2] = g2;
 }
 
-__global__ void __launch_bounds__(NT)
-decode_grad_kernel(const float* __restrict__ latent, const float* __restrict__ rel,
-                   const float* __restrict__ P, float* __restrict__ sdf_out,
-                   float* __restrict__ std_out, float* __restrict__ grad_out,
-                   int n) {
+// the warp's output fragments (n-tiles nb ..) -> the block's activation rows,
+// between two barriers: every warp has read the layer's input before (the
+// rows are shared with the warps that hold the other column parts), and
+// every warp sees the whole output after
+template <int MT, int NTN>
+__device__ __forceinline__ void sync_store(const float (&z)[MT][4][4], float* p0, int nb) {
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt) {
+      float* p = p0 + 16 * m * LDA + 8 * (nb + nt);
+      *reinterpret_cast<float2*>(p) = make_float2(z[m][nt][0], z[m][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * LDA) = make_float2(z[m][nt][2], z[m][nt][3]);
+    }
+  __syncthreads();
+}
+
+// z += KT k-tiles of a [.][LD] row buffer times the next KT weight k-tiles of
+// a layer with NT_ALL n-tiles, on the warp's NTN n-tiles from nb, a chunk of
+// KC k-tiles at a time.  Every FLUSH k-tiles' partial sums start from zero on
+// the tensor cores and join z with a rounded FADD (mlp_tc.cuh).
+template <int KT, int NTN, int NT_ALL, int LD, int MT, class Ring>
+__device__ __forceinline__ void gemm(float (&z)[MT][4][4], const float* p0, int nb,
+                                     Ring& ring, int& it, int lane) {
+  static_assert(KT % KC == 0 && KC % FLUSH == 0, "a layer takes whole chunks");
+#pragma unroll 1
+  for (int kc = 0; kc < KT; kc += KC) {
+    const float4* w = ring.acquire(it) + 32 * nb;
+#pragma unroll
+    for (int k2 = 0; k2 < KC; k2 += FLUSH) {
+      float c[MT][4][4];
+      zero<MT, NTN>(c);
+#pragma unroll
+      for (int kk = k2; kk < k2 + FLUSH; ++kk) {
+        float a[MT][4];
+        load_frag<LD, MT>(p0, kc + kk, a);
+        ktile_mma<MT, NTN>(c, a, w + kk * NT_ALL * 32, lane);
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) z[m][nt][e] += c[m][nt][e];
+    }
+    ring.release(it++);
+  }
+}
+
+// z = relu(z + b) in place; returns the [z > 0] bits, bit 4 (4m + nt) + e
+template <int MT, int NTN>
+__device__ __forceinline__ uint32_t bias_relu(float (&z)[MT][4][4],
+                                              const float* __restrict__ bias, int nb,
+                                              int t) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int nt = 0; nt < NTN; ++nt) {
+    const float2 b = ldg2(bias, 4 * (nb + nt) + t);  // cols 8(nb+nt) + 2t, +1
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = z[m][nt][e] + ((e & 1) ? b.y : b.x);
+        const bool on = v > 0.f;
+        z[m][nt][e] = on ? v : 0.f;
+        bits |= (uint32_t)on << (4 * (4 * m + nt) + e);
+      }
+  }
+  return bits;
+}
+
+// z *= [h > 0] in place
+template <int MT, int NTN>
+__device__ __forceinline__ void relu_grad(float (&z)[MT][4][4], uint32_t bits) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!((bits >> (4 * (4 * m + nt) + e)) & 1u)) z[m][nt][e] = 0.f;
+}
+
+// the warp's part (its 32 columns from n-tile nb) of d[row] . w[:, j] for
+// w (128, 3), for its 2 MT rows a lane (m-tile m, row g + 8r), reduced over
+// the row quad, into out[(2m + r) * 3 + j]
+template <int MT>
+__device__ __forceinline__ void part_dot3(const float (&d)[MT][4][4],
+                                          const float* __restrict__ w, int nb, int t,
+                                          float (&out)[6 * MT]) {
+#pragma unroll
+  for (int q = 0; q < 6 * MT; ++q) out[q] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * (nb + nt) + 2 * t + e;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float wj = __ldg(w + 3 * c + j);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            out[(2 * m + r) * 3 + j] = fmaf(d[m][nt][2 * r + e], wj, out[(2 * m + r) * 3 + j]);
+      }
+    }
+#pragma unroll
+  for (int q = 0; q < 6 * MT; ++q) out[q] = quad_sum(out[q]);
+}
+
+constexpr int PARTS = 4;   // column parts of every layer, one warp each
+
+// floats per row per column part exchanged between the warps of a row group:
+// the heads' two partial dots, then (kernel 1) the two xyz row-dots
+template <bool GRAD>
+__host__ __device__ constexpr int exch_floats() { return GRAD ? 2 + 6 : 2; }
+
+// kernel 1 parks the relu masks of h0, h1 and h2 in shared memory, one word
+// per thread each, from the forward until the backward needs them: in
+// registers they pushed it past the 128 a thread of a 512-thread block and
+// into spills
+
+template <int WARPS, int MT>
+__host__ __device__ constexpr int block_rows() { return WARPS / PARTS * 16 * MT; }
+
+template <int WARPS, int MT, bool GRAD, int RING>
+__host__ __device__ constexpr int smem_bytes() {
+  return RING * SLOT * 16 +
+         block_rows<WARPS, MT>() * (LDX + LDA + PARTS * exch_floats<GRAD>()) *
+             (int)sizeof(float) +
+         (GRAD ? 3 * WARPS * 32 * (int)sizeof(uint32_t) : 0) +
+         2 * RING * (int)sizeof(uint64_t);
+}
+
+template <int WARPS, int MT, bool GRAD, int RING>
+__device__ __forceinline__ void decoder_body(
+    const float* __restrict__ latent, const float* __restrict__ rel,
+    const float* __restrict__ P, float* __restrict__ sdf_out,
+    float* __restrict__ std_out, float* __restrict__ grad_out, int n) {
+  constexpr int NTHR = WARPS * 32, BM = block_rows<WARPS, MT>();
   extern __shared__ float4 smem4[];
-  float* W = reinterpret_cast<float*>(smem4);  // one layer's weights
-  float* bufA = W + HID * HID;                 // activations [64][LDA]
-  float* bufB = bufA + BM * LDA;
-  float* xs = bufB + BM * LDA;                 // inputs [64][LDX]
-  __shared__ float sdf_s[BM];
+  float* xs = reinterpret_cast<float*>(smem4 + RING * SLOT);  // inputs [BM][LDX]
+  float* acts = xs + BM * LDX;                                 // activations [BM][LDA]
+  float2* head_x = reinterpret_cast<float2*>(acts + BM * LDA); // [part][BM] (zs, zd)
+  float* grad_x = reinterpret_cast<float*>(head_x + PARTS * BM);  // [part][BM][6]
+  uint32_t* park = reinterpret_cast<uint32_t*>(grad_x + (GRAD ? PARTS * BM * 6 : 0));  // [3][NTHR]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(park + (GRAD ? 3 * NTHR : 0));  // [2][RING]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int hr = tid >> 2, hpart = tid & 3;    // head/xyz reductions: 4 lanes a row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int part = warp % PARTS;                  // column part of every layer
+  const int r0 = warp / PARTS * 16 * MT + g;      // the lane's first row in the block
   const int n0 = blockIdx.x * BM;
 
-  for (int idx = tid; idx < BM * DIN; idx += NT) {
-    const int r = idx / DIN, k = idx % DIN, g = n0 + r;
+  WeightRing<GRAD ? CHUNKS_ALL : CHUNKS_FWD, RING, SLOT, WARPS, DecoderSpan> ring{
+      smem4, reinterpret_cast<const float4*>(P + OFF_TC), bars, bars + RING, tid};
+  ring.init();
+  ring.start();
+  for (int idx = tid; idx < BM * DIN; idx += NTHR) {
+    const int r = idx / DIN, k = idx % DIN, gr = n0 + r;
     float v = 0.f;
-    if (g < n) v = k < LAT ? latent[(size_t)g * LAT + k] : rel[(size_t)g * 3 + k - LAT];
+    if (gr < n) v = k < LAT ? latent[(size_t)gr * LAT + k] : rel[(size_t)gr * 3 + k - LAT];
     xs[r * LDX + k] = v;
   }
-  stage(W, P + OFF_F0, DIN * HID);
-  __syncthreads();
+  __syncthreads();  // the inputs and the ring's barriers are ready
+  const float* x0 = xs + r0 * LDX + 2 * t;
+  float* a0 = acts + r0 * LDA + 2 * t;
+  // the warp's first n-tile at N = 128 and at N = 96
+  const int nb = part * (HID / 8 / PARTS), nb2 = part * (H2 / 8 / PARTS);
+  constexpr int NQ = HID / 8 / PARTS, NQ2 = H2 / 8 / PARTS;   // 4 and 3 n-tiles a warp
 
-  float acc[4][8];
+  float z[MT][4][4];
+  int it = 0;
+
   // ---- forward ----
-  zero<8>(acc);
-  gemm<8>(acc, xs, LDX, DIN, W, HID, tx, ty);                 // layer 0
-  __syncthreads();
-  const uint32_t m0 = bias_relu_store<8>(acc, P + OFF_B0, bufA, tx, ty);
-  stage(W, P + OFF_F1, HID * HID);
-  __syncthreads();
+  zero<MT, NQ>(z);
+  gemm<DIN / 8, NQ, HID / 8, LDX>(z, x0, nb, ring, it, lane);    // layer 0: x -> 128
+  const uint32_t m0 = bias_relu<MT, NQ>(z, P + OFF_B0, nb, t);
+  if constexpr (GRAD) park[tid] = m0;
+  sync_store<MT, NQ>(z, a0, nb);
 
-  zero<8>(acc);
-  gemm<8>(acc, bufA, LDA, HID, W, HID, tx, ty);               // layer 1
-  __syncthreads();
-  const uint32_t m1 = bias_relu_store<8>(acc, P + OFF_B1, bufB, tx, ty);
-  stage(W, P + OFF_F2, HID * H2);
-  __syncthreads();
+  zero<MT, NQ>(z);
+  gemm<HID / 8, NQ, HID / 8, LDA>(z, a0, nb, ring, it, lane);    // layer 1
+  const uint32_t m1 = bias_relu<MT, NQ>(z, P + OFF_B1, nb, t);
+  if constexpr (GRAD) park[NTHR + tid] = m1;
+  sync_store<MT, NQ>(z, a0, nb);
 
-  zero<6>(acc);
-  gemm<6>(acc, bufB, LDA, HID, W, H2, tx, ty);                // layer 2: 128 -> 96
-  __syncthreads();
-  const uint32_t m2 = bias_relu_store<6>(acc, P + OFF_B2, bufA, tx, ty);
-  stage(W, P + OFF_F3, HID * HID);
-  __syncthreads();
+  zero<MT, NQ2>(z);
+  gemm<HID / 8, NQ2, H2 / 8, LDA>(z, a0, nb2, ring, it, lane);   // layer 2: 128 -> 96
+  const uint32_t m2 = bias_relu<MT, NQ2>(z, P + OFF_B2, nb2, t);
+  if constexpr (GRAD) park[2 * NTHR + tid] = m2;
+  sync_store<MT, NQ2>(z, a0, nb2);
 
-  zero<8>(acc);
-  gemm<8>(acc, bufA, LDA, H2, W, HID, tx, ty);                // layer 3: [h2 | x]
-  gemm<8>(acc, xs, LDX, DIN, W + H2 * HID, HID, tx, ty);
-  const uint32_t m3 = bias_relu_store<8>(acc, P + OFF_B3, bufB, tx, ty);
-  __syncthreads();
+  zero<MT, NQ>(z);
+  gemm<H2 / 8, NQ, HID / 8, LDA>(z, a0, nb, ring, it, lane);     // layer 3: [h2 | x]
+  gemm<DIN / 8, NQ, HID / 8, LDX>(z, x0, nb, ring, it, lane);
+  const uint32_t m3 = bias_relu<MT, NQ>(z, P + OFF_B3, nb, t);
 
-  {  // heads: sdf = tanh(h3 . w_sdf + b), std = 0.05 + 0.5 softplus(h3 . w_std + b)
-    float zs = 0.f, zd = 0.f;
-    const float* h = bufB + hr * LDA;
-    for (int c = hpart * 32; c < hpart * 32 + 32; ++c) {
-      zs = fmaf(h[c], __ldg(P + OFF_WSDF + c), zs);
-      zd = fmaf(h[c], __ldg(P + OFF_WSTD + c), zd);
-    }
+  // heads: sdf = tanh(h3 . w_sdf + b), std = 0.05 + 0.5 softplus(h3 . w_std + b),
+  // each dot the sum of the column parts' dots, in part order
+  float zs[2 * MT], zd[2 * MT];   // [2m + r]
 #pragma unroll
-    for (int s = 1; s < 4; s <<= 1) {
-      zs += __shfl_xor_sync(0xffffffffu, zs, s);
-      zd += __shfl_xor_sync(0xffffffffu, zd, s);
-    }
-    if (hpart == 0) {
-      zs += __ldg(P + OFF_BHEAD);
-      zd += __ldg(P + OFF_BHEAD + 1);
-      const float s = tanhf(zs);
-      sdf_s[hr] = s;
-      const int g = n0 + hr;
-      if (g < n) {
-        sdf_out[g] = s;
-        std_out[g] = 0.05f + 0.5f * (fmaxf(zd, 0.f) + log1pf(expf(-fabsf(zd))));
+  for (int q = 0; q < 2 * MT; ++q) zs[q] = zd[q] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NQ; ++nt) {
+    const float2 ws = ldg2(P + OFF_WSDF, 4 * (nb + nt) + t);
+    const float2 wd = ldg2(P + OFF_WSTD, 4 * (nb + nt) + t);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = 2 * m + r;
+        zs[q] = fmaf(z[m][nt][2 * r + 1], ws.y, fmaf(z[m][nt][2 * r], ws.x, zs[q]));
+        zd[q] = fmaf(z[m][nt][2 * r + 1], wd.y, fmaf(z[m][nt][2 * r], wd.x, zd[q]));
       }
+  }
+#pragma unroll
+  for (int q = 0; q < 2 * MT; ++q) {
+    zs[q] = quad_sum(zs[q]);
+    zd[q] = quad_sum(zd[q]);
+    if (t == 0) head_x[part * BM + r0 + 8 * q] = make_float2(zs[q], zd[q]);
+  }
+  __syncthreads();
+  const float b_sdf = __ldg(P + OFF_BHEAD), b_std = __ldg(P + OFF_BHEAD + 1);
+  float s[2 * MT];
+#pragma unroll
+  for (int q = 0; q < 2 * MT; ++q) {  // row r0 + 8q: m-tile q / 2, row g + 8 (q % 2)
+    float2 v = head_x[r0 + 8 * q];
+#pragma unroll
+    for (int pp = 1; pp < PARTS; ++pp) {
+      const float2 u = head_x[pp * BM + r0 + 8 * q];
+      v.x += u.x;
+      v.y += u.y;
+    }
+    s[q] = tanhf(v.x + b_sdf);
+    const float d = v.y + b_std;
+    const int row = n0 + r0 + 8 * q;
+    if (part == 0 && t == 0 && row < n) {
+      sdf_out[row] = s[q];
+      std_out[row] = 0.05f + 0.5f * (fmaxf(d, 0.f) + log1pf(expf(-fabsf(d))));
     }
   }
-  stage(W, P + OFF_G3, HID * H2);
-  __syncthreads();
-
-  // ---- backward (sdf only) ----
+  if constexpr (GRAD) {
+    // ---- backward (sdf only) ----
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float s = sdf_s[ty + 16 * i];
-    const float t = 1.f - s * s;
+    for (int nt = 0; nt < NQ; ++nt) {                             // dz3
+      const float2 ws = ldg2(P + OFF_WSDF, 4 * (nb + nt) + t);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      bufA[(ty + 16 * i) * LDA + tx + 16 * j] =
-          ((m3 >> (i * 8 + j)) & 1u) ? t * __ldg(P + OFF_WSDF + tx + 16 * j) : 0.f;
-  }
-  __syncthreads();
-
-  float gx3[3];
-  row_dot3(bufA, P + OFF_W3XYZ, hr, hpart, gx3);            // dz3 . W3b[:, xyz]
-
-  zero<6>(acc);
-  gemm<6>(acc, bufA, LDA, HID, W, H2, tx, ty);                // dh2 = dz3 W3a
-  __syncthreads();
-  mask_store<6>(acc, m2, bufB, tx, ty);
-  stage(W, P + OFF_G2, H2 * HID);
-  __syncthreads();
-
-  zero<8>(acc);
-  gemm<8>(acc, bufB, LDA, H2, W, HID, tx, ty);                // dh1 = dz2 W2
-  __syncthreads();
-  mask_store<8>(acc, m1, bufA, tx, ty);
-  stage(W, P + OFF_G1, HID * HID);
-  __syncthreads();
-
-  zero<8>(acc);
-  gemm<8>(acc, bufA, LDA, HID, W, HID, tx, ty);               // dh0 = dz1 W1
-  mask_store<8>(acc, m0, bufB, tx, ty);
-  __syncthreads();
-
-  float gx0[3];
-  row_dot3(bufB, P + OFF_W0XYZ, hr, hpart, gx0);            // dz0 . W0[:, xyz]
-  const int g = n0 + hr;
-  if (hpart == 0 && g < n) {
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) grad_out[(size_t)g * 3 + j] = gx3[j] + gx0[j];
-  }
-}
+        for (int e = 0; e < 4; ++e) {
+          const float sq = s[2 * m + (e >> 1)];
+          z[m][nt][e] = (1.f - sq * sq) * ((e & 1) ? ws.y : ws.x);
+        }
+    }
+    relu_grad<MT, NQ>(z, m3);
+    float gx[6 * MT];
+    part_dot3<MT>(z, P + OFF_W3XYZ, nb, t, gx);                   // dz3 . W3b[:, xyz]
+    if (t == 0) {
+#pragma unroll
+      for (int q = 0; q < 2 * MT; ++q)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) grad_x[(part * BM + r0 + 8 * q) * 6 + j] = gx[3 * q + j];
+    }
+    sync_store<MT, NQ>(z, a0, nb);
 
-// ---------------------------------------------------------------------------
-// Kernel 3: the decoder forward alone (sdf, std), for the mesher's lattice
-// decode.  Replaces the Pallas TPU kernel difusion_tpu/ops/decoder_fused.py
-// `_mlp_kernel` (reached through `decode_fused_packed`).
-//
-// What bounds it: arithmetic.  49,408 multiply-adds a point against 136
-// bytes of input and output, so at N = 2^20 lattice sites 103.6 GFLOP need
-// >= 1.55 ms at 67 TFLOP/s f32 while the bytes need 0.04 ms.
-//
-// Design.  The layer walk of kernel 1 over the same packed W^T segments, but
-// with no backward there are no relu masks to keep: a block of 256 threads
-// takes 128 points (8 rows x 8 columns a thread), which halves the weight
-// re-staging per point.  One activation buffer suffices, because every
-// layer reads it to the end of its GEMM, syncs, and only then overwrites
-// it.  The A operand is read as float4 along k (one 16-byte load feeds 4
-// k-steps), so a k-step costs 2 + 8 shared loads for 64 FMAs.  The two
-// 1-wide heads reduce straight from the layer-3 registers across the 16
-// threads that share a row group (shuffles), so h3 never reaches shared
-// memory.  Plain FP32 FMA, as kernel 1.  Ragged N: rows past n load zeros
-// and store nothing.
-constexpr int FBM = 128;          // points per block
-constexpr int FTM = FBM / 16;     // rows per thread
-constexpr int FLDX = 36;          // input row stride, float4-aligned
-constexpr int FWD_SMEM_BYTES = (HID * HID + FBM * LDA + FBM * FLDX) * 4;  // 157,696 B
+    zero<MT, NQ2>(z);                                             // dh2 = dz3 W3a
+    gemm<HID / 8, NQ2, H2 / 8, LDA>(z, a0, nb2, ring, it, lane);
+    relu_grad<MT, NQ2>(z, park[2 * NTHR + tid]);
+    sync_store<MT, NQ2>(z, a0, nb2);
 
-// acc[i][j] += sum_k A[ty+16i][k] * W[k][tx+16j], A read 4 k-steps at a time
-template <int TN>
-__device__ __forceinline__ void gemm4(float (&acc)[FTM][8], const float* A, int lda,
-                                      int K, const float* W, int ldw, int tx,
-                                      int ty) {
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    float4 a[FTM];
+    zero<MT, NQ>(z);                                              // dh1 = dz2 W2
+    gemm<H2 / 8, NQ, HID / 8, LDA>(z, a0, nb, ring, it, lane);
+    relu_grad<MT, NQ>(z, park[NTHR + tid]);
+    sync_store<MT, NQ>(z, a0, nb);
+
+    zero<MT, NQ>(z);                                              // dh0 = dz1 W1
+    gemm<HID / 8, NQ, HID / 8, LDA>(z, a0, nb, ring, it, lane);
+    relu_grad<MT, NQ>(z, park[tid]);
+
+    part_dot3<MT>(z, P + OFF_W0XYZ, nb, t, gx);                   // dz0 . W0[:, xyz]
+    if (t == 0) {
 #pragma unroll
-    for (int i = 0; i < FTM; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * lda + k);
+      for (int q = 0; q < 2 * MT; ++q)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float b[TN];
+        for (int j = 0; j < 3; ++j)
+          grad_x[(part * BM + r0 + 8 * q) * 6 + 3 + j] = gx[3 * q + j];
+    }
+    __syncthreads();
+    if (part == 0 && t == 0) {
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = W[(k + kk) * ldw + tx + 16 * j];
+      for (int q = 0; q < 2 * MT; ++q) {
+        const int row = n0 + r0 + 8 * q;
+        if (row < n) {
+          float g3[3] = {0.f, 0.f, 0.f}, g0[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < FTM; ++i) {
-        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+          for (int pp = 0; pp < PARTS; ++pp) {
+            const float* e = grad_x + (pp * BM + r0 + 8 * q) * 6;
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
+            for (int j = 0; j < 3; ++j) {
+              g3[j] += e[j];
+              g0[j] += e[3 + j];
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 3; ++j) grad_out[(size_t)row * 3 + j] = g3[j] + g0[j];
+        }
       }
     }
   }
 }
 
-// buf = relu(acc + b)
-template <int TN>
-__device__ __forceinline__ void bias_relu_fwd(const float (&acc)[FTM][8],
-                                              const float* __restrict__ bias,
-                                              float* buf, int tx, int ty) {
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const float bj = __ldg(bias + tx + 16 * j);
-#pragma unroll
-    for (int i = 0; i < FTM; ++i) {
-      const float v = acc[i][j] + bj;
-      buf[(ty + 16 * i) * LDA + tx + 16 * j] = v > 0.f ? v : 0.f;
-    }
-  }
+// Kernel 1: 16 warps of 16 rows x 32 columns, 64 rows a block.  Kernel 3:
+// 12 warps of 32 rows x 32 columns, 96 rows a block.  3-4 warps to an SM
+// sub-partition hide one another's shared-memory and tensor-core latency.
+constexpr int K1_WARPS = 16, K1_MT = 1, K1_RING = 5;
+constexpr int K3_WARPS = 12, K3_MT = 2, K3_RING = 4;
+static_assert(smem_bytes<K1_WARPS, K1_MT, true, K1_RING>() <= 232448 &&
+              smem_bytes<K3_WARPS, K3_MT, false, K3_RING>() <= 232448,
+              "a block has 227 KB of shared memory");
+
+__global__ void __launch_bounds__(K1_WARPS * 32, 1)
+decode_grad_kernel(const float* __restrict__ latent, const float* __restrict__ rel,
+                   const float* __restrict__ P, float* __restrict__ sdf_out,
+                   float* __restrict__ std_out, float* __restrict__ grad_out, int n) {
+  decoder_body<K1_WARPS, K1_MT, true, K1_RING>(latent, rel, P, sdf_out, std_out, grad_out, n);
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(K3_WARPS * 32, 1)
 decode_fwd_kernel(const float* __restrict__ latent, const float* __restrict__ rel,
                   const float* __restrict__ P, float* __restrict__ sdf_out,
                   float* __restrict__ std_out, int n) {
-  extern __shared__ float4 smem4[];
-  float* W = reinterpret_cast<float*>(smem4);  // one layer's weights
-  float* buf = W + HID * HID;                  // activations [128][LDA]
-  float* xs = buf + FBM * LDA;                 // inputs [128][FLDX]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * FBM;
-
-  for (int idx = tid; idx < FBM * DIN; idx += NT) {
-    const int r = idx / DIN, k = idx % DIN, g = n0 + r;
-    float v = 0.f;
-    if (g < n) v = k < LAT ? latent[(size_t)g * LAT + k] : rel[(size_t)g * 3 + k - LAT];
-    xs[r * FLDX + k] = v;
-  }
-  stage(W, P + OFF_F0, DIN * HID);
-  __syncthreads();
-
-  float acc[FTM][8];
-  zero<8>(acc);
-  gemm4<8>(acc, xs, FLDX, DIN, W, HID, tx, ty);               // layer 0
-  __syncthreads();
-  bias_relu_fwd<8>(acc, P + OFF_B0, buf, tx, ty);
-  stage(W, P + OFF_F1, HID * HID);
-  __syncthreads();
-
-  zero<8>(acc);
-  gemm4<8>(acc, buf, LDA, HID, W, HID, tx, ty);               // layer 1
-  __syncthreads();
-  bias_relu_fwd<8>(acc, P + OFF_B1, buf, tx, ty);
-  stage(W, P + OFF_F2, HID * H2);
-  __syncthreads();
-
-  zero<6>(acc);
-  gemm4<6>(acc, buf, LDA, HID, W, H2, tx, ty);                // layer 2: 128 -> 96
-  __syncthreads();
-  bias_relu_fwd<6>(acc, P + OFF_B2, buf, tx, ty);
-  stage(W, P + OFF_F3, HID * HID);
-  __syncthreads();
-
-  zero<8>(acc);
-  gemm4<8>(acc, buf, LDA, H2, W, HID, tx, ty);                // layer 3: [h2 | x]
-  gemm4<8>(acc, xs, FLDX, DIN, W + H2 * HID, HID, tx, ty);
-
-  // heads: sdf = tanh(h3 . w_sdf + b), std = 0.05 + 0.5 softplus(h3 . w_std + b)
-  float b3[8], ws[8], wd[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    b3[j] = __ldg(P + OFF_B3 + tx + 16 * j);
-    ws[j] = __ldg(P + OFF_WSDF + tx + 16 * j);
-    wd[j] = __ldg(P + OFF_WSTD + tx + 16 * j);
-  }
-  const float b_sdf = __ldg(P + OFF_BHEAD), b_std = __ldg(P + OFF_BHEAD + 1);
-#pragma unroll
-  for (int i = 0; i < FTM; ++i) {
-    float zs = 0.f, zd = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float h = acc[i][j] + b3[j];
-      h = h > 0.f ? h : 0.f;
-      zs = fmaf(h, ws[j], zs);
-      zd = fmaf(h, wd[j], zd);
-    }
-#pragma unroll
-    for (int s = 8; s >= 1; s >>= 1) {   // the 16 lanes of a row group
-      zs += __shfl_xor_sync(0xffffffffu, zs, s);
-      zd += __shfl_xor_sync(0xffffffffu, zd, s);
-    }
-    const int g = n0 + ty + 16 * i;
-    if (tx == i && g < n) {
-      zs += b_sdf;
-      zd += b_std;
-      sdf_out[g] = tanhf(zs);
-      std_out[g] = 0.05f + 0.5f * (fmaxf(zd, 0.f) + log1pf(expf(-fabsf(zd))));
-    }
-  }
+  decoder_body<K3_WARPS, K3_MT, false, K3_RING>(latent, rel, P, sdf_out, std_out, nullptr, n);
 }
 
 }  // namespace
@@ -445,11 +514,16 @@ extern "C" int decode_grad_packed_size() { return PACKED_SIZE; }
 extern "C" int decode_grad_launch(const float* latent, const float* rel,
                                   const float* packed, float* sdf, float* std_,
                                   float* grad, int n, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (n + BM - 1) / BM;
-  decode_grad_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
+  constexpr int smem = smem_bytes<K1_WARPS, K1_MT, true, K1_RING>();
+  static bool attr_set = false;  // once per process
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int rows = block_rows<K1_WARPS, K1_MT>();
+  decode_grad_kernel<<<(n + rows - 1) / rows, K1_WARPS * 32, smem, (cudaStream_t)stream>>>(
       latent, rel, packed, sdf, std_, grad, n);
   return (int)cudaGetLastError();
 }
@@ -459,11 +533,16 @@ extern "C" int decode_grad_launch(const float* latent, const float* rel,
 extern "C" int decode_fwd_launch(const float* latent, const float* rel,
                                  const float* packed, float* sdf, float* std_,
                                  int n, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (n + FBM - 1) / FBM;
-  decode_fwd_kernel<<<grid, NT, FWD_SMEM_BYTES, (cudaStream_t)stream>>>(
+  constexpr int smem = smem_bytes<K3_WARPS, K3_MT, false, K3_RING>();
+  static bool attr_set = false;  // once per process
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int rows = block_rows<K3_WARPS, K3_MT>();
+  decode_fwd_kernel<<<(n + rows - 1) / rows, K3_WARPS * 32, smem, (cudaStream_t)stream>>>(
       latent, rel, packed, sdf, std_, n);
   return (int)cudaGetLastError();
 }

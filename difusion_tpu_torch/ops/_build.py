@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library with a
 plain C interface under ``build/`` at the repo root (listed in
-``.gitignore``), at first use, keyed by a hash of the source and the flags.
+``.gitignore``), at first use, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags.
 All sources compile in parallel (one ``nvcc`` process each).  Libraries load
 with ``ctypes``; pointers and the stream pass as ``c_void_p``.  Each C entry
 point returns ``cudaGetLastError()`` after its launch and :func:`check`
@@ -42,8 +43,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Keyed by the source, every csrc/*.cuh (any of them may be included)
+    and the flags, so an edited header rebuilds its libraries."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
@@ -69,7 +75,8 @@ def build_all() -> Dict[str, dict]:
             log, _ = proc.communicate()
             build_info[n] = {"seconds": time.perf_counter() - t0,
                              "ptxas": [ln.strip() for ln in log.splitlines()
-                                       if "Used" in ln or "spill" in ln]}
+                                       if "Used" in ln or "spill" in ln
+                                       or "Compiling entry" in ln]}
             if proc.returncode != 0:
                 failed.append(f"{n}.cu:\n{log}")
             else:

@@ -14,9 +14,11 @@ There is no other route: a CUDA tensor never reaches a plain version
 through a wrapper.
 
 Weights are packed once per decoder by :func:`pack_fused_decoder` into one
-flat f32 buffer whose layout both kernels and the plain versions share (each
-weight in both orientations: ``W^T`` for the forward, ``W`` for the
-backward, plus the xyz columns of the two input-side weights).
+flat f32 buffer: each weight in both orientations (``W^T`` for the forward,
+``W`` for the backward) and the xyz columns of the two input-side weights,
+which the plain versions read, then the biases and heads, which the kernels
+read too, and last the kernels' own copy of the seven weight matrices, split
+into TF32 hi/lo parts and laid out in mma fragment order (:func:`_tc_frag`).
 """
 from __future__ import annotations
 
@@ -35,6 +37,10 @@ _SEGMENTS = (("f0", (DIN, HID)), ("f1", (HID, HID)), ("f2", (HID, H2)),
              ("g1", (HID, HID)), ("w3_xyz", (HID, 3)), ("w0_xyz", (HID, 3)),
              ("b0", (HID,)), ("b1", (HID,)), ("b2", (H2,)), ("b3", (HID,)),
              ("w_sdf", (HID,)), ("w_std", (HID,)), ("b_head", (4,)))
+# the kernels' weight stream, in the order they multiply: forward, backward
+TC_LAYERS = ("f0", "f1", "f2", "f3", "g3", "g2", "g1")
+_SEGMENTS += (("tc", (2 * sum(int(torch.Size(s).numel()) for name, s in _SEGMENTS
+                              if name in TC_LAYERS),)),)
 PACKED_SIZE = sum(int(torch.Size(s).numel()) for _, s in _SEGMENTS)
 
 # multiply-adds per point: forward 32*128 + 128*128 + 128*96 + 128*128 +
@@ -46,6 +52,30 @@ BWD_MACS = HID * H2 + H2 * HID + HID * HID + 2 * HID * 3
 def supports_spec(spec: DecoderSpec) -> bool:
     return (tuple(spec.dims) == (HID,) * 4 and tuple(spec.latent_in) == (3,)
             and spec.latent_size == LAT)
+
+
+def _tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (hi, lo): hi = x rounded to TF32 (10 mantissa bits, nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32``), lo = x - hi rounded the
+    same way.  Both are f32 tensors whose low 13 bits are zero."""
+    def rna(v):
+        bits = (v.contiguous().view(torch.int32) + 0x1000) & -0x2000
+        return bits.view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _tc_frag(b: torch.Tensor) -> torch.Tensor:
+    """A (K, N) right-hand matrix of ``act @ b`` -> its m16n8k8 B fragments,
+    (K/8, N/8, 32, 4): lane 4g + t of (k-tile kt, n-tile nt) holds (hi, hi,
+    lo, lo) of b[8kt + 2t, 8nt + g] and b[8kt + 2t + 1, 8nt + g].  Rows 2t
+    and 2t + 1 (not t and t + 4): the lane's A values for k-positions t and
+    t + 4 are then one float2 of columns 2t, 2t + 1, the pair an output
+    fragment stores (csrc/mlp_tc.cuh)."""
+    k, n = b.shape
+    v = b.reshape(k // 8, 4, 2, n // 8, 8).permute(0, 3, 4, 1, 2)  # kt nt g t e
+    hi, lo = _tf32_split(v)
+    return torch.cat([hi, lo], dim=-1).reshape(k // 8, n // 8, 32, 4)
 
 
 def pack_fused_decoder(decoder: Decoder) -> torch.Tensor:
@@ -65,6 +95,7 @@ def pack_fused_decoder(decoder: Decoder) -> torch.Tensor:
         "w_sdf": w[4][0], "w_std": u_w,
         "b_head": torch.cat([b[4], u_b, torch.zeros(2, device=u_b.device)]),
     }
+    parts["tc"] = torch.cat([_tc_frag(parts[name]).reshape(-1) for name in TC_LAYERS])
     flat = torch.cat([parts[name].contiguous().reshape(-1)
                       for name, _ in _SEGMENTS])
     assert flat.numel() == PACKED_SIZE
@@ -83,16 +114,28 @@ def unpack(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def _forward(p: Dict[str, torch.Tensor], latent: torch.Tensor,
              rel: torch.Tensor):
-    """The written-out forward over the packed segments: (x, h0..h3, sdf,
-    std)."""
+    """The written-out forward over the packed segments: (x, the hidden
+    preactivations z0..z3, sdf, std)."""
     x = torch.cat([latent, rel], dim=1)
-    h0 = torch.relu(x @ p["f0"] + p["b0"])
-    h1 = torch.relu(h0 @ p["f1"] + p["b1"])
-    h2 = torch.relu(h1 @ p["f2"] + p["b2"])
-    h3 = torch.relu(torch.cat([h2, x], dim=1) @ p["f3"] + p["b3"])
+    z0 = x @ p["f0"] + p["b0"]
+    z1 = torch.relu(z0) @ p["f1"] + p["b1"]
+    z2 = torch.relu(z1) @ p["f2"] + p["b2"]
+    z3 = torch.cat([torch.relu(z2), x], dim=1) @ p["f3"] + p["b3"]
+    h3 = torch.relu(z3)
     sdf = torch.tanh(h3 @ p["w_sdf"] + p["b_head"][0])
     std = 0.05 + 0.5 * F.softplus(h3 @ p["w_std"] + p["b_head"][1])
-    return x, h0, h1, h2, h3, sdf, std
+    return x, (z0, z1, z2, z3), sdf, std
+
+
+def _grad(p: Dict[str, torch.Tensor], masks, sdf: torch.Tensor) -> torch.Tensor:
+    """The explicit sdf-only backward recurrence (decoder_fused.py:198-202)
+    under the relu masks [h0 > 0] .. [h3 > 0]."""
+    zero = torch.zeros((), dtype=sdf.dtype, device=sdf.device)
+    dz3 = torch.where(masks[3], (1.0 - sdf * sdf)[:, None] * p["w_sdf"], zero)
+    dz2 = torch.where(masks[2], dz3 @ p["g3"], zero)
+    dz1 = torch.where(masks[1], dz2 @ p["g2"], zero)
+    dz0 = torch.where(masks[0], dz1 @ p["g1"], zero)
+    return dz3 @ p["w3_xyz"] + dz0 @ p["w0_xyz"]
 
 
 def decode_fused_plain(packed: torch.Tensor, latent: torch.Tensor,
@@ -106,16 +149,39 @@ def decode_grad_plain(packed: torch.Tensor, latent: torch.Tensor,
                       rel: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 1: the written-out forward and the
-    explicit sdf-only backward recurrence (decoder_fused.py:198-202)."""
+    explicit sdf-only backward recurrence."""
     p = unpack(packed)
-    x, h0, h1, h2, h3, sdf, std = _forward(p, latent, rel)
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    dz3 = torch.where(h3 > 0, (1.0 - sdf * sdf)[:, None] * p["w_sdf"], zero)
-    dz2 = torch.where(h2 > 0, dz3 @ p["g3"], zero)
-    dz1 = torch.where(h1 > 0, dz2 @ p["g2"], zero)
-    dz0 = torch.where(h0 > 0, dz1 @ p["g1"], zero)
-    grad = dz3 @ p["w3_xyz"] + dz0 @ p["w0_xyz"]
-    return sdf, std, grad
+    _, zs, sdf, std = _forward(p, latent, rel)
+    return sdf, std, _grad(p, [z > 0 for z in zs], sdf)
+
+
+def grad_rows_off(got: torch.Tensor, packed: torch.Tensor, latent: torch.Tensor,
+                  rel: torch.Tensor, atol: float = 1e-4, rtol: float = 1e-4,
+                  kink: float = 1e-5) -> torch.Tensor:
+    """For checking kernel 1: the rows where a gradient ``got`` (N, 3) is off
+    the plain version's by more than atol + rtol |ref|.
+
+    relu' jumps at 0, so where a hidden preactivation lies within rounding of
+    0, two evaluations that are both accurate to f32 may take either side and
+    return gradients that differ by a whole unit's contribution (up to ~0.05
+    on the study_mixed prior).  A row whose nearest preactivation is within
+    ``kink`` of 0 therefore also passes if it matches, at the same tolerance,
+    the other one-sided derivative: the plain gradient with that unit's relu
+    mask flipped."""
+    p = unpack(packed)
+    _, zs, sdf, _ = _forward(p, latent, rel)
+    ref = _grad(p, [z > 0 for z in zs], sdf)
+    off = ((got - ref).abs() > atol + rtol * ref.abs()).any(dim=1)
+    if bool(off.any()):
+        z = torch.cat(zs, dim=1)
+        dist, nearest = z.abs().min(dim=1)
+        flip = torch.zeros_like(z, dtype=torch.bool)
+        flip[torch.arange(z.shape[0], device=z.device), nearest] = True
+        flips = flip.split([zl.shape[1] for zl in zs], dim=1)
+        alt = _grad(p, [(zl > 0) ^ f for zl, f in zip(zs, flips)], sdf)
+        other_side = ((got - alt).abs() <= atol + rtol * alt.abs()).all(dim=1)
+        off &= ~(other_side & (dist < kink))
+    return off
 
 
 def _check_inputs(what, packed, latent, rel):
@@ -129,16 +195,30 @@ def _check_inputs(what, packed, latent, rel):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+_lib = None
+
+
+def _load():
+    """csrc/decoder_grad.cu's library, its layout checked and its entry
+    points typed once per process."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("decoder_grad")
+        if lib.decode_grad_packed_size() != PACKED_SIZE:
+            raise RuntimeError("decoder_grad.cu packed layout disagrees with "
+                               "ops/decoder_fused.py")
+        for entry, n_out in (("decode_grad_launch", 3), ("decode_fwd_launch", 2)):
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.c_void_p] * (3 + n_out) + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
 def _launch(name, entry, packed, latent, rel, outs):
     """Launch ``entry`` of csrc/decoder_grad.cu on (latent, rel, packed) ->
     ``outs`` on the current stream, check it and count it."""
-    lib = _build.load("decoder_grad")
-    if lib.decode_grad_packed_size() != PACKED_SIZE:
-        raise RuntimeError("decoder_grad.cu packed layout disagrees with "
-                           "ops/decoder_fused.py")
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * (3 + len(outs)) + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = getattr(_load(), entry)
     with torch.cuda.device(latent.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(latent.data_ptr(), rel.data_ptr(), packed.data_ptr(),

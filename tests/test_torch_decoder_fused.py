@@ -107,6 +107,30 @@ def test_pack_layout_and_unsupported_spec(prior):
     assert fused.supports_spec(DecoderSpec())
 
 
+def test_grad_rows_off_takes_the_other_side_only_at_a_kink(prior):
+    """The kernel-1 check passes the plain gradient; flipping each row's
+    relu mask at its preactivation nearest to 0 is passed exactly on the
+    rows where that preactivation lies within 1e-5 of 0 (and everywhere the
+    flip moves the gradient less than the tolerance)."""
+    *_, t_dec, _ = prior
+    lat, rel = (torch.from_numpy(a) for a in _inputs(4096, 5))
+    packed = fused.pack_fused_decoder(t_dec)
+    p = fused.unpack(packed)
+    _, zs, sdf, _ = fused._forward(p, lat, rel)
+    ref = fused._grad(p, [z > 0 for z in zs], sdf)
+    assert not bool(fused.grad_rows_off(ref, packed, lat, rel).any())
+    z = torch.cat(zs, dim=1)
+    dist, unit = z.abs().min(dim=1)
+    flip = torch.zeros_like(z, dtype=torch.bool)
+    flip[torch.arange(z.shape[0]), unit] = True
+    flips = flip.split([zl.shape[1] for zl in zs], dim=1)
+    alt = fused._grad(p, [(zl > 0) ^ f for zl, f in zip(zs, flips)], sdf)
+    moved = ((alt - ref).abs() > 1e-4 + 1e-4 * ref.abs()).any(dim=1)
+    near = dist < 1e-5
+    assert bool((moved & near).any()) and bool((moved & ~near).any())
+    assert torch.equal(fused.grad_rows_off(alt, packed, lat, rel), moved & ~near)
+
+
 def test_encode_points_matches_jax(prior):
     """Encoder.encode_points == models.encoder.encode_points, atol 1e-5
     (a 256-wide f32 dot summed in another order, on codes of order 1)."""
