@@ -8,9 +8,10 @@ Phases, each printing one JSON line:
 1. env     -- the card (nvidia-smi name and power limit), torch and CUDA.
 2. build   -- nvcc builds every kernel of csrc/ (in parallel) into build/.
 3. kernels -- each kernel on the card against its plain PyTorch version on
-              the same inputs, at its path's shapes; its device time
-              (CUDA-graph replay of back-to-back launches), the wrapper's
-              host time per call, and its bounds.
+              the same inputs, at its path's shapes (kernel 2 bit for bit,
+              also at the edges of its tiling and through both its entries);
+              its device time (CUDA-graph replay of back-to-back launches),
+              the wrapper's host time per call, and its bounds.
 4. main    -- SLAMSystem on the card at bench.py's configuration: a 640x480
               SyntheticSequence, a dense 70x70x40 map of 0.1 m voxels, point
               budget 8192, fusion every 20 frames, meshing off, the in-repo
@@ -242,61 +243,106 @@ def check_decode_fused(packed, fused_mod, dev):
             "flops": flops, "bytes": nbytes}
 
 
-def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, dev):
-    """Kernel 2 vs its plain version on the real 240x320 unprojected point
-    map of a rendered frame, w = 6.  Counts must match exactly; sums
-    rtol 1e-5 + atol 1e-4."""
+# kernel 2's edge shapes: (H, W, window).  The 32 x 4R tile's edges (one
+# tile of R = 3, a pixel more either way), one row, one column, one pixel,
+# an image smaller than the window; then other windows through the run-time
+# body, down to the 1 x 1 window, and a tile above 48 KB.
+STENCIL_EDGES = [(12, 32, 6), (13, 33, 6), (21, 31, 6), (61, 97, 6), (1, 40, 6),
+                 (40, 1, 6), (1, 1, 6), (5, 7, 6), (37, 53, 0), (37, 53, 1),
+                 (37, 53, 3), (50, 70, 7), (45, 64, 20)]
+
+
+def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, build_info, dev):
+    """Kernel 2 vs its plain version: all 11 planes bit-equal (torch.equal),
+    through both entries, on the real 240x320 unprojected point map of a
+    rendered frame at w = 6 and on seeded maps at STENCIL_EDGES, with every
+    rows-per-thread value at one of them.  Times are the point-map entry's,
+    the one the main path calls."""
     packed = torch.from_numpy(tracker_mod.pack_frame(
         frame.rgb, frame.depth, calib.dcam_scale)).to(dev)
     intensity, depth = tracker_mod.unpack_frame(packed, calib, frame.depth.shape[1])
     ok = (depth >= tcfg.depth_cut_min) & (depth <= tcfg.depth_cut_max)
     s = int(round(1.0 / tcfg.subsample))
-    d_sub, ok_sub = depth[::s, ::s], ok[::s, ::s]
+    d_sub, ok_sub = depth[::s, ::s], ok[::s, ::s].contiguous()
     sc = tcfg.subsample
     pc = imgproc.unproject_depth(d_sub, ok_sub, calib.fx * sc, calib.fy * sc,
-                                 calib.cx * sc, calib.cy * sc)
-    zero = torch.zeros((), device=dev)
-    px, py, pz = (torch.where(ok_sub, pc[..., c], zero).contiguous() for c in range(3))
-    vf = ok_sub.float().contiguous()
-    args = (px, py, pz, vf, tcfg.stencil_window, tcfg.outlier_radius ** 2,
-            tcfg.normal_radius ** 2)
-    got = stencil_mod.window_stat_sums(*args)
-    ref = stencil_mod.window_stat_sums_plain(*args)
-    torch.cuda.synchronize()
-    worst = 0.0
-    for k, (g, r) in enumerate(zip(got, ref)):
-        err = (g - r).abs()
-        worst = max(worst, err.max().item())
-        if k < 2:
-            if not torch.equal(g, r):
-                fail(f"window_stat_sums count plane {k} differs "
-                     f"({int((g != r).sum())} pixels)")
-        elif not torch.isfinite(g).all() or bool((err > 1e-4 + 1e-5 * r.abs()).any()):
-            fail(f"window_stat_sums plane {k}: max abs err {err.max().item():.3g}")
-    h, w = px.shape
-    taps = (2 * tcfg.stencil_window + 1) ** 2
+                                 calib.cx * sc, calib.cy * sc).contiguous()
+    window = tcfg.stencil_window
+    r2 = (tcfg.outlier_radius ** 2, tcfg.normal_radius ** 2)
+
+    def planes_of(pc, ok):
+        zero = torch.zeros((), device=dev)
+        return (*(torch.where(ok, pc[..., c], zero).contiguous() for c in range(3)),
+                ok.float())
+
+    def compare(pc, ok, window, r2, what, rows=None):
+        planes = planes_of(pc, ok)
+        ref = torch.stack(stencil_mod.window_stat_sums_plain(*planes, window, *r2))
+        got = {"planes": torch.stack(stencil_mod.window_stat_sums(*planes, window, *r2,
+                                                                  rows=rows)),
+               "map": stencil_mod.window_stat_sums_map(pc, ok, window, *r2, rows=rows)}
+        torch.cuda.synchronize()
+        for entry, g in got.items():
+            if not torch.equal(g, ref):
+                bad = [k for k in range(11) if not torch.equal(g[k], ref[k])]
+                fail(f"window_stat_sums ({entry} entry) at {what}: planes {bad} differ "
+                     f"from the plain version, max abs err "
+                     f"{(g - ref).abs().max().item():.3g}")
+        return planes, ref, got["map"]
+
+    planes, ref, got = compare(pc, ok_sub, window, r2, "the rendered frame")
+    worst = (got - ref).abs().max().item()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for (eh, ew, ewin) in STENCIL_EDGES:
+        epc = torch.randn(eh, ew, 3, generator=gen, device=dev) * 0.1
+        eok = torch.rand(eh, ew, generator=gen, device=dev) > 0.2
+        compare(epc, eok, ewin, (0.01, 0.04), f"{eh}x{ew}, w={ewin}")
+        if (eh, ew) == (61, 97):
+            for rows in stencil_mod.ROWS:
+                compare(epc, eok, ewin, (0.01, 0.04), f"{eh}x{ew}, w={ewin}, rows={rows}",
+                        rows=rows)
+    h, w = ok_sub.shape
+    taps = (2 * window + 1) ** 2
     flops = float(stencil_mod.OPS_PER_TAP * taps * h * w)
     nbytes = 4.0 * (4 + 11) * h * w
     # the kernel rounds every product and sum on its own (__fmul_rn /
     # __fadd_rn, bit-equal to the plain version), so no two operations fuse
     # into an FMA: each is one instruction, at the f32 instruction rate
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_INSTR_PER_S)
+    plan = stencil_mod.plan(h, w, window, torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
+    # ptxas on the kernel instantiation this shape runs (window, rows)
+    ptxas = build_info.get("window_stats", {}).get("ptxas", [])
+    mangled = f"window_stats_kernelILi{window}ELi{plan.rows}EE"
+    at = next((i for i, ln in enumerate(ptxas) if mangled in ln), None)
+    resources = " | ".join(ptxas[at + 1:at + 3]) if at is not None else "not measured"
+    if "spill" in resources and "0 bytes spill stores, 0 bytes spill loads" not in resources:
+        fail(f"window_stats.cu spills: {resources}")
 
     def call():
-        return stencil_mod.window_stat_sums(*args)
+        return stencil_mod.window_stat_sums_map(pc, ok_sub, window, *r2)
+
+    def call_planes():
+        return stencil_mod.window_stat_sums(*planes, window, *r2)
     return {"name": "window_stat_sums", "route": "cuda",
             "source": "difusion_tpu_torch/csrc/window_stats.cu",
             "replaces": "difusion_tpu/ops/stencil_pallas.py:49",
-            "max_abs_err": worst,
+            "max_abs_err": worst, "planes_equal": 11,
+            "edge_shapes_equal": len(STENCIL_EDGES) + len(stencil_mod.ROWS),
             "ms": graph_ms(call, 50), "eager_ms": time_ms(call, 20),
             "host_us": host_us(call),
-            "plain_ms": time_ms(lambda: stencil_mod.window_stat_sums_plain(*args), 3,
-                                per_batch=3),
+            "planes_entry_ms": graph_ms(call_planes, 50),
+            "planes_entry_host_us": host_us(call_planes),
+            "plain_ms": time_ms(lambda: stencil_mod.window_stat_sums_plain(
+                *planes, window, *r2), 3, per_batch=3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library_note": "no single PyTorch call computes thresholded "
                             "window moments",
-            "shape": f"{h}x{w}, w={tcfg.stencil_window}, f32",
-            "flops": flops, "bytes": nbytes}
+            "shape": f"{h}x{w}, w={window}, f32",
+            "rows_per_thread": plan.rows, "grid": list(plan.grid),
+            "blocks_on_busiest_sm": plan.blocks_per_sm,
+            "busiest_sm_over_mean": plan.busiest_over_mean,
+            "ptxas": resources, "flops": flops, "bytes": nbytes}
 
 
 def profiled(fn) -> dict:
@@ -382,7 +428,7 @@ def main() -> int:
 
     kernels = [check_decoder(system.tracker.packed, fused_mod, dev),
                check_stencil(frames[0], system.tracker.tcfg, calib, stencil_mod,
-                             tracker_mod, imgproc, dev),
+                             tracker_mod, imgproc, info, dev),
                check_decode_fused(system.tracker.packed, fused_mod, dev)]
     emit({"phase": "kernels", "checked": [k["name"] for k in kernels]})
 

@@ -30,7 +30,7 @@ from ..ops.decoder_fused import decode_grad_fused, pack_fused_decoder
 from ..ops.imgproc import Intrinsic, Pyramid
 from ..ops.pcproc import point_box_filter
 from ..ops.se3 import Pose, exp_twist
-from ..ops.stencil import window_stat_sums
+from ..ops.stencil import window_stat_sums_map
 from ..utils.motion import Isometry
 from . import map as M
 
@@ -233,13 +233,13 @@ def _window_stats(pc_map: torch.Tensor, valid: torch.Tensor, window: int,
                   outlier_r2: float, nb_points: int, normal_r2: float,
                   min_nb: float):
     """Radius-outlier count and windowed-PCA normals over the (2w+1)^2 pixel
-    window of the point map, through :func:`window_stat_sums`.
+    window of the point map, through :func:`window_stat_sums_map` (the kernel
+    masks the point map by ``valid`` as it loads it).
     Returns (outlier_ok (H, W), normal (H, W, 3), normal_ok (H, W))."""
+    sums = window_stat_sums_map(pc_map.contiguous(), valid.contiguous(), window,
+                                outlier_r2, normal_r2)
     zero = torch.zeros((), dtype=pc_map.dtype, device=pc_map.device)
-    px, py, pz = (torch.where(valid, pc_map[..., c], zero).contiguous()
-                  for c in range(3))
-    vf = valid.to(torch.float32)
-    sums = window_stat_sums(px, py, pz, vf, window, outlier_r2, normal_r2)
+    px, py, pz = torch.where(valid[..., None], pc_map, zero).unbind(-1)
     return _finish_window_stats(sums, valid, px, py, pz, nb_points, min_nb)
 
 

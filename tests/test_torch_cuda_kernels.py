@@ -68,23 +68,78 @@ def test_decode_fused_kernel_matches_plain(dev, packed, n):
     torch.testing.assert_close(got[1], ref[1], atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("shape,window", [((37, 53), 2), ((8, 32), 6), ((240, 320), 6)])
-def test_window_stats_kernel_matches_plain(dev, shape, window):
-    """Counts exactly; the sums too, since the kernel rounds every product
-    and sum as the plain version does, in the same tap order."""
-    gen = torch.Generator(device=dev).manual_seed(window)
+def _stencil_inputs(dev, shape, seed):
+    """A (H, W, 3) point map with negative coordinates too, its bool validity
+    map, and the four masked planes of the other entry."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     pc = torch.randn(*shape, 3, generator=gen, device=dev) * 0.1
     ok = torch.rand(*shape, generator=gen, device=dev) > 0.2
-    maps = [torch.where(ok, pc[..., c], 0.0).contiguous() for c in range(3)]
-    args = (*maps, ok.float(), window, 0.01, 0.04)
-    got = stencil.window_stat_sums(*args)
-    ref = stencil.window_stat_sums_plain(*args)
+    planes = [torch.where(ok, pc[..., c], 0.0).contiguous() for c in range(3)]
+    return pc, ok, (*planes, ok.float())
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((37, 53), 2), ((8, 32), 6), ((240, 320), 6),
+    # the 32 x 4R tile's edges: exactly one tile of R = 3, one pixel more
+    # either way, one row, one column, one pixel, smaller than the window
+    ((12, 32), 6), ((13, 33), 6), ((20, 32), 6), ((21, 31), 6), ((1, 40), 6),
+    ((40, 1), 6), ((1, 1), 6), ((5, 7), 6), ((61, 97), 6),
+    # other windows: the run-time body, down to the 1 x 1 window, and a tile
+    # above 48 KB of shared memory (w = 20)
+    ((37, 53), 0), ((37, 53), 1), ((37, 53), 3), ((50, 70), 7), ((45, 64), 20)])
+def test_window_stats_kernel_matches_plain(dev, shape, window):
+    """All 11 planes bit-equal (torch.equal): the kernel rounds every product
+    and sum as the plain version does, in the same tap order, and a skipped
+    add is an add of zero.  One counted launch per call."""
+    _, _, planes = _stencil_inputs(dev, shape, window + shape[0])
+    before = _build.launch_counts().get("window_stat_sums", 0)
+    got = stencil.window_stat_sums(*planes, window, 0.01, 0.04)
+    ref = stencil.window_stat_sums_plain(*planes, window, 0.01, 0.04)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["window_stat_sums"] == before + 1
+    assert len(got) == 11
+    for k, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g, r), (k, int((g != r).sum()))
+
+
+@pytest.mark.parametrize("rows,window", [(r, w) for w in (6, 3, 1, 0) for r in stencil.ROWS
+                                         if r <= 2 * w + 1])
+def test_window_stats_kernel_every_rows_value(dev, rows, window):
+    """Each rows-per-thread instantiation the window admits (R <= 2w + 1),
+    through the templated w = 6 body and the run-time body, at a shape that
+    is a multiple of no tile: bit-equal to the plain version."""
+    _, _, planes = _stencil_inputs(dev, (50, 70), 10 * rows + window)
+    got = stencil.window_stat_sums(*planes, window, 0.01, 0.04, rows=rows)
+    ref = stencil.window_stat_sums_plain(*planes, window, 0.01, 0.04)
     torch.cuda.synchronize()
     for k, (g, r) in enumerate(zip(got, ref)):
-        if k < 2:
-            assert torch.equal(g, r), k
-        else:
-            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-5)
+        assert torch.equal(g, r), (k, int((g != r).sum()))
+
+
+@pytest.mark.parametrize("shape,window", [((240, 320), 6), ((37, 53), 6), ((1, 1), 6),
+                                          ((37, 53), 2), ((40, 1), 1)])
+def test_window_stats_map_entry_equals_planes_entry(dev, shape, window):
+    """The point-map entry (the kernel masks as it loads) against the
+    four-plane entry on the masked planes: torch.equal, one counted launch."""
+    pc, ok, planes = _stencil_inputs(dev, shape, window)
+    ref = torch.stack(stencil.window_stat_sums(*planes, window, 0.01, 0.04))
+    before = _build.launch_counts()["window_stat_sums"]
+    got = stencil.window_stat_sums_map(pc, ok, window, 0.01, 0.04)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["window_stat_sums"] == before + 1
+    assert got.shape == (11, *shape) and torch.equal(got, ref)
+
+
+def test_window_stats_on_a_threshold_grid(dev):
+    """Neighbour distances exactly at the thresholds are kept (`<=`): on a
+    0.25 m lattice with r2 = (0.0625, 0.125) an interior pixel counts 5 and
+    weights 9."""
+    v, u = torch.meshgrid(torch.arange(30.0, device=dev), torch.arange(45.0, device=dev),
+                          indexing="ij")
+    pc = torch.stack([0.25 * u, -0.25 * v, torch.zeros_like(u)], dim=-1).contiguous()
+    ok = torch.ones(30, 45, dtype=torch.bool, device=dev)
+    got = stencil.window_stat_sums_map(pc, ok, 6, 0.0625, 0.125)
+    assert bool((got[0][6:-6, 6:-6] == 5.0).all()) and bool((got[1][6:-6, 6:-6] == 9.0).all())
 
 
 def test_wrappers_reject_bad_inputs(dev, packed):
@@ -99,3 +154,14 @@ def test_wrappers_reject_bad_inputs(dev, packed):
     m = torch.zeros(4, 5, device=dev)
     with pytest.raises(ValueError):
         stencil.window_stat_sums(m, m, m, torch.zeros(4, 6, device=dev), 2, 0.1, 0.1)
+    ok = torch.ones(4, 5, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):   # the validity map must be bool
+        stencil.window_stat_sums_map(torch.zeros(4, 5, 3, device=dev), m, 2, 0.1, 0.1)
+    with pytest.raises(ValueError):   # a strided point map
+        stencil.window_stat_sums_map(torch.zeros(4, 5, 4, device=dev)[..., :3], ok, 2, 0.1, 0.1)
+    with pytest.raises(ValueError):
+        stencil.window_stat_sums_map(torch.zeros(4, 5, 3, device=dev), ok, -1, 0.1, 0.1)
+    with pytest.raises(ValueError):   # a rows value the library was not built with
+        stencil.window_stat_sums_map(torch.zeros(4, 5, 3, device=dev), ok, 2, 0.1, 0.1, rows=7)
+    with pytest.raises(ValueError):   # a strip longer than the window
+        stencil.window_stat_sums_map(torch.zeros(4, 5, 3, device=dev), ok, 1, 0.1, 0.1, rows=4)
