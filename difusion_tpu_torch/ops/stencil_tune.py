@@ -1,7 +1,7 @@
 """Time the design choices of kernel 2 (csrc/window_stats.cu) on the card.
 
     python -m difusion_tpu_torch.ops.stencil_tune [--baseline OLD.cu]
-        [--other LABEL=SOURCE.cu ...] [--sass DIR]
+        [--other LABEL=SOURCE.cu ...] [--sass DIR] [--window W] [--unroll U ...]
 
 from the repo root, on a machine with a CUDA card and nvcc.  Builds the
 source once per value of its compile-time knob (``WS_STEADY_UNROLL``), and
@@ -14,8 +14,8 @@ so nearly every tap passes the production radii, as on a rendered frame).
 ``--baseline`` times an earlier version of the source (the 11-argument
 ``window_stats_launch`` without a rows argument) in the same process, and
 ``--other`` another version with today's interface, at the planned rows;
-``--sass`` writes each build's disassembly there and prints the instruction
-count of every kernel.  One JSON line per measurement, the card's name and
+``--sass`` writes each build's disassembly there and prints every kernel's
+instruction count and, per loop body, its instructions and scheduled cycles.  One JSON line per measurement, the card's name and
 power limit first, the SM clock under load last.
 """
 from __future__ import annotations
@@ -33,7 +33,6 @@ import torch
 
 from . import _build, stencil
 
-UNROLLS = (1, 13)
 
 
 def point_map(h=240, w=320, seed=0):
@@ -48,27 +47,39 @@ def point_map(h=240, w=320, seed=0):
 
 
 def sass_counts(lib: Path, out_dir: Path, label: str) -> dict:
-    """Per kernel of ``lib`` (cuobjdump -sass): its SASS instructions and the
-    length of every loop body (a backward branch: instructions from its
-    target to itself).  The text is kept in ``out_dir``."""
+    """Per kernel of ``lib`` (cuobjdump -sass): its SASS instructions, and for
+    every loop body (a backward branch: from its target to itself) its
+    instructions and the cycles ptxas scheduled for one pass of one warp (the
+    sum of the stall counts in the instructions' control bits).  The text is
+    kept in ``out_dir``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
+    lines = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                           check=True).stdout.splitlines()
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / f"{label}.sass").write_text(text)
-    counts, name = {}, None
-    for line in text.splitlines():
+    (out_dir / f"{label}.sass").write_text("\n".join(lines))
+    kernels, name = {}, None
+    for i, line in enumerate(lines):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"instructions": 0, "loop_bodies": []}
+            kernels[name] = []
             continue
-        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);\s*/\* 0x[0-9a-f]+ \*/", line)
         if name and m:
-            counts[name]["instructions"] += 1
-            addr, bra = int(m.group(1), 16), re.search(r"\bBRA\b.*?0x([0-9a-f]+)", m.group(2))
+            # the instruction's upper word is on the next line; bits 41-44 of
+            # it (105-108 of the instruction) are the stall count
+            upper = re.search(r"/\* (0x[0-9a-f]+) \*/", lines[i + 1])
+            stall = (int(upper.group(1), 16) >> 41) & 0xF if upper else 0
+            kernels[name].append((int(m.group(1), 16), m.group(2), stall))
+    counts = {}
+    for name, ins in kernels.items():
+        bodies = []
+        for addr, op, _ in ins:
+            bra = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
             if bra and int(bra.group(1), 16) <= addr:
-                counts[name]["loop_bodies"].append((addr - int(bra.group(1), 16)) // 16 + 1)
+                body = [x for x in ins if int(bra.group(1), 16) <= x[0] <= addr]
+                bodies.append([len(body), sum(x[2] for x in body)])
+        counts[name] = {"instructions": len(ins), "loop_bodies": bodies}
     return counts
 
 
@@ -78,6 +89,8 @@ def main(argv=None) -> int:
     ap.add_argument("--other", action="append", default=[], metavar="LABEL=SOURCE")
     ap.add_argument("--sass", type=Path, default=None)
     ap.add_argument("--window", type=int, default=6)
+    ap.add_argument("--unroll", type=int, nargs="+", default=[1, 13],
+                    help="values of WS_STEADY_UNROLL to build")
     args = ap.parse_args(argv)
     from chip_smoke import graph_ms      # the repo-root script: run from the root
 
@@ -95,7 +108,7 @@ def main(argv=None) -> int:
     out = torch.empty_like(ref)
     src = _build.CSRC / "window_stats.cu"
     jobs = {f"unroll{u}": (src, _build._lib_path("window_stats", (f"-DWS_STEADY_UNROLL={u}",)),
-                           (f"-DWS_STEADY_UNROLL={u}",)) for u in UNROLLS}
+                           (f"-DWS_STEADY_UNROLL={u}",)) for u in args.unroll}
     for spec in args.other:
         label, path = spec.split("=", 1)
         jobs[label] = (Path(path), _build.BUILD_DIR / f"libwindow_stats_{label}.so", ())
