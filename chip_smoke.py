@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 1. env     -- the card (nvidia-smi name and power limit), torch and CUDA.
-2. build   -- nvcc builds every kernel of csrc/ (in parallel) into build/.
+2. build   -- nvcc builds every kernel of csrc/ (in parallel) into build/,
+              anew on every run.
 3. kernels -- each kernel on the card against its plain PyTorch version on
               the same inputs, at its path's shapes (kernel 2 bit for bit,
               also at the edges of its tiling and through both its entries);
@@ -36,6 +37,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -45,6 +47,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from difusion_tpu_torch.ops._timing import graph_ms, host_us, time_ms
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): TF32 on the tensor
 # cores (dense), f32 outside them (an FMA counted as two operations), and
@@ -70,67 +74,6 @@ def emit(obj) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def time_ms(fn, batches: int, per_batch: int = 10) -> float:
-    """Per-call ms: the median over ``batches`` of CUDA-event-timed runs of
-    ``per_batch`` back-to-back calls (after 3 warm-up calls).  Timing a run
-    of calls, not one, keeps the host's launch latency out of a kernel's
-    time as long as the host enqueues faster than the card computes."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(batches):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(per_batch):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per_batch)
-    return statistics.median(times)
-
-
-def graph_ms(fn, calls: int, reps: int = 10) -> float:
-    """Device ms per call: ``calls`` back-to-back calls captured in one CUDA
-    graph, replayed ``reps`` times between CUDA events (median).  Replay
-    keeps the host's per-call cost (ctypes, allocation, checks) out of the
-    time, which event timing of eager calls does not once a kernel is
-    shorter than its wrapper."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    return statistics.median(times)
-
-
-def host_us(fn, calls: int = 100) -> float:
-    """The host's us per eager call: the wall time to enqueue ``calls``
-    calls, the card's work synchronised outside the clock."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
 
 
 def bound_ms(ops: float, nbytes: float, ops_per_s: float):
@@ -243,11 +186,12 @@ def check_decode_fused(packed, fused_mod, dev):
             "flops": flops, "bytes": nbytes}
 
 
-# kernel 2's edge shapes: (H, W, window).  The 32 x 4R tile's edges (one
-# tile of R = 3, a pixel more either way), one row, one column, one pixel,
-# an image smaller than the window; then other windows through the run-time
+# kernel 2's edge shapes: (H, W, window).  The 32 x 4R tile's edges (whole
+# tiles of R = 1, a pixel more or less either way, and ragged tiles of R = 5
+# at 237 x 315, where the plan picks it), one row, one column, one pixel, an
+# image smaller than the window; then other windows through the run-time
 # body, down to the 1 x 1 window, and a tile above 48 KB.
-STENCIL_EDGES = [(12, 32, 6), (13, 33, 6), (21, 31, 6), (61, 97, 6), (1, 40, 6),
+STENCIL_EDGES = [(12, 32, 6), (13, 33, 6), (21, 31, 6), (61, 97, 6), (237, 315, 6), (1, 40, 6),
                  (40, 1, 6), (1, 1, 6), (5, 7, 6), (37, 53, 0), (37, 53, 1),
                  (37, 53, 3), (50, 70, 7), (45, 64, 20)]
 
@@ -255,9 +199,8 @@ STENCIL_EDGES = [(12, 32, 6), (13, 33, 6), (21, 31, 6), (61, 97, 6), (1, 40, 6),
 def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, build_info, dev):
     """Kernel 2 vs its plain version: all 11 planes bit-equal (torch.equal),
     through both entries, on the real 240x320 unprojected point map of a
-    rendered frame at w = 6 and on seeded maps at STENCIL_EDGES, with every
-    rows-per-thread value at one of them.  Times are the point-map entry's,
-    the one the main path calls."""
+    rendered frame at w = 6 and on seeded maps at STENCIL_EDGES.  Times are
+    the point-map entry's, the one the main path calls."""
     packed = torch.from_numpy(tracker_mod.pack_frame(
         frame.rgb, frame.depth, calib.dcam_scale)).to(dev)
     intensity, depth = tracker_mod.unpack_frame(packed, calib, frame.depth.shape[1])
@@ -275,48 +218,57 @@ def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, build_i
         return (*(torch.where(ok, pc[..., c], zero).contiguous() for c in range(3)),
                 ok.float())
 
-    def compare(pc, ok, window, r2, what, rows=None):
+    def compare(pc, ok, window, r2, what):
+        """Both entries against the plain version; the planes found equal."""
         planes = planes_of(pc, ok)
         ref = torch.stack(stencil_mod.window_stat_sums_plain(*planes, window, *r2))
-        got = {"planes": torch.stack(stencil_mod.window_stat_sums(*planes, window, *r2,
-                                                                  rows=rows)),
-               "map": stencil_mod.window_stat_sums_map(pc, ok, window, *r2, rows=rows)}
+        got = {"planes": torch.stack(stencil_mod.window_stat_sums(*planes, window, *r2)),
+               "map": stencil_mod.window_stat_sums_map(pc, ok, window, *r2)}
         torch.cuda.synchronize()
+        equal = 0
         for entry, g in got.items():
-            if not torch.equal(g, ref):
-                bad = [k for k in range(11) if not torch.equal(g[k], ref[k])]
+            bad = [k for k in range(len(ref)) if not torch.equal(g[k], ref[k])]
+            if bad:
                 fail(f"window_stat_sums ({entry} entry) at {what}: planes {bad} differ "
                      f"from the plain version, max abs err "
                      f"{(g - ref).abs().max().item():.3g}")
-        return planes, ref, got["map"]
+            equal = len(ref) - len(bad)
+        return planes, ref, got["map"], equal
 
-    planes, ref, got = compare(pc, ok_sub, window, r2, "the rendered frame")
+    planes, ref, got, planes_equal = compare(pc, ok_sub, window, r2, "the rendered frame")
     worst = (got - ref).abs().max().item()
     gen = torch.Generator(device=dev).manual_seed(2)
+    edges_equal = 0
     for (eh, ew, ewin) in STENCIL_EDGES:
         epc = torch.randn(eh, ew, 3, generator=gen, device=dev) * 0.1
         eok = torch.rand(eh, ew, generator=gen, device=dev) > 0.2
         compare(epc, eok, ewin, (0.01, 0.04), f"{eh}x{ew}, w={ewin}")
-        if (eh, ew) == (61, 97):
-            for rows in stencil_mod.ROWS:
-                compare(epc, eok, ewin, (0.01, 0.04), f"{eh}x{ew}, w={ewin}, rows={rows}",
-                        rows=rows)
+        edges_equal += 1
     h, w = ok_sub.shape
     taps = (2 * window + 1) ** 2
-    flops = float(stencil_mod.OPS_PER_TAP * taps * h * w)
+    # what the function needs: per tap and pixel the differences, |d|^2, the
+    # tests and the sums; per pixel the nine products of the moments' terms,
+    # which depend on the neighbour alone
+    flops = float((stencil_mod.OPS_PER_TAP * taps + stencil_mod.OPS_PER_PIXEL) * h * w)
     nbytes = 4.0 * (4 + 11) * h * w
     # the kernel rounds every product and sum on its own (__fmul_rn /
     # __fadd_rn, bit-equal to the plain version), so no two operations fuse
     # into an FMA: each is one instruction, at the f32 instruction rate
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_INSTR_PER_S)
+    # the plain version's count (the products made anew at every tap), with
+    # which the bound was stated before the kernel shared them
+    plain_ops_bound_ms = bound_ms(float(stencil_mod.OPS_PER_TAP_PLAIN * taps * h * w),
+                                  nbytes, PEAK_F32_INSTR_PER_S)[0]
     plan = stencil_mod.plan(h, w, window, torch.cuda.get_device_properties(0)
                             .multi_processor_count)
     # ptxas on the kernel instantiation this shape runs (window, rows)
     ptxas = build_info.get("window_stats", {}).get("ptxas", [])
     mangled = f"window_stats_kernelILi{window}ELi{plan.rows}EE"
     at = next((i for i, ln in enumerate(ptxas) if mangled in ln), None)
-    resources = " | ".join(ptxas[at + 1:at + 3]) if at is not None else "not measured"
-    if "spill" in resources and "0 bytes spill stores, 0 bytes spill loads" not in resources:
+    if at is None:
+        fail(f"no ptxas report for {mangled} in this run's build")
+    resources = " | ".join(ptxas[at + 1:at + 3])
+    if "0 bytes spill stores, 0 bytes spill loads" not in resources:
         fail(f"window_stats.cu spills: {resources}")
 
     def call():
@@ -327,15 +279,16 @@ def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, build_i
     return {"name": "window_stat_sums", "route": "cuda",
             "source": "difusion_tpu_torch/csrc/window_stats.cu",
             "replaces": "difusion_tpu/ops/stencil_pallas.py:49",
-            "max_abs_err": worst, "planes_equal": 11,
-            "edge_shapes_equal": len(STENCIL_EDGES) + len(stencil_mod.ROWS),
+            "max_abs_err": worst, "planes_equal": planes_equal,
+            "edge_shapes_equal": edges_equal,
             "ms": graph_ms(call, 50), "eager_ms": time_ms(call, 20),
             "host_us": host_us(call),
             "planes_entry_ms": graph_ms(call_planes, 50),
             "planes_entry_host_us": host_us(call_planes),
             "plain_ms": time_ms(lambda: stencil_mod.window_stat_sums_plain(
                 *planes, window, *r2), 3, per_batch=3),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_plain_ops_ms": plain_ops_bound_ms, "library_ms": None,
             "library_note": "no single PyTorch call computes thresholded "
                             "window moments",
             "shape": f"{h}x{w}, w={window}, f32",
@@ -403,6 +356,9 @@ def main() -> int:
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
 
+    # always from the sources: a library left by an earlier run is removed,
+    # so this run has every kernel's ptxas report
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     info = _build.build_all()
     spills = [ln for k in info.values() for ln in k["ptxas"]

@@ -15,13 +15,17 @@
 // all 11 planes are bit-equal to ops/stencil.window_stat_sums_plain on finite
 // inputs: the threshold tests cannot flip and the counts match exactly.
 //
-// What bounds it on an H100: instruction issue.  The function needs 30
-// single-rounded operations per tap and pixel; at the main path's 240 x 320
-// map and w = 6 (169 taps) that is 0.389 G instructions against 4.6 MB of
-// input and output: 0.0116 ms at 132 SMs x 128 lanes x 1.98 GHz = 33.5 T
-// instructions/s, versus 1.4 us for the bytes.  Every issued instruction
-// (loads, compares, loop and address arithmetic) takes a slot of the same
-// one-per-clock scheduler, so the design is about issue slots and about
+// What bounds it on an H100: the instruction schedulers.  The function needs 21
+// single-rounded operations per tap and pixel (3 differences, |d|^2 in 3
+// products and 2 sums, 2 threshold tests, 11 accumulating sums) and 9
+// products per pixel (the moments' terms depend on the neighbour alone); at
+// the main path's 240 x 320 map and w = 6 (169 taps) that is 0.273 G
+// instructions against 4.6 MB of input and output: 0.0082 ms at 132 SMs x
+// 128 lanes x 1.98 GHz = 33.5 T instructions/s, versus 1.4 us for the bytes.
+// (Counting the 9 products once per tap, as the plain version computes them,
+// gives 30 operations a tap and 0.0116 ms.)  Every executed instruction (loads,
+// compares, loop and address arithmetic) takes a slot of the same
+// one-per-clock scheduler, so the design is about scheduler slots and about
 // giving each of the 4 x 132 schedulers the same number of them.
 //
 // Design.
@@ -46,20 +50,23 @@
 //    exact no-op: the plain version adds wgt = +0 there (or (+0 * n) * n =
 //    +-0 for the finite n the contract asks for), and x + (+-0) = x for
 //    every x but -0, which no accumulator holds: each starts at +0 and a
-//    round-to-nearest sum is -0 only if both terms are.  So 21 issued
+//    round-to-nearest sum is -0 only if both terms are.  So 21 executed
 //    instructions per tap and centre, plus (1 load + 9 products + ~3 of
-//    loop) / R, against the 30 operations the bound counts.
+//    loop) / R: 23.8 at R = 5 against the 21 the function needs.
 //  * Each neighbour row's set of active centres is fixed at compile time
 //    (R - 1 rows of ramp-up, 2w + 2 - R full rows, R - 1 of ramp-down), and
 //    the 2w + 1 taps of a row are a short loop that prefetches the next
 //    neighbour.  Unrolling all 13 x (R + 12) steps of w = 6 would be ~300 KB
-//    of code, far beyond the instruction cache; unrolling a row's 13 taps
-//    measured no faster.  w = 6 (production) is a template parameter: a
+//    of code, far beyond the instruction cache; unrolling 2 to 13 of a row's
+//    taps measured slower than the loop.  w = 6 (production) is a template parameter: a
 //    static tile, constant strides and tap counts.  Every other window runs
 //    the same body with run-time strides and a dynamic tile; the strip is
-//    never longer than the window (R <= 2w + 1; R = 1 serves w = 0).
+//    never longer than the window (R <= 2w + 1; R = 1 serves w = 0).  R is
+//    1 or 5: at 240 x 320 on 132 SMs R = 4 and R = 6 measured 1.47x and
+//    1.10x the time of R = 5, and R = 3 was the fastest at no shape or window
+//    measured.
 //  * One tile a block, so there is no next tile to prefetch behind the taps:
-//    the tile's loads are all independent and issued together (unrolled, from
+//    the tile's loads are all independent and started together (unrolled, from
 //    clamped addresses, as asm volatile so that the compiler cannot turn them
 //    back into one dependent round trip per entry) before one __syncthreads.
 //    The tile is 11-25 KB at w = 6; neither cp.async nor TMA is used.  Tensor cores
@@ -67,11 +74,6 @@
 #include <cuda_runtime.h>
 
 #include <utility>
-
-// taps of a full neighbour row unrolled together (1: a loop; measured best)
-#ifndef WS_STEADY_UNROLL
-#define WS_STEADY_UNROLL 1
-#endif
 
 namespace {
 
@@ -202,11 +204,11 @@ __device__ __forceinline__ void tap(float (&a)[11], const float (&c)[3], const f
 // The ntap taps of one neighbour row for the centres KLO..KHI of the thread.
 // `row` points at the thread's leftmost neighbour; the next one is loaded
 // before this one's arithmetic (the tile has one spare entry at its end).
-template <int R, int KLO, int KHI, int UNROLL>
+template <int R, int KLO, int KHI>
 __device__ __forceinline__ void row_taps(const float4* row, int ntap, float (&acc)[R][11],
                                          const float (&c)[R][3], float r2o, float r2n) {
   float4 nxt = row[0];
-#pragma unroll UNROLL
+#pragma unroll 1
   for (int du = 0; du < ntap; ++du) {
     const float4 n = nxt;
     nxt = row[du + 1];
@@ -222,7 +224,7 @@ template <int R, int... I>
 __device__ __forceinline__ void ramp_up(std::integer_sequence<int, I...>, const float4* base,
                                         int SW, int side, float (&acc)[R][11],
                                         const float (&c)[R][3], float r2o, float r2n) {
-  (row_taps<R, 0, I, 1>(base + I * SW, side, acc, c, r2o, r2n), ...);
+  (row_taps<R, 0, I>(base + I * SW, side, acc, c, r2o, r2n), ...);
 }
 
 // neighbour rows 2w+1 .. 2w+R-1: row 2w+1+I serves centres I+1..R-1
@@ -230,7 +232,7 @@ template <int R, int... I>
 __device__ __forceinline__ void ramp_down(std::integer_sequence<int, I...>, const float4* base,
                                           int SW, int side, float (&acc)[R][11],
                                           const float (&c)[R][3], float r2o, float r2n) {
-  (row_taps<R, I + 1, R - 1, 1>(base + (side + I) * SW, side, acc, c, r2o, r2n), ...);
+  (row_taps<R, I + 1, R - 1>(base + (side + I) * SW, side, acc, c, r2o, r2n), ...);
 }
 
 template <int R>
@@ -294,7 +296,7 @@ window_stats_kernel(const float* __restrict__ a, const float* __restrict__ b,
   ramp_up<R>(std::make_integer_sequence<int, R - 1>{}, base, SW, side, acc, ctr, r2o, r2n);
 #pragma unroll 1
   for (int nr = R - 1; nr < side; ++nr)
-    row_taps<R, 0, R - 1, WS_STEADY_UNROLL>(base + nr * SW, side, acc, ctr, r2o, r2n);
+    row_taps<R, 0, R - 1>(base + nr * SW, side, acc, ctr, r2o, r2n);
   ramp_down<R>(std::make_integer_sequence<int, R - 1>{}, base, SW, side, acc, ctr, r2o, r2n);
   store<R>(acc, out, H, W);
 }
@@ -333,26 +335,16 @@ int launch(const float* a, const float* b, const float* c, const void* v, int po
     return (int)cudaErrorInvalidValue;
   switch (rows) {
     case 1: return launch_rows<1>(a, b, c, v, pointmap, out, H, W, win, r2o, r2n, s);
-    case 3: return launch_rows<3>(a, b, c, v, pointmap, out, H, W, win, r2o, r2n, s);
-    case 4: return launch_rows<4>(a, b, c, v, pointmap, out, H, W, win, r2o, r2n, s);
     case 5: return launch_rows<5>(a, b, c, v, pointmap, out, H, W, win, r2o, r2n, s);
-    case 6: return launch_rows<6>(a, b, c, v, pointmap, out, H, W, win, r2o, r2n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// The rows-per-thread values the library was built with, as a bit mask, and
-// the window that has its own kernel: ops/stencil.py checks both at load.
-extern "C" int window_stats_rows_mask() {
-  return (1 << 1) | (1 << 3) | (1 << 4) | (1 << 5) | (1 << 6);
-}
-extern "C" int window_stats_fixed_window() { return FIXED_WIN; }
-
 // px, py, pz, vf: (H, W) f32 contiguous on the device, masked by the caller
-// (0 where vf = 0); out: (11, H, W).  rows: pixels a thread owns, from the
-// host plan, at most 2 * win + 1.  Returns cudaGetLastError().
+// (0 where vf = 0); out: (11, H, W).  rows: pixels a thread owns (1 or 5,
+// from the host plan ops/stencil.plan), at most 2 * win + 1.  Returns cudaGetLastError().
 extern "C" int window_stats_launch(const float* px, const float* py, const float* pz,
                                    const float* vf, float* out, int H, int W, int win,
                                    float outlier_r2, float normal_r2, int rows,

@@ -42,56 +42,47 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def _lib_path(name: str, extra_flags=()) -> Path:
+def _lib_path(name: str) -> Path:
     """Keyed by the source, every csrc/*.cuh (any of them may be included)
     and the flags, so an edited header rebuilds its libraries."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join([*NVCC_FLAGS, *extra_flags]).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     key = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
-
-
-def compile_all(jobs: Dict[str, tuple]) -> Dict[str, dict]:
-    """Run one nvcc for each ``label -> (source, library, extra flags)``, all
-    at once; per label the wall seconds and the ptxas resource report (also
-    kept in ``build_info``).  Raises if any compile fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    t0 = time.perf_counter()
-    for label, (src, out, extra) in jobs.items():
-        tmp = Path(out).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
-        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp, out)
-    failed, info = [], {}
-    for label, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        info[label] = {"seconds": time.perf_counter() - t0,
-                       "ptxas": [ln.strip() for ln in log.splitlines()
-                                 if "Used" in ln or "spill" in ln
-                                 or "Compiling entry" in ln]}
-        if proc.returncode != 0:
-            failed.append(f"{label}:\n{log}")
-        else:
-            os.replace(tmp, out)
-    build_info.update(info)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return info
 
 
 def build_all() -> Dict[str, dict]:
     """Compile every csrc/*.cu not yet built, all nvcc processes at once.
     Raises if any compile fails."""
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    todo = {n: (CSRC / f"{n}.cu", _lib_path(n), ()) for n in names
-            if not _lib_path(n).exists()}
+    todo = [n for n in names if not _lib_path(n).exists()]
     if todo:
-        compile_all(todo)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        t0 = time.perf_counter()
+        for n in todo:
+            out = _lib_path(n)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
+        failed = []
+        for n, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            build_info[n] = {"seconds": time.perf_counter() - t0,
+                             "ptxas": [ln.strip() for ln in log.splitlines()
+                                       if "Used" in ln or "spill" in ln
+                                       or "Compiling entry" in ln]}
+            if proc.returncode != 0:
+                failed.append(f"{n}.cu:\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return build_info
 
 

@@ -21,19 +21,23 @@ import torch.nn.functional as F
 
 from . import _build
 
-# operations per tap the function needs: d (3 sub), |d|^2 (3 mul + 2 add),
-# two threshold selects, 11 accumulating adds, w*{x,y,z} (3 mul) and the six
-# second-moment products
-OPS_PER_TAP = 30
+# single-rounded operations the function needs.  Per tap and pixel: d (3
+# sub), |d|^2 (3 mul + 2 add), two threshold tests, 11 accumulating adds.  Per
+# pixel: ok*{x, y, z} and the six second-moment products, which depend on the
+# neighbour alone (wherever a tap's weight is not 0 it equals ok).
+OPS_PER_TAP = 21
+OPS_PER_PIXEL = 9
+# the plain version makes the 9 products anew at every tap: 30 operations a
+# tap, the count the kernel's bound was stated with before its redesign
+OPS_PER_TAP_PLAIN = 30
 
 # the kernel's tiling (csrc/window_stats.cu): a thread owns R vertically
 # adjacent pixels, a warp 32 adjacent columns, a block 4 warps stacked
 # vertically (one for each scheduler of an SM) on a 32 x 4R tile
 TILE_W = 32
 WARPS = 4
-ROWS = (1, 3, 4, 5, 6)      # the R the library is built with
-FIXED_WINDOW = 6            # the window with its own (templated) kernel
-# issued instructions of the kernel: per tap and centre (3 sub, 3 mul + 2 add,
+ROWS = (1, 5)               # the R the library is built with
+# executed instructions of the kernel: per tap and centre (3 sub, 3 mul + 2 add,
 # 2 compares, 11 predicated adds), and per loaded neighbour (1 load, 9
 # products, ~3 of loop)
 _TAP_INSTR = 21
@@ -51,12 +55,13 @@ class Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def plan(h: int, w: int, window: int, n_sm: int) -> Plan:
-    """The rows per thread that give the busiest SM the fewest issued
+    """The rows per thread that give the busiest SM the fewest executed
     instructions: blocks are dealt one to an SM, so an SM's schedulers each
     run ceil(blocks / n_sm) warps of R pixels a lane, and a warp's cost is
     its (2w+1) * (R + 2w) loaded neighbours plus its R * (2w+1)^2 taps.
     Ties go to the larger R (fewer loads).  The kernel takes no strip longer
-    than the window (R <= 2w+1)."""
+    than the window (R <= 2w+1).  The model (an SM runs its blocks one after
+    another) is checked against the card's times by ``stencil_tune.py``."""
     side = 2 * window + 1
     best = None
     for r in [r for r in ROWS if r <= side]:
@@ -101,14 +106,11 @@ _lib = None
 
 
 def _load():
-    """csrc/window_stats.cu's library, its tiling checked against this
-    module's and its entry points typed once per process."""
+    """csrc/window_stats.cu's library, its entry points typed once per
+    process."""
     global _lib
     if _lib is None:
         lib = _build.load("window_stats")
-        if lib.window_stats_rows_mask() != sum(1 << r for r in ROWS) \
-                or lib.window_stats_fixed_window() != FIXED_WINDOW:
-            raise RuntimeError("window_stats.cu's tiling disagrees with ops/stencil.py")
         tail = [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
         lib.window_stats_launch.argtypes = [ctypes.c_void_p] * 5 + tail
         lib.window_stats_map_launch.argtypes = [ctypes.c_void_p] * 3 + tail
@@ -131,11 +133,11 @@ def _current_stream(index: int) -> int:
 
 
 def _launch_cuda(entry: str, inputs, h: int, w: int, window: int, outlier_r2: float,
-                 normal_r2: float, rows) -> torch.Tensor:
+                 normal_r2: float, rows=None) -> torch.Tensor:
     """Launch ``entry`` of csrc/window_stats.cu on ``inputs`` (validated by
     the caller) -> the (11, H, W) sums on the current stream, checked and
-    counted.  ``rows`` overrides the plan's rows per thread (the card tests
-    and the smoke run reach every instantiation with it)."""
+    counted.  ``rows`` overrides the plan's rows per thread: the card tests
+    reach every instantiation with it, no caller of the port sets it."""
     dev = inputs[0].device
     if window < 0 or 3 * h * w >= 2 ** 31:
         raise ValueError(f"window_stat_sums: needs window >= 0 and 3 * H * W < 2^31 (the "
@@ -164,7 +166,7 @@ def _launch_cuda(entry: str, inputs, h: int, w: int, window: int, outlier_r2: fl
 
 def window_stat_sums(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
                      vf: torch.Tensor, window: int, outlier_r2: float,
-                     normal_r2: float, rows=None) -> Tuple[torch.Tensor, ...]:
+                     normal_r2: float) -> Tuple[torch.Tensor, ...]:
     """All window reductions in one pass.  Inputs are the UNPADDED (H, W)
     point-component maps, finite and zero where invalid, and the validity map
     as f32 (1.0 valid).  Returns 11 (H, W) f32 maps: (outlier_cnt, cnt, s1x,
@@ -181,11 +183,11 @@ def window_stat_sums(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
                              f"float32 ({h}, {w}) tensors on {px.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     return _launch_cuda("window_stats_launch", (px, py, pz, vf), h, w, window,
-                        outlier_r2, normal_r2, rows).unbind(0)
+                        outlier_r2, normal_r2).unbind(0)
 
 
 def window_stat_sums_map(pc_map: torch.Tensor, valid: torch.Tensor, window: int,
-                         outlier_r2: float, normal_r2: float, rows=None) -> torch.Tensor:
+                         outlier_r2: float, normal_r2: float) -> torch.Tensor:
     """:func:`window_stat_sums` of ``where(valid, pc_map, 0)`` and
     ``valid.float()``, as one (11, H, W) tensor: the (H, W, 3) f32 point map
     (finite where valid) and the (H, W) bool validity map go to the kernel as
@@ -205,4 +207,4 @@ def window_stat_sums_map(pc_map: torch.Tensor, valid: torch.Tensor, window: int,
                          f"got {pc_map.dtype} {tuple(pc_map.shape)} on {pc_map.device} "
                          f"and {valid.dtype} {tuple(valid.shape)} on {valid.device}")
     return _launch_cuda("window_stats_map_launch", (pc_map, valid), h, w, window,
-                        outlier_r2, normal_r2, rows)
+                        outlier_r2, normal_r2)

@@ -80,9 +80,11 @@ def _stencil_inputs(dev, shape, seed):
 
 @pytest.mark.parametrize("shape,window", [
     ((37, 53), 2), ((8, 32), 6), ((240, 320), 6),
-    # the 32 x 4R tile's edges: exactly one tile of R = 3, one pixel more
-    # either way, one row, one column, one pixel, smaller than the window
-    ((12, 32), 6), ((13, 33), 6), ((20, 32), 6), ((21, 31), 6), ((1, 40), 6),
+    # the 32 x 4R tile's edges: whole tiles of R = 1 and one of R = 5, a
+    # pixel more or less either way, ragged tiles of R = 5 where the plan
+    # picks it (237 x 315), one row, one column, one pixel, smaller than the
+    # window
+    ((12, 32), 6), ((13, 33), 6), ((20, 32), 6), ((21, 31), 6), ((237, 315), 6), ((1, 40), 6),
     ((40, 1), 6), ((1, 1), 6), ((5, 7), 6), ((61, 97), 6),
     # other windows: the run-time body, down to the 1 x 1 window, and a tile
     # above 48 KB of shared memory (w = 20)
@@ -106,14 +108,18 @@ def test_window_stats_kernel_matches_plain(dev, shape, window):
                                          if r <= 2 * w + 1])
 def test_window_stats_kernel_every_rows_value(dev, rows, window):
     """Each rows-per-thread instantiation the window admits (R <= 2w + 1),
-    through the templated w = 6 body and the run-time body, at a shape that
-    is a multiple of no tile: bit-equal to the plain version."""
-    _, _, planes = _stencil_inputs(dev, (50, 70), 10 * rows + window)
-    got = stencil.window_stat_sums(*planes, window, 0.01, 0.04, rows=rows)
-    ref = stencil.window_stat_sums_plain(*planes, window, 0.01, 0.04)
-    torch.cuda.synchronize()
-    for k, (g, r) in enumerate(zip(got, ref)):
-        assert torch.equal(g, r), (k, int((g != r).sum()))
+    through the templated w = 6 body and the run-time body and through both
+    entries, at a shape that is a multiple of no tile: bit-equal to the plain
+    version.  The public entries take the plan's value; the launcher behind
+    them takes any."""
+    pc, ok, planes = _stencil_inputs(dev, (50, 70), 10 * rows + window)
+    ref = torch.stack(stencil.window_stat_sums_plain(*planes, window, 0.01, 0.04))
+    for entry, inputs in (("window_stats_launch", planes),
+                          ("window_stats_map_launch", (pc, ok))):
+        got = stencil._launch_cuda(entry, inputs, 50, 70, window, 0.01, 0.04, rows=rows)
+        torch.cuda.synchronize()
+        for k in range(11):
+            assert torch.equal(got[k], ref[k]), (entry, k, int((got[k] != ref[k]).sum()))
 
 
 @pytest.mark.parametrize("shape,window", [((240, 320), 6), ((37, 53), 6), ((1, 1), 6),
@@ -161,7 +167,8 @@ def test_wrappers_reject_bad_inputs(dev, packed):
         stencil.window_stat_sums_map(torch.zeros(4, 5, 4, device=dev)[..., :3], ok, 2, 0.1, 0.1)
     with pytest.raises(ValueError):
         stencil.window_stat_sums_map(torch.zeros(4, 5, 3, device=dev), ok, -1, 0.1, 0.1)
+    pc = torch.zeros(4, 5, 3, device=dev)
     with pytest.raises(ValueError):   # a rows value the library was not built with
-        stencil.window_stat_sums_map(torch.zeros(4, 5, 3, device=dev), ok, 2, 0.1, 0.1, rows=7)
+        stencil._launch_cuda("window_stats_map_launch", (pc, ok), 4, 5, 2, 0.1, 0.1, rows=3)
     with pytest.raises(ValueError):   # a strip longer than the window
-        stencil.window_stat_sums_map(torch.zeros(4, 5, 3, device=dev), ok, 1, 0.1, 0.1, rows=4)
+        stencil._launch_cuda("window_stats_map_launch", (pc, ok), 4, 5, 1, 0.1, 0.1, rows=5)

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "difusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "difusion_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "stencil_tune.py"]
 
 
 def _imported_modules(path: Path):
