@@ -18,16 +18,26 @@ Phases, each printing one JSON line:
               budget 8192, fusion every 20 frames, meshing off, the in-repo
               study_mixed prior at epoch 300.  41 frames (fusions at 0, 20,
               40); launch counts, ms/frame, n_occupied and ATE.
-5. mesh    -- a second SLAMSystem on the same frames with the meshing
+5. chunk   -- the normal entry point on the same frames: SLAMSystem.from_config
+              on a dictionary that mirrors configs/fusion-synthetic.yaml, then
+              run_sequence(chunk=12): frame 0 alone, then chunks of 12, 12, 12
+              and 4 frames, every tracked frame one CUDA-graph launch whose
+              GN loops end on the device.  Its poses must equal the main
+              phase's; the host must have read no exit flag.
+6. mesh    -- a second SLAMSystem on the same frames with the meshing
               defaults (r = 4, max_std 0.15, an incremental extract on each
               fusion frame); per-extract ms, blocks and launches, ms/frame,
               and the final mesh's error against the analytic surface.
-6. offline -- save_map of the mesh phase's map, then the offline mesher
+7. offline -- save_map of the mesh phase's map, then the offline mesher
               (mesh_tool, r = 8) in-process; ms, triangles, dispatch sizes,
               launches and the mesh's error.
-7. profile -- torch.profiler over 3 more main-path frames: device time by
-              kernel.
-8. mesh_profile -- torch.profiler over one full (no_cache) r = 4 extract.
+8. profile -- torch.profiler over 3 more frames on the per-frame path, then
+              over the same 3 frames as one chunk on the chunked path: device
+              time by kernel, device calls and busy share of both (the
+              profiler sees one pass of each device-side loop, so the chunked
+              path's share is also given from the per-frame path's device
+              time); the two paths' poses on these frames must agree.
+9. mesh_profile -- torch.profiler over one full (no_cache) r = 4 extract.
 
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error against its plain version, times and bound, the nvidia-smi line, and
@@ -63,6 +73,7 @@ PEAK_F32_INSTR_PER_S = 132 * 128 * 1.98e9
 HYPER = Path(__file__).resolve().parent / "di-checkpoints/study_mixed/hyper.json"
 N_MAIN = 41          # frames on the main path: fusions at 0, 20 and 40
 N_PROFILE = 3
+CHUNK = 12           # frames a chunk, as bench.py streams them
 MESH_MAX_STD = 0.15  # the online default; the offline run uses it too
 MAX_MESH_ERR = 0.05  # m, 95th percentile distance to the analytic surface
 
@@ -336,16 +347,19 @@ def main() -> int:
               "needs a CUDA GPU", file=sys.stderr)
         return 2
     from difusion_tpu_torch import mesh_tool
+    from difusion_tpu_torch.config import dict_to_args
     from difusion_tpu_torch.core import map as M
     from difusion_tpu_torch.core import tracker as tracker_mod
     from difusion_tpu_torch.core.meshing import MeshExtractor
     from difusion_tpu_torch.core.tracker import TrackerConfig
-    from difusion_tpu_torch.data.production import SyntheticSequence, mesh_error_stats
+    from difusion_tpu_torch.data.production import (RGBDSequence, SyntheticSequence,
+                                                    mesh_error_stats)
     from difusion_tpu_torch.ops import _build, imgproc
     from difusion_tpu_torch.ops import decoder_fused as fused_mod
     from difusion_tpu_torch.ops import stencil as stencil_mod
     from difusion_tpu_torch.ops.imgproc import Intrinsic
     from difusion_tpu_torch.slam import SLAMSystem, load_prior
+    from difusion_tpu_torch.utils.cudagraph import WARM_UP_PASSES
     from difusion_tpu_torch.utils.motion import ate_rmse
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -410,6 +424,7 @@ def main() -> int:
     n_occ = int(system.state.n_occupied)
     finite = all(np.isfinite(p.t).all() and np.isfinite(p.q.q).all() for p in poses)
     n_steady = N_MAIN - 2
+    n_tracked = N_MAIN - 1
     emit({"phase": "main", "frames": N_MAIN, "h": 480, "w": 640,
           "ms_per_frame": steady_s * 1e3 / n_steady,
           "fps": n_steady / steady_s,
@@ -418,7 +433,6 @@ def main() -> int:
           "launches": counts, "gn_host_syncs_per_frame": syncs / (N_MAIN - 1),
           "n_occupied": n_occ, "ate_rmse_m": ate, "render_s": render_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    n_tracked = N_MAIN - 1
     if counts.get("window_stat_sums", 0) != N_MAIN:
         fail(f"window_stat_sums launched {counts.get('window_stat_sums', 0)} "
              f"times on the main path, expected {N_MAIN}")
@@ -434,6 +448,113 @@ def main() -> int:
     for k in kernels[:2]:
         k["launches"] = counts.get(k["name"], 0)
         k["path"] = "main"
+
+    # ---- chunk phase: the normal entry point, the GN loops on the card ----
+    class Rendered(RGBDSequence):
+        """The frames rendered above, as a sequence (no second rendering)."""
+
+        def __init__(self, n):
+            super().__init__()
+            self.calib, self.first_iso = calib, seq.first_iso
+            self.gt_trajectory = seq.gt_trajectory[:n]
+
+        def __len__(self):
+            return len(self.gt_trajectory)
+
+        def __next__(self):
+            if self.frame_id >= len(self):
+                raise StopIteration
+            self.frame_id += 1
+            return frames[self.frame_id - 1]
+
+    # configs/fusion-synthetic.yaml as a dictionary (no YAML read), with the
+    # in-repo prior
+    args = dict_to_args({
+        "training_hypers": str(HYPER), "using_epoch": 300, "resolution": 4,
+        "depth_cut_min": 0.5, "depth_cut_max": 5.0, "integrate_interval": 20,
+        "mapping": {"bound_min": [-3.5, -3.5, -0.5], "bound_max": [3.5, 3.5, 3.5],
+                    "voxel_size": 0.1, "prune_min_vox_obs": 16,
+                    "ignore_count_th": 16.0, "encoder_count_th": 600.0},
+        "tracking": {"iter_config": [{"n": 10, "type": [["rgb", 2]]},
+                                     {"n": 10, "type": [["sdf"], ["rgb", 1]]},
+                                     {"n": 50, "type": [["sdf"], ["rgb", 0]]}],
+                     "sdf": {"robust_kernel": "huber", "robust_k": 5.0, "subsample": 0.5},
+                     "rgb": {"weight": 500.0, "robust_kernel": None, "robust_k": 0.01,
+                             "min_grad_scale": 0.0, "max_depth_delta": 0.2}}})
+    csys = SLAMSystem.from_config(args, calib, seq.first_iso, capacity=1 << 16,
+                                  point_budget=8192, meshing=False)
+    # (the yaml's rgb robust_k of 0.01 is inert: its robust_kernel is null)
+    if (csys.map_cfg != map_cfg
+            or csys.tracker.tcfg._replace(rgb_robust_k=0.0) != system.tracker.tcfg):
+        fail(f"from_config built another configuration than the main phase's: "
+             f"{csys.map_cfg} {csys.tracker.tcfg}")
+    chunk_done = []
+    process_chunk = csys.process_chunk
+
+    def timed_chunk(packed, w):
+        out = process_chunk(packed, w)
+        enqueued = time.perf_counter()
+        torch.cuda.synchronize()
+        chunk_done.append((int(packed.shape[0]), enqueued, time.perf_counter()))
+        return out
+    csys.process_chunk = timed_chunk
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = csys.run_sequence(Rendered(N_MAIN), chunk=CHUNK)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ccounts = _build.launch_counts()
+    program = next(iter(csys.tracker.programs.values())).program
+    passes = program.loop_passes()
+    n_steady = sum(k for k, _, _ in chunk_done[1:])
+    steady_s = chunk_done[-1][2] - chunk_done[0][2]
+    history, reference = csys.tracker.pose_history(), system.tracker.pose_history()
+    pose_diff = max((a - b).abs().max().item() for a, b in zip(history, reference))
+    emit({"phase": "chunk", "frames": N_MAIN, "chunk": CHUNK,
+          "chunks": [k for k, _, _ in chunk_done],
+          "ms_per_frame": steady_s * 1e3 / n_steady, "fps": n_steady / steady_s,
+          "first_chunk_ms": (chunk_done[0][2] - t0) * 1e3,
+          "chunk_ms": [(done - (chunk_done[i - 1][2] if i else t0)) * 1e3
+                       for i, (_, _, done) in enumerate(chunk_done)],
+          "run_sequence_s": run_s, "capture_s": program.capture_s,
+          "gn_host_syncs_per_frame": csys.tracker.n_host_syncs / n_tracked,
+          "spec_evals_per_frame": csys.tracker.n_spec_evals / n_tracked,
+          "graph_replays": program.n_replays, "warm_up_passes": WARM_UP_PASSES,
+          "gn_evaluations_per_frame": sum(passes) / n_tracked,
+          "gn_evaluations_by_group": [p for p in passes if p],
+          "launches": ccounts,
+          "kernel_launches_per_frame": sum(ccounts.values()) / N_MAIN,
+          "pose_max_abs_diff_vs_main": pose_diff,
+          "poses_torch_equal_main": all(torch.equal(a, b)
+                                        for a, b in zip(history, reference)),
+          "n_occupied": result["n_voxels"], "ate_rmse_m": result["ate_rmse"],
+          "alloc_overflow": result["alloc_overflow"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "mem_added_gb": (torch.cuda.memory_allocated() - mem_before) / 1e9})
+    if [k for k, _, _ in chunk_done] != [CHUNK, CHUNK, CHUNK, (N_MAIN - 1) % CHUNK]:
+        fail(f"run_sequence chunked the frames as {[k for k, _, _ in chunk_done]}")
+    if result["n_frames"] != N_MAIN or program.n_replays != n_tracked:
+        fail(f"{result['n_frames']} frames, {program.n_replays} graph launches")
+    if not pose_diff <= 1e-6:
+        fail(f"chunked poses differ from the per-frame path's by {pose_diff:.3g}")
+    if not result["ate_rmse"] <= 0.05:
+        fail(f"chunk phase ATE {result['ate_rmse']:.4f} m > 0.05 m")
+    if result["n_voxels"] != n_occ:
+        fail(f"chunk phase n_occupied {result['n_voxels']} != main phase's {n_occ}")
+    # the two warm-up passes before the capture launch the kernels too
+    if ccounts.get("window_stat_sums", 0) != N_MAIN + WARM_UP_PASSES:
+        fail(f"window_stat_sums launched {ccounts.get('window_stat_sums', 0)} times on "
+             f"the chunked path, expected {N_MAIN} + {WARM_UP_PASSES} warm-up passes")
+    if ccounts.get("decode_grad_fused", 0) < 2 * n_tracked:
+        fail(f"decode_grad_fused launched {ccounts.get('decode_grad_fused', 0)} "
+             f"times on the chunked path, expected >= {2 * n_tracked}")
+    if csys.tracker.n_host_syncs != 0:
+        fail(f"the host read {csys.tracker.n_host_syncs} exit flags on the chunked path")
+    for k in kernels[:2]:
+        k["launches_chunk"] = ccounts.get(k["name"], 0)
 
     # ---- mesh phase: the same frames with the meshing defaults ----
     msys = SLAMSystem(map_cfg, tcfg, dec, enc, calib, integrate_interval=20,
@@ -522,7 +643,28 @@ def main() -> int:
     def profile_frames():
         for k in range(N_MAIN, N_MAIN + N_PROFILE):
             system.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
-    emit({"phase": "profile", "frames": N_PROFILE, **profiled(profile_frames)})
+    syncs_before = system.tracker.n_host_syncs
+    frame_profile = profiled(profile_frames)
+    emit({"phase": "profile", "path": "per-frame", "frames": N_PROFILE, **frame_profile,
+          "gn_updates_read": system.tracker.n_host_syncs - syncs_before})
+    tail = torch.stack([uploads[k] for k in range(N_MAIN, N_MAIN + N_PROFILE)]).to(dev)
+    passes_before = sum(program.loop_passes())
+    chunk_profile = profiled(lambda: process_chunk(tail, frames[0].depth.shape[1]))
+    tail_diff = max((a[-N_PROFILE:] - b[-N_PROFILE:]).abs().max().item()
+                    for a, b in zip(csys.tracker.pose_history(),
+                                    system.tracker.pose_history()))
+    # the profiler records a WHILE node's kernels for one pass of the loop
+    # only, so its device time of the chunked path is too low; both paths run
+    # the same kernels on these frames, so the per-frame path's device time
+    # over the chunked path's wall time is the share to read
+    emit({"phase": "profile", "path": "chunk", "frames": N_PROFILE,
+          "gn_evaluations": sum(program.loop_passes()) - passes_before,
+          "pose_max_abs_diff_vs_per_frame": tail_diff, **chunk_profile,
+          "device_busy_share_by_per_frame_device_ms":
+              frame_profile["device_ms"] / chunk_profile["wall_ms"]
+              if isinstance(frame_profile["device_ms"], float) else "not measured"})
+    if not tail_diff <= 1e-6:
+        fail(f"profiled chunk's poses differ from the per-frame path's by {tail_diff:.3g}")
     full = MeshExtractor(map_cfg, msys.decoder, voxel_resolution=msys.mesher.r,
                          max_triangles=1 << 22)
     full.extract(msys.state, max_std=MESH_MAX_STD, no_cache=True)     # warm-up

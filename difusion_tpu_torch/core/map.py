@@ -35,6 +35,19 @@ class MapConfig(NamedTuple):
     def n_cells(self) -> int:
         return int(np.prod(self.n_xyz))
 
+    @classmethod
+    def from_args(cls, args, latent_dim: int = 29, capacity: int = 1 << 15) -> "MapConfig":
+        """Build from a reference-style mapping config namespace
+        (bound_min/bound_max/voxel_size/prune_min_vox_obs/...)."""
+        bound_min = tuple(float(b) for b in args.bound_min)
+        n_xyz = tuple(int(np.ceil((bmax - bmin) / args.voxel_size))
+                      for bmin, bmax in zip(bound_min, args.bound_max))
+        return cls(
+            bound_min=bound_min, n_xyz=n_xyz, voxel_size=float(args.voxel_size),
+            latent_dim=latent_dim, capacity=capacity,
+            prune_min_vox_obs=int(getattr(args, "prune_min_vox_obs", 16)),
+            ignore_count_th=float(getattr(args, "ignore_count_th", 16.0)),
+            encoder_count_th=float(getattr(args, "encoder_count_th", 600.0)))
 
 
 class MapState(NamedTuple):
@@ -115,9 +128,9 @@ def integrate_keyframe(cfg: MapConfig, encoder: Encoder, state: MapState,
     ``surface_xyz`` (N, 3) world coords, ``surface_normal`` (N, 3),
     ``valid`` (N,).  Returns a new state; the input state is not modified.
 
-    The per-voxel code sums are ``index_add_``: on the card it adds in
-    atomic order, so latents agree with the JAX package to f32 rounding,
-    not bit for bit."""
+    The per-voxel code sums (:func:`_segment_sum`) add in another order than
+    the JAX package's, so latents agree with it to f32 rounding, not bit for
+    bit; two runs of the port on one device agree bit for bit."""
     dev = surface_xyz.device
     n = surface_xyz.shape[0]
     i32 = dict(dtype=torch.int32, device=dev)
@@ -172,9 +185,8 @@ def integrate_keyframe(cfg: MapConfig, encoder: Encoder, state: MapState,
                      dim=-1).reshape(n * 8, 6)
     codes = encoder.encode_points(xyzn)                           # (N*8, L)
     w = contrib.reshape(-1).to(codes.dtype)
-    sums = torch.zeros(cfg.capacity + 1, cfg.latent_dim, device=dev).index_add_(
-        0, seg, codes * w[:, None])[:-1]
-    cnts = torch.zeros(cfg.capacity + 1, device=dev).index_add_(0, seg, w)[:-1]
+    sums = _segment_sum(cfg.capacity + 1, seg, codes * w[:, None])[:-1]
+    cnts = _segment_sum(cfg.capacity + 1, seg, w)[:-1]
 
     # 5. weighted running-mean fusion
     new_count = state.obs_count + cnts
@@ -185,6 +197,19 @@ def integrate_keyframe(cfg: MapConfig, encoder: Encoder, state: MapState,
     return MapState(indexer=indexer, latents=latents, positions=positions,
                     obs_count=new_count, mesh_dirty=state.mesh_dirty | touched,
                     n_occupied=n_occupied, overflow=overflow)
+
+
+def _segment_sum(n_out: int, seg: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Sum the rows of ``values`` by segment id into ``n_out`` rows.  On the
+    card ``index_add_`` adds with atomics, in an order that changes from run
+    to run; ``index_put_(accumulate=True)`` sorts the ids and adds every
+    segment in row order, so a fusion gives the same bits on every run.  On
+    the CPU ``index_add_`` already adds in row order."""
+    out = torch.zeros((n_out, *values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    if values.is_cuda:
+        return out.index_put_((seg,), values, accumulate=True)
+    return out.index_add_(0, seg, values)
 
 
 def latent_count_table(state: MapState) -> torch.Tensor:

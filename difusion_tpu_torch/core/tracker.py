@@ -11,15 +11,21 @@ forward + d sdf/d xyz in one kernel, kernel 1, ``ops/decoder_fused.py``)
 and a photometric term (per-pixel bilinear warp), a Jacobi-preconditioned
 6x6 solve and energy rejection.
 
-The GN control flow (early exit, energy rejection) runs on the host: each
-iteration that may continue reads one device bool, so a tracked frame costs
-one device-to-host sync per such iteration (counted in
-``SDFTracker.n_host_syncs``).  The JAX package runs the same schedule as
-one ``lax.while_loop`` per group.
+One iteration is :func:`gn_step`, a masked step on a carry of tensors: once
+the carry's ``done`` is set, a further step changes nothing.  Two loops
+run it.  :func:`gauss_newton`, the per-frame path's, loops on the host and
+reads ``done`` after every update (each such read makes the host wait for
+the device; ``SDFTracker.n_host_syncs`` counts them).
+:class:`TrackProgram`, the chunked path's, is the counterpart of the JAX
+package's one-dispatch ``preprocess_and_track``: preprocessing, every group's
+loop and the commit of the result are one
+:class:`~..utils.cudagraph.GraphProgram`, whose loops end on the device, so
+a tracked frame is one graph launch and the host reads no exit flag.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from functools import partial
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,7 @@ from ..ops.imgproc import Intrinsic, Pyramid
 from ..ops.pcproc import point_box_filter
 from ..ops.se3 import Pose, exp_twist
 from ..ops.stencil import window_stat_sums_map
+from ..utils.cudagraph import GraphProgram
 from ..utils.motion import Isometry
 from . import map as M
 
@@ -147,7 +154,7 @@ _SUPPORTED = {"warp_tiled": (False,), "sdf_fused": ("on",),
               "solve_dtype": ("f32",), "sdf_compute_dtype": ("float32",),
               "rgb_bilinear": (True,), "sdf_gather_cache": (False,),
               "gn_unroll": (1,), "perturb_points": (0,),
-              "motion_prior": ("none",)}
+              "motion_prior": ("none", "constant_velocity")}
 
 
 def check_supported(tcfg: TrackerConfig) -> None:
@@ -375,7 +382,7 @@ def level_camera(tcfg: TrackerConfig, calib: Intrinsic, level: int,
 
 def _rgb_term(tcfg: TrackerConfig, cam: LevelCamera, stride: int,
               prev_tex: torch.Tensor, cur_level, delta: Pose,
-              rgb_weight: float):
+              rgb_weight: torch.Tensor):
     """Photometric residual over one pyramid level: the current level's
     (strided) pixels warped into the previous frame's texture."""
     krkinv = cam.K @ delta.R @ cam.Kinv
@@ -404,103 +411,292 @@ def _solve_precond(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Gauss-Newton driver
+# Gauss-Newton: one masked step, and the per-frame path's host loop
 # ---------------------------------------------------------------------------
 
 
 class GNResult(NamedTuple):
     delta: Pose
-    final: Pose                     # last_pose o delta
+    final: Pose                       # last_pose o delta
     final_energy: torch.Tensor
-    last_group_iters: int           # accepted updates in the final group
-    n_unstable: int                 # updated divergence counter
-    rgb_weight: float               # updated weight (fallback clamp applied)
-    host_syncs: int                 # device-to-host reads of the loop's exit flag
+    last_group_iters: torch.Tensor    # () int32 accepted updates in the final group
+    n_unstable: torch.Tensor          # () int32 updated divergence counter
+    rgb_weight: torch.Tensor          # () f32 updated weight (fallback clamp applied)
+    host_syncs: int = 0               # exit flags the host waited for
 
 
-def gauss_newton(tcfg: TrackerConfig, map_cfg: M.MapConfig, packed: torch.Tensor,
-                 cams: Dict[int, LevelCamera], state: M.MapState, last: Pose,
-                 prev: Pyramid, cur: ProcessedFrame, rgb_weight: float,
-                 n_unstable: int, init: Pose) -> GNResult:
-    """Grouped GN schedule: per group, up to ``n`` updates plus a final
-    evaluation-only pass, rejecting any step that raises the energy, with
-    the ``xi_tol`` / ``energy_rel_tol`` early exits and the divergence
-    fallback that clamps the RGB weight back up."""
-    dev = last.R.device
+class GNInputs(NamedTuple):
+    """What the GN loop reads and no iteration changes, made once a frame."""
+    cur_levels: Dict[int, tuple]      # level -> strided (int, depth, ok, grad, gok)
+    prev_texs: Dict[int, torch.Tensor]
+    aug_table: torch.Tensor
+
+
+class GNProblem(NamedTuple):
+    """One frame's tracking problem."""
+    tcfg: TrackerConfig
+    map_cfg: M.MapConfig
+    packed: torch.Tensor              # the fused decoder's packed weights
+    cams: Dict[int, LevelCamera]
+    state: M.MapState
+    last: Pose
+    cur: ProcessedFrame
+    inputs: GNInputs
+    rgb_weight: torch.Tensor
+
+
+class GNCarry(NamedTuple):
+    """The loop carry of one group (the JAX ``body``'s)."""
+    i: torch.Tensor       # () int32 evaluations made
+    dR: torch.Tensor      # the delta to evaluate next
+    dt: torch.Tensor
+    bR: torch.Tensor      # the best delta so far and its energy
+    bt: torch.Tensor
+    bE: torch.Tensor
+    done: torch.Tensor    # () bool
+
+
+def _rgb_stride(tcfg: TrackerConfig, lvl: int) -> int:
+    return tcfg.rgb_stride[min(lvl, len(tcfg.rgb_stride) - 1)]
+
+
+def gn_prepare(tcfg: TrackerConfig, state: M.MapState, prev: Pyramid,
+               cur: ProcessedFrame) -> GNInputs:
+    """The strided current-frame inputs and the previous frame's warp
+    texture per RGB level, and the latent + count table."""
     rgb_levels = sorted({int(term[1]) for _, terms in tcfg.iter_config
                          for term in terms if term[0] == "rgb"})
-    strides = {lvl: tcfg.rgb_stride[min(lvl, len(tcfg.rgb_stride) - 1)]
-               for lvl in rgb_levels}
     p = cur.pyramid
-    cur_levels = {lvl: tuple(imgproc.subsample2d(a[lvl], strides[lvl])
+    cur_levels = {lvl: tuple(imgproc.subsample2d(a[lvl], _rgb_stride(tcfg, lvl))
                              for a in (p.intensity, p.depth, p.depth_ok,
                                        p.grad, p.grad_ok))
                   for lvl in rgb_levels}
     prev_texs = {lvl: imgproc.warp_texture(prev.intensity[lvl], prev.depth[lvl])
                  for lvl in rgb_levels}
-    aug_table = M.latent_count_table(state)
+    return GNInputs(cur_levels, prev_texs, M.latent_count_table(state))
 
-    def eval_Hg(delta: Pose, terms):
-        H = torch.zeros(6, 6, device=dev)
-        g = torch.zeros(6, device=dev)
-        E = torch.zeros((), device=dev)
-        for term in terms:
-            if term[0] == "sdf":
-                tH, tg, tE = _sdf_term(map_cfg, packed, state, last, delta,
-                                       cur.pts_cam, cur.pc_mask,
-                                       tcfg.sdf_robust_kernel, tcfg.sdf_robust_k,
-                                       aug_table)
-            elif term[0] == "rgb":
-                lvl = int(term[1])
-                tH, tg, tE = _rgb_term(tcfg, cams[lvl], strides[lvl],
-                                       prev_texs[lvl], cur_levels[lvl], delta,
-                                       rgb_weight)
-            else:
-                raise ValueError(f"unknown GN term {term!r}")
-            H, g, E = H + tH, g + tg, E + tE
-        return H, g, E
 
-    delta = init
-    energy = torch.full((), float("inf"), device=dev)
-    n_accept_last = 0
+def _eval_Hg(p: GNProblem, delta: Pose, terms):
+    dev = delta.R.device
+    H = torch.zeros(6, 6, device=dev)
+    g = torch.zeros(6, device=dev)
+    E = torch.zeros((), device=dev)
+    for term in terms:
+        if term[0] == "sdf":
+            tH, tg, tE = _sdf_term(p.map_cfg, p.packed, p.state, p.last, delta,
+                                   p.cur.pts_cam, p.cur.pc_mask,
+                                   p.tcfg.sdf_robust_kernel, p.tcfg.sdf_robust_k,
+                                   p.inputs.aug_table)
+        elif term[0] == "rgb":
+            lvl = int(term[1])
+            tH, tg, tE = _rgb_term(p.tcfg, p.cams[lvl], _rgb_stride(p.tcfg, lvl),
+                                   p.inputs.prev_texs[lvl],
+                                   p.inputs.cur_levels[lvl], delta, p.rgb_weight)
+        else:
+            raise ValueError(f"unknown GN term {term!r}")
+        H, g, E = H + tH, g + tg, E + tE
+    return H, g, E
+
+
+def gn_group_init(delta: Pose) -> GNCarry:
+    dev = delta.R.device
+    return GNCarry(i=torch.zeros((), dtype=torch.int32, device=dev),
+                   dR=delta.R, dt=delta.t, bR=delta.R, bt=delta.t,
+                   bE=torch.full((), float("inf"), device=dev),
+                   done=torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def gn_step(p: GNProblem, n: int, terms, c: GNCarry) -> GNCarry:
+    """One iteration of a group of ``n`` updates: evaluate the terms at the
+    carry's delta, keep it if the energy did not rise, and step from it.  The
+    (n+1)-th evaluation only judges the last step.  ``done`` is set by a
+    rejected step, the last evaluation, a non-finite solve or convergence
+    (``xi_tol`` / ``energy_rel_tol``); a step on a carry that is done returns
+    it unchanged, so a caller may run more steps than the group needs."""
+    tcfg = p.tcfg
+    H, g, E = _eval_Hg(p, Pose(c.dR, c.dt), terms)
+    worse = E > c.bE
+    accept = ~worse
+    stalled = (c.bE - E) < tcfg.energy_rel_tol * torch.abs(E)
+    bR = torch.where(accept, c.dR, c.bR)
+    bt = torch.where(accept, c.dt, c.bt)
+    bE = torch.where(accept, E, c.bE)
+    xi = _solve_precond(H, g)
+    xi_ok = torch.all(torch.isfinite(xi))
+    upd = exp_twist(torch.where(xi_ok, xi, torch.zeros_like(xi)))
+    is_last = c.i == n
+    step = accept & ~is_last
+    dR = torch.where(step, upd.R @ c.dR, bR)
+    dt = torch.where(step, upd.R @ c.dt + upd.t, bt)
+    converged = (torch.sum(xi * xi) < tcfg.xi_tol ** 2) | stalled
+    new = GNCarry(c.i + 1, dR, dt, bR, bt, bE,
+                  worse | is_last | ~xi_ok | converged)
+    return GNCarry(*(torch.where(c.done, old, nxt) for old, nxt in zip(c, new)))
+
+
+def gn_finish(last: Pose, c: GNCarry, rgb_weight: torch.Tensor,
+              n_unstable: torch.Tensor) -> GNResult:
+    """The last group's carry -> the frame's result, with the divergence
+    fallback that clamps the RGB weight back up."""
+    n_accept = torch.clamp(c.i - 1, min=0)        # evaluations - 1 = updates
+    n_unstable = n_unstable + (n_accept >= 10).to(n_unstable.dtype)
+    rgb_weight = torch.where(n_unstable >= 3, torch.clamp(rgb_weight, min=500.0),
+                             rgb_weight)
+    return GNResult(delta=Pose(c.bR, c.bt),
+                    final=Pose(last.R @ c.bR, last.R @ c.bt + last.t),
+                    final_energy=c.bE, last_group_iters=n_accept,
+                    n_unstable=n_unstable, rgb_weight=rgb_weight)
+
+
+def gauss_newton(tcfg: TrackerConfig, map_cfg: M.MapConfig, packed: torch.Tensor,
+                 cams: Dict[int, LevelCamera], state: M.MapState, last: Pose,
+                 prev: Pyramid, cur: ProcessedFrame, rgb_weight: torch.Tensor,
+                 n_unstable: torch.Tensor, init: Pose) -> GNResult:
+    """Grouped GN schedule with the loop on the host: per group, up to ``n``
+    updates plus a final evaluation-only pass, :func:`gn_step` each, reading
+    ``done`` after every update (``host_syncs`` of them)."""
+    p = GNProblem(tcfg, map_cfg, packed, cams, state, last, cur,
+                  gn_prepare(tcfg, state, prev, cur), rgb_weight)
+    c = gn_group_init(init)
     syncs = 0
-    xi_zero = torch.zeros(6, device=dev)
-    for group_idx, (n, terms) in enumerate(tcfg.iter_config):
-        dR, dt = delta
-        bR, bt, bE = dR, dt, torch.full((), float("inf"), device=dev)
-        i = 0
-        while True:
-            H, g, E = eval_Hg(Pose(dR, dt), terms)
-            worse = E > bE
-            accept = ~worse
-            stalled = (bE - E) < tcfg.energy_rel_tol * torch.abs(E)
-            bR = torch.where(accept, dR, bR)
-            bt = torch.where(accept, dt, bt)
-            bE = torch.where(accept, E, bE)
-            i += 1
-            if i > n:                   # the evaluation-only final pass
+    for n, terms in tcfg.iter_config:
+        c = gn_group_init(Pose(c.bR, c.bt))
+        for i in range(n + 1):
+            c = gn_step(p, n, terms, c)
+            if i == n:
                 break
-            xi = _solve_precond(H, g)
-            xi_ok = torch.all(torch.isfinite(xi))
-            upd = exp_twist(torch.where(xi_ok, xi, xi_zero))
-            dR = torch.where(accept, upd.R @ dR, bR)
-            dt = torch.where(accept, upd.R @ dt + upd.t, bt)
-            converged = (torch.sum(xi * xi) < tcfg.xi_tol ** 2) | stalled
             syncs += 1
-            if bool(worse | ~xi_ok | converged):
+            if bool(c.done):
                 break
-        delta = Pose(bR, bt)
-        energy = bE
-        if group_idx == len(tcfg.iter_config) - 1:
-            n_accept_last = max(i - 1, 0)
+    return gn_finish(last, c, rgb_weight, n_unstable)._replace(host_syncs=syncs)
 
-    n_unstable = n_unstable + int(n_accept_last >= 10)
-    if n_unstable >= 3:
-        rgb_weight = max(rgb_weight, 500.0)
-    final = Pose(last.R @ delta.R, last.R @ delta.t + last.t)
-    return GNResult(delta=delta, final=final, final_energy=energy,
-                    last_group_iters=n_accept_last, n_unstable=n_unstable,
-                    rgb_weight=rgb_weight, host_syncs=syncs)
+
+# ---------------------------------------------------------------------------
+# One tracked frame as one graph launch
+# ---------------------------------------------------------------------------
+
+
+def _tensors(nested) -> List[torch.Tensor]:
+    """The tensors of nested tuples, in order."""
+    if isinstance(nested, torch.Tensor):
+        return [nested]
+    return [t for item in nested for t in _tensors(item)]
+
+
+class TrackProgram:
+    """``preprocess_and_track`` for one frame shape: unpack + preprocess +
+    the GN groups + the commit of the result, as one
+    :class:`~..utils.cudagraph.GraphProgram` over tensors this object owns.
+
+    Inputs, written by :meth:`load`, :meth:`load_state` and
+    :meth:`preprocess_and_track`: the packed frame, the map's ``indexer``,
+    ``latents`` and ``obs_count``, the last pose and delta, the previous
+    frame's pyramid, ``rgb_weight`` and ``n_unstable``.  Every frame advances
+    the temporal ones in place.  Outputs, rewritten by every frame (copy what
+    must outlive the next one): ``out`` ((13,): R row-major, t, the final
+    energy), ``cur`` (the frame's :class:`ProcessedFrame`), ``world`` (its
+    point cloud under the tracked pose: points, normals, mask).
+
+    The stages run the per-frame path's own functions (:func:`gn_prepare`,
+    :func:`gn_step`, :func:`gn_finish`) in its order, so both paths compute
+    the same values."""
+
+    def __init__(self, tracker: "SDFTracker", packed_shape: Tuple[int, int], w: int):
+        self.tr = tracker
+        self.w = w
+        dev = tracker.device
+        self.packed = torch.zeros(packed_shape, dtype=torch.uint8, device=dev)
+        self.state = M.create_map_state(tracker.map_cfg, dev)
+        self.last = Pose.identity(dev)
+        self.delta = Pose.identity(dev)
+        self.rgb_weight = torch.zeros((), device=dev)
+        self.n_unstable = torch.zeros((), dtype=torch.int32, device=dev)
+        self.prev: Optional[Pyramid] = None
+        self.carry = GNCarry(*(t.clone() for t in gn_group_init(self.delta)))
+        self.out = torch.zeros(13, device=dev)
+        self.cur: Optional[ProcessedFrame] = None
+        self.world: Optional[Tuple[torch.Tensor, ...]] = None
+        self._problem: Optional[GNProblem] = None
+        self.program: Optional[GraphProgram] = None
+
+    def load_state(self, state: M.MapState) -> None:
+        """Copy in what tracking reads of the map."""
+        for name in ("indexer", "latents", "obs_count"):
+            getattr(self.state, name).copy_(getattr(state, name))
+
+    def load(self) -> None:
+        """Copy in the tracker's temporal state."""
+        tr = self.tr
+        if self.prev is None:
+            self.prev = Pyramid(*(tuple(torch.empty_like(t) for t in level)
+                                  for level in tr.last_pyramid))
+        for dst, src in zip(_tensors((self.last, self.delta, self.prev)),
+                            _tensors((tr.last_pose, tr.last_delta, tr.last_pyramid))):
+            dst.copy_(src)
+        self.rgb_weight.copy_(tr.rgb_weight)
+        self.n_unstable.copy_(tr.n_unstable)
+
+    def preprocess_and_track(self, packed: torch.Tensor) -> None:
+        """Track one :func:`pack_frame` buffer (on the device) from the
+        loaded state, and advance it.  The first call builds the program (on
+        the card: captures it, on this frame)."""
+        self.packed.copy_(packed)
+        if self.program is None:
+            self._build()
+        reads = self.program.n_flag_reads
+        self.program.run()
+        self.tr.n_host_syncs += self.program.n_flag_reads - reads
+
+    # -- the stages -----------------------------------------------------------
+
+    def _set_carry(self, new: GNCarry) -> None:
+        for dst, src in zip(self.carry, new):
+            dst.copy_(src)
+
+    def _pre(self) -> None:
+        tr = self.tr
+        self.cur = preprocess_packed(tr.tcfg, tr.calib, self.packed, self.w)
+        self._problem = GNProblem(
+            tr.tcfg, tr.map_cfg, tr.packed, tr.cams, self.state, self.last, self.cur,
+            gn_prepare(tr.tcfg, self.state, self.prev, self.cur), self.rgb_weight)
+        init = (self.delta if tr.tcfg.motion_prior == "constant_velocity"
+                else tr._identity)
+        self._set_carry(gn_group_init(init))
+
+    def _next_group(self) -> None:
+        self._set_carry(gn_group_init(Pose(self.carry.bR, self.carry.bt)))
+
+    def _step(self, n: int, terms) -> None:
+        self._set_carry(gn_step(self._problem, n, terms, self.carry))
+
+    def _finish(self) -> None:
+        res = gn_finish(self.last, self.carry, self.rgb_weight, self.n_unstable)
+        self.world = world_points(self.cur, res.final)
+        self.out.copy_(torch.cat([res.final.R.reshape(-1), res.final.t,
+                                  res.final_energy.reshape(1)]))
+        for dst, src in zip(
+                _tensors((self.last, self.delta, self.prev)) + [self.rgb_weight,
+                                                                 self.n_unstable],
+                _tensors((res.final, res.delta, self.cur.pyramid)) + [res.rgb_weight,
+                                                                      res.n_unstable]):
+            dst.copy_(src)
+
+    def _build(self) -> None:
+        prog = GraphProgram(self.tr.device)
+        prog.add(self._pre)
+        for n, terms in self.tr.tcfg.iter_config:
+            prog.add(self._next_group)
+            prog.add(partial(self._step, n, terms), done=self.carry.done)
+        prog.add(self._finish)
+        prog.build(keep=_tensors((self.last, self.delta, self.prev))
+                   + [self.rgb_weight, self.n_unstable])
+        self.program = prog
+
+
+def world_points(p: ProcessedFrame, pose: Pose
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """World-space (points, normals, mask) of a processed frame."""
+    return p.pts_cam @ pose.R.T + pose.t, p.normals_cam @ pose.R.T, p.pc_mask
 
 
 # ---------------------------------------------------------------------------
@@ -509,8 +705,16 @@ def gauss_newton(tcfg: TrackerConfig, map_cfg: M.MapConfig, packed: torch.Tensor
 
 
 class SDFTracker:
-    """Holds the previous frame's pyramid, the pose history (on the
-    device), and the ``n_unstable`` divergence fallback."""
+    """Holds the previous frame's pyramid, the pose history and the
+    ``n_unstable`` divergence fallback, all on the device.  Poses are kept
+    as stacked chunks ((K, 3, 3), (K, 3)), one per commit, and become
+    :class:`Isometry` only on export (:attr:`all_pd_pose`, :meth:`pose_at`).
+
+    ``n_host_syncs`` counts the exit flags of the GN loop that the host
+    waited for: one per update on the per-frame path, none where the frame
+    runs as a :class:`TrackProgram` on the card (on the CPU the program's
+    loop reads them).  ``n_spec_evals`` counts evaluations made past a
+    group's ``done``: the program's loops end on the device, so it stays 0."""
 
     def __init__(self, map_cfg: M.MapConfig, tcfg: TrackerConfig,
                  decoder: Decoder, calib: Intrinsic, device: torch.device):
@@ -522,35 +726,64 @@ class SDFTracker:
         self.packed = pack_fused_decoder(decoder)
         self.cams = {lvl: level_camera(tcfg, calib, lvl, device)
                      for lvl in range(tcfg.pyramid_levels)}
-        self.poses: list = []
+        self._pose_chunks: list = []      # device (Rs (K, 3, 3), ts (K, 3))
+        self._n_poses = 0
+        self.last_pose: Optional[Pose] = None
         self.last_pyramid: Optional[Pyramid] = None
         self.last_processed: Optional[ProcessedFrame] = None
-        self.n_unstable = 0
-        self.rgb_weight = float(tcfg.rgb_weight)
+        self.n_unstable = torch.zeros((), dtype=torch.int32, device=device)
+        self.rgb_weight = torch.tensor(tcfg.rgb_weight, dtype=torch.float32,
+                                       device=device)
         self._identity = Pose.identity(device)
+        self.last_delta = self._identity
         self.n_host_syncs = 0
+        self.n_spec_evals = 0
+        self.programs: Dict[tuple, TrackProgram] = {}    # by frame shape
 
     @property
     def n_tracked(self) -> int:
-        return len(self.poses)
+        return self._n_poses
 
-    @property
-    def last_pose(self) -> Optional[Pose]:
-        return self.poses[-1] if self.poses else None
+    def append_pose(self, pose: Pose) -> None:
+        self.append_pose_chunk(pose.R[None], pose.t[None])
+
+    def append_pose_chunk(self, Rs: torch.Tensor, ts: torch.Tensor) -> None:
+        """Commit a chunk of poses ((K, 3, 3), (K, 3)) in one append."""
+        self._pose_chunks.append((Rs, ts))
+        self._n_poses += int(Rs.shape[0])
+        self.last_pose = Pose(Rs[-1], ts[-1])
+
+    def pose_history(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every pose so far, on the device: (Rs (N, 3, 3), ts (N, 3))."""
+        return (torch.cat([c[0] for c in self._pose_chunks]),
+                torch.cat([c[1] for c in self._pose_chunks]))
+
+    def _history_arrays(self):
+        Rs, ts = self.pose_history()
+        return Rs.double().cpu().numpy(), ts.double().cpu().numpy()
+
+    def pose_at(self, i: int) -> Isometry:
+        Rs, ts = self._history_arrays()
+        return Isometry.from_matrix(Rs[i], ts[i], ortho=True)
 
     @property
     def all_pd_pose(self) -> list:
-        """Pose history as host Isometries (one transfer for all)."""
-        if not self.poses:
+        """Pose history as host Isometries (two transfers for all)."""
+        if not self._pose_chunks:
             return []
-        Rs = torch.stack([p.R for p in self.poses]).double().cpu().numpy()
-        ts = torch.stack([p.t for p in self.poses]).double().cpu().numpy()
-        return [Isometry.from_matrix(R, t, ortho=True) for R, t in zip(Rs, ts)]
+        return [Isometry.from_matrix(R, t, ortho=True)
+                for R, t in zip(*self._history_arrays())]
+
+    def _gn_init(self) -> Pose:
+        if self.tcfg.motion_prior == "constant_velocity":
+            return self.last_delta
+        return self._identity
 
     def track_camera_packed(self, state: M.MapState, packed: torch.Tensor,
                             w: int, set_pose: Optional[Isometry] = None) -> Pose:
         """Track one :func:`pack_frame` buffer (a uint8 tensor on the
-        tracker's device).  ``set_pose`` fixes the pose instead (frame 0)."""
+        tracker's device) with the loop on the host.  ``set_pose`` fixes the
+        pose instead (frame 0, or a ground-truth pose)."""
         processed = preprocess_packed(self.tcfg, self.calib, packed, w)
         if set_pose is not None:
             pose = Pose(torch.tensor(set_pose.q.rotation_matrix, dtype=torch.float32,
@@ -561,19 +794,28 @@ class SDFTracker:
             res = gauss_newton(self.tcfg, self.map_cfg, self.packed, self.cams,
                                state, self.last_pose, self.last_pyramid,
                                processed, self.rgb_weight, self.n_unstable,
-                               self._identity)
+                               self._gn_init())
             pose = res.final
+            self.last_delta = res.delta
             self.n_unstable = res.n_unstable
             self.rgb_weight = res.rgb_weight
             self.n_host_syncs += res.host_syncs
         self.last_pyramid = processed.pyramid
         self.last_processed = processed
-        self.poses.append(pose)
+        self.append_pose(pose)
         return pose
+
+    def program(self, packed_shape, w: int) -> TrackProgram:
+        """The :class:`TrackProgram` of this frame shape, loaded with the
+        tracker's temporal state (built at first use)."""
+        key = (tuple(packed_shape), w)
+        if key not in self.programs:
+            self.programs[key] = TrackProgram(self, key[0], w)
+        prog = self.programs[key]
+        prog.load()
+        return prog
 
     def last_pc_world(self, pose: Pose
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """World-space (points, normals, mask) of the last processed frame."""
-        p = self.last_processed
-        return (p.pts_cam @ pose.R.T + pose.t, p.normals_cam @ pose.R.T,
-                p.pc_mask)
+        return world_points(self.last_processed, pose)

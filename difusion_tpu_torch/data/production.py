@@ -1,17 +1,20 @@
-"""RGB-D sequences (counterpart of difusion_tpu/data/production.py:32-60,
-205-340): the ``RGBDSequence`` iterator protocol yielding host-side numpy
-``FrameData``, the analytic ``SyntheticSequence`` renderer that drives the
-tests and the on-card smoke run without a dataset, and the mesh's error
-against that analytic surface (:func:`mesh_error_stats`).
+"""RGB-D sequences (counterpart of difusion_tpu/data/production.py): the
+``RGBDSequence`` iterator protocol yielding host-side numpy ``FrameData``,
+the ICL-NUIM and ScanNet loaders, the analytic ``SyntheticSequence``
+renderer (its ``"drift"`` trajectory) that drives the tests and the on-card
+smoke run without a dataset, the mesh's error against that analytic surface
+(:func:`mesh_error_stats`), and :func:`open_sequence`.
 """
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Iterator, List, Optional
 
 import numpy as np
 
 from ..ops.imgproc import Intrinsic
-from ..utils.motion import Isometry
+from ..utils.motion import Isometry, Quaternion
 
 
 class FrameData:
@@ -44,6 +47,146 @@ class RGBDSequence:
 
     def __next__(self) -> FrameData:
         raise NotImplementedError
+
+
+def _imread_color(path: str) -> np.ndarray:
+    # kept uint8: frames upload to the device at 1/4 the bytes and convert there
+    if path.lower().endswith(".png"):
+        from . import native_io
+        if native_io.native_available():
+            try:
+                img = native_io.read_png(path)
+                return img[:, :, :3] if img.ndim == 3 else \
+                    np.repeat(img[:, :, None].astype(np.uint8), 3, axis=2)
+            except ValueError:
+                pass   # unsupported PNG variant -> cv2
+    import cv2
+    img = cv2.imread(path)
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def _imread_depth_raw(path: str) -> np.ndarray:
+    if path.lower().endswith(".png"):
+        from . import native_io
+        if native_io.native_available():
+            try:
+                return native_io.read_png(path).astype(np.float32)
+            except ValueError:
+                pass
+    import cv2
+    return cv2.imread(path, cv2.IMREAD_UNCHANGED).astype(np.float32)
+
+
+class ICLNUIMSequence(RGBDSequence):
+    """ICL-NUIM loader (reference icl_nuim.py:10-77): calib fixed at
+    [481.2, 480.0, 319.5, 239.5, 5000], depth png / 5000 -> meters."""
+
+    CALIB = Intrinsic(481.2, 480.0, 319.50, 239.50, 5000.0)
+
+    def __init__(self, path: str, start_frame: int = 0, end_frame: int = -1,
+                 first_tq: Optional[list] = None, load_gt: bool = False):
+        super().__init__()
+        self.calib = self.CALIB
+        self.path = Path(path)
+        self.color_names = sorted(
+            [f"rgb/{t}" for t in os.listdir(self.path / "rgb")],
+            key=lambda t: int(t[4:].split(".")[0]))
+        self.depth_names = [f"depth/{t}.png" for t in range(len(self.color_names))]
+        if first_tq is not None:
+            self.first_iso = Isometry(q=Quaternion(array=np.asarray(first_tq[3:])),
+                                      t=np.array(first_tq[:3]))
+        else:
+            self.first_iso = Isometry(q=Quaternion(array=np.array([0.0, -1.0, 0.0, 0.0])))
+        if end_frame == -1:
+            end_frame = len(self.color_names)
+        self.color_names = self.color_names[start_frame:end_frame]
+        self.depth_names = self.depth_names[start_frame:end_frame]
+
+        if load_gt:
+            gt_path = (list(self.path.glob("*.freiburg"))
+                       + list(self.path.glob("groundtruth.txt")))[0]
+            traj = self._parse_traj_file(str(gt_path))[start_frame:end_frame]
+            change_iso = self.first_iso.dot(traj[0].inv())
+            self.gt_trajectory = [change_iso.dot(t) for t in traj]
+            assert len(self.gt_trajectory) == len(self.color_names)
+
+    @staticmethod
+    def _parse_traj_file(traj_path: str) -> List[Isometry]:
+        """TUM-freiburg trajectory with the reference's y-flip + 180-deg-z
+        canonicalization (icl_nuim.py:38-51)."""
+        camera_ext = {}
+        traj_data = np.atleast_2d(np.genfromtxt(traj_path))
+        cano_quat = Isometry(q=Quaternion(axis=np.array([0.0, 0.0, 1.0]), degrees=180.0))
+        for cur_p in traj_data:
+            cur_q = Quaternion(w=cur_p[-1], x=cur_p[4], y=cur_p[5], z=cur_p[6]).rotation_matrix
+            cur_t = cur_p[1:4].copy()
+            cur_q[1] = -cur_q[1]
+            cur_q[:, 1] = -cur_q[:, 1]
+            cur_t[1] = -cur_t[1]
+            camera_ext[int(cur_p[0])] = cano_quat.dot(
+                Isometry.from_matrix(cur_q, cur_t))
+        camera_ext[0] = camera_ext.get(0, camera_ext[1])
+        return [camera_ext[t] for t in range(len(camera_ext))]
+
+    def __len__(self):
+        return len(self.color_names)
+
+    def __next__(self) -> FrameData:
+        if self.frame_id >= len(self):
+            raise StopIteration
+        # raw uint16 units: halves the upload and converts on device
+        # (preprocess_frame divides by calib.dcam_scale)
+        depth = _imread_depth_raw(str(self.path / self.depth_names[self.frame_id]))
+        depth = depth.astype(np.uint16)
+        rgb = _imread_color(str(self.path / self.color_names[self.frame_id]))
+        ok = depth > 0
+        gt = self.gt_trajectory[self.frame_id] if self.gt_trajectory else None
+        fd = FrameData(rgb, depth, ok, self.CALIB, gt, self.frame_id)
+        self.frame_id += 1
+        return fd
+
+
+class ScanNetSequence(RGBDSequence):
+    """ScanNet sens-export loader: ``color/%d.jpg`` resized to the depth
+    resolution, ``depth/%d.png`` in millimeters, ``pose/%d.txt`` 4x4
+    camera-to-world, ``intrinsic/intrinsic_depth.txt``."""
+
+    def __init__(self, path: str, start_frame: int = 0, end_frame: int = -1,
+                 frame_skip: int = 1, load_gt: bool = True):
+        super().__init__()
+        self.path = Path(path)
+        n = len(list((self.path / "depth").glob("*.png")))
+        if end_frame == -1:
+            end_frame = n
+        self.ids = list(range(start_frame, end_frame, frame_skip))
+        K = np.loadtxt(self.path / "intrinsic" / "intrinsic_depth.txt")
+        self.calib = Intrinsic(float(K[0, 0]), float(K[1, 1]),
+                                    float(K[0, 2]), float(K[1, 2]), 1000.0)
+        if load_gt and (self.path / "pose").exists():
+            self.gt_trajectory = []
+            for i in self.ids:
+                mat = np.loadtxt(self.path / "pose" / f"{i}.txt")
+                self.gt_trajectory.append(Isometry.from_matrix(mat, ortho=True))
+            self.first_iso = self.gt_trajectory[0]
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __next__(self) -> FrameData:
+        import cv2
+        if self.frame_id >= len(self):
+            raise StopIteration
+        i = self.ids[self.frame_id]
+        depth = _imread_depth_raw(str(self.path / "depth" / f"{i}.png")).astype(np.uint16)
+        rgb = _imread_color(str(self.path / "color" / f"{i}.jpg"))
+        if rgb.shape[:2] != depth.shape:
+            rgb = cv2.resize(rgb, (depth.shape[1], depth.shape[0]),
+                             interpolation=cv2.INTER_AREA)
+        ok = depth > 0
+        gt = self.gt_trajectory[self.frame_id] if self.gt_trajectory else None
+        fd = FrameData(rgb, depth, ok, self.calib, gt, i)
+        self.frame_id += 1
+        return fd
 
 
 def surface_height(x: np.ndarray, y: np.ndarray,
@@ -137,3 +280,21 @@ class SyntheticSequence(RGBDSequence):
         fd = FrameData(rgb, depth, ok, self.calib, pose, self.frame_id)
         self.frame_id += 1
         return fd
+
+
+_SEQUENCE_TYPES = {
+    "icl_nuim.ICLNUIMSequence": ICLNUIMSequence,
+    "ICLNUIMSequence": ICLNUIMSequence,
+    "scannet.ScanNetSequence": ScanNetSequence,
+    "ScanNetSequence": ScanNetSequence,
+    "synthetic.SyntheticSequence": SyntheticSequence,
+    "SyntheticSequence": SyntheticSequence,
+}
+
+
+def open_sequence(sequence_type: str, **kwargs) -> RGBDSequence:
+    """Resolve a reference-style ``sequence_type`` string (main.py:119-120)."""
+    if sequence_type not in _SEQUENCE_TYPES:
+        raise ValueError(f"unknown sequence_type {sequence_type!r}; "
+                         f"known: {sorted(_SEQUENCE_TYPES)}")
+    return _SEQUENCE_TYPES[sequence_type](**kwargs)

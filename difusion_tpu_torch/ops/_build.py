@@ -10,18 +10,24 @@ point returns ``cudaGetLastError()`` after its launch and :func:`check`
 raises on a nonzero code: a refused launch never silently falls back.
 
 Each kernel wrapper calls :func:`count_launch` once per kernel launch, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels.  A launch that is
+recorded into a CUDA graph (``utils/cudagraph.py``) is counted by the graph's
+owner instead: the calls made while it captures go to :func:`recording`'s
+dictionary, and the owner adds them once for every time the device ran that
+part of the graph, through a function it registers with :func:`add_flusher`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "difusion_tpu_torch"
@@ -30,6 +36,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _launches: Dict[str, int] = {}
+# while a graph is captured, count_launch writes to the innermost of these
+_recording: List[Dict[str, int]] = []
+# bound methods (held weakly) that add the launches graph replays have made
+_flushers: List[weakref.WeakMethod] = []
 # per source: wall seconds of its nvcc run and the ptxas resource report
 build_info: Dict[str, dict] = {}
 
@@ -103,13 +113,45 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
-def count_launch(name: str) -> None:
-    _launches[name] = _launches.get(name, 0) + 1
+def count_launch(name: str, n: int = 1) -> None:
+    target = _recording[-1] if _recording else _launches
+    target[name] = target.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """The launches counted inside the block, kept out of the totals: what
+    one pass of a graph under capture will launch at every replay."""
+    rec: Dict[str, int] = {}
+    _recording.append(rec)
+    try:
+        yield rec
+    finally:
+        _recording.pop()
+
+
+def add_flusher(method) -> None:
+    """Register a bound method that, when called, counts (through
+    :func:`count_launch`) the launches its object's graph replays have made
+    since it was last called.  Held weakly."""
+    _flushers.append(weakref.WeakMethod(method))
+
+
+def _flush() -> None:
+    alive = []
+    for ref in _flushers:
+        method = ref()
+        if method is not None:
+            method()
+            alive.append(ref)
+    _flushers[:] = alive
 
 
 def launch_counts() -> Dict[str, int]:
+    _flush()
     return dict(_launches)
 
 
 def reset_launch_counts() -> None:
+    _flush()
     _launches.clear()

@@ -48,7 +48,7 @@ def point_box_filter(points: torch.Tensor, normals: torch.Tensor,
     same = key_s == torch.roll(key_s, 1)
     v_s = (key_s != _SENTINEL).to(dt)
     seg_start = ~same
-    seg_start[0] = True
+    seg_start[:1].fill_(True)     # (an indexed assignment of a host scalar is a copy)
 
     # segment sums as differences of one prefix sum at the segment starts;
     # the payload is rebased (points to their cell centre, normals to the

@@ -1,0 +1,158 @@
+"""Capture once, launch many: the port's counterpart of "jit once, dispatch
+many" (the JAX package's ``jax.jit`` around ``preprocess_and_track`` and
+``track_fuse_scan``, with ``lax.while_loop`` inside).
+
+A :class:`GraphProgram` is a list of segments.  A segment is a callable
+without arguments that works in place on tensors that outlive it (it may
+also leave new tensors where later segments find them: on the card their
+memory belongs to the program and every launch rewrites it).  A *loop*
+segment comes with a bool scalar tensor ``done`` that the callable writes;
+it runs until ``done`` is true, at least once.
+
+On a CUDA device :meth:`GraphProgram.build` runs every segment
+``WARM_UP_PASSES`` times on a side stream (so that libraries load, kernels get their attributes and
+constants are uploaded outside any capture), captures each into a
+``torch.cuda.CUDAGraph`` (one memory pool for all), and joins the graphs
+into one executable graph through ``csrc/graph_loop.cu``: a loop segment
+becomes a conditional WHILE node, so its exit test runs on the device and
+:meth:`run` is one ``cudaGraphLaunch`` that waits for nothing.  A failed
+capture raises; nothing falls back to eager execution.
+
+On the CPU, which the caller asked for, :meth:`run` calls the same callables
+in order and reads ``done`` after every pass of a loop.
+"""
+from __future__ import annotations
+
+import ctypes
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops import _build
+
+# eager passes over the segments before the capture; they launch the
+# segments' kernels like any eager call
+WARM_UP_PASSES = 2
+
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("graph_loop")
+        ptr = ctypes.POINTER(ctypes.c_void_p)
+        lib.graph_program_build.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr]
+        lib.graph_program_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.graph_program_destroy.argtypes = [ctypes.c_void_p]
+        for fn in (lib.graph_program_build, lib.graph_program_launch,
+                   lib.graph_program_destroy):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+class GraphProgram:
+    """See the module's docstring.  Counters: ``n_replays`` (launches of the
+    whole program), ``n_flag_reads`` (exit flags the host read: none on the
+    card), ``capture_s`` (seconds :meth:`build` took, warm-up included)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._segments: List[Tuple[Callable[[], None], Optional[torch.Tensor]]] = []
+        self._exec: Optional[ctypes.c_void_p] = None
+        self._graphs: list = []                   # own the segments' memory
+        self._recorded: List[Dict[str, int]] = []  # kernel launches per segment
+        self._runs: Optional[torch.Tensor] = None  # device count of loop passes
+        self._counted: List[int] = []              # passes already in the launch counts
+        self._replays_counted = 0
+        self.n_replays = 0
+        self.n_flag_reads = 0
+        self.capture_s = 0.0
+
+    def add(self, fn: Callable[[], None], done: Optional[torch.Tensor] = None) -> None:
+        if done is not None and (done.dtype != torch.bool or done.numel() != 1):
+            raise ValueError("a loop's exit flag is one bool")
+        self._segments.append((fn, done))
+
+    def build(self, keep: Sequence[torch.Tensor] = ()) -> None:
+        """Capture the segments (CUDA only).  ``keep``: the tensors that the
+        segments update in place; they hold the same values afterwards."""
+        if self.device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        lib = _load()
+        saved = [t.clone() for t in keep]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARM_UP_PASSES):
+                for fn, _done in self._segments:
+                    fn()
+        torch.cuda.current_stream().wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        for fn, _done in self._segments:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with _build.recording() as rec, torch.cuda.graph(
+                    graph, pool=pool, capture_error_mode="thread_local"):
+                fn()
+            self._graphs.append(graph)
+            self._recorded.append(rec)
+        n = len(self._segments)
+        self._runs = torch.zeros(n, dtype=torch.int64, device=self.device)
+        self._counted = [0] * n
+        array = ctypes.c_void_p * n
+        raws = array(*[g.raw_cuda_graph() for g in self._graphs])
+        done = array(*[None if d is None else d.data_ptr() for _, d in self._segments])
+        runs = array(*[self._runs[k].data_ptr() for k in range(n)])
+        out = ctypes.c_void_p()
+        _build.check(lib.graph_program_build(n, raws, done, runs, ctypes.byref(out)),
+                     "graph_program_build")
+        self._exec = out
+        for t, s in zip(keep, saved):
+            t.copy_(s)
+        _build.add_flusher(self._count_launches)
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self) -> None:
+        if self.device.type == "cuda":
+            if self._exec is None:
+                raise RuntimeError("GraphProgram.run before build")
+            _build.check(_lib.graph_program_launch(
+                self._exec, torch.cuda.current_stream().cuda_stream),
+                "graph_program_launch")
+            self.n_replays += 1
+            return
+        for fn, done in self._segments:
+            fn()
+            while done is not None:
+                self.n_flag_reads += 1
+                if bool(done):
+                    break
+                fn()
+
+    def loop_passes(self) -> List[int]:
+        """Passes each segment's loop has made since :meth:`build` (0 for a
+        plain segment).  Reads the device's counters: it waits for the card."""
+        return [] if self._runs is None else self._runs.cpu().tolist()
+
+    def _count_launches(self) -> None:
+        """Add to the launch counts what the replays since the last call
+        launched: a plain segment's kernels once a replay, a loop's once a
+        pass (the device counts its passes)."""
+        passes = self.loop_passes()
+        replays = self.n_replays - self._replays_counted
+        for k, (rec, (_, done)) in enumerate(zip(self._recorded, self._segments)):
+            times = replays if done is None else passes[k] - self._counted[k]
+            for name, per_pass in rec.items():
+                if times:
+                    _build.count_launch(name, per_pass * times)
+        self._counted = passes
+        self._replays_counted = self.n_replays
+
+    def __del__(self):
+        if self._exec is not None and _lib is not None:
+            _lib.graph_program_destroy(self._exec)
+            self._exec = None

@@ -1,8 +1,8 @@
 """Host-side SE(3)/SO(3) math in numpy: quaternions, isometries, ATE.
 
 The port's own copy of the parts of difusion_tpu/utils/motion.py that the
-track+fuse path uses (``Isometry``, ``Quaternion``, ``ate_rmse`` and the
-so(3) maps beneath them).  Conventions: quaternions are (w, x, y, z);
+track+fuse path and the sequence loaders use (``Isometry``, ``Quaternion``,
+``ate_rmse`` and the so(3) maps beneath them).  Conventions: quaternions are (w, x, y, z);
 twists are ``xi = [rho, phi]`` (translation first).
 """
 from __future__ import annotations
@@ -57,11 +57,18 @@ class Quaternion:
 
     __slots__ = ("q",)
 
-    def __init__(self, w=1.0, x=0.0, y=0.0, z=0.0, *, array=None, matrix=None):
+    def __init__(self, w=1.0, x=0.0, y=0.0, z=0.0, *, array=None, axis=None,
+                 degrees=None, radians=None, matrix=None):
         if array is not None:
             self.q = np.asarray(array, dtype=np.float64).copy()
         elif matrix is not None:
             self.q = self._from_matrix(np.asarray(matrix, dtype=np.float64))
+        elif axis is not None:
+            angle = np.deg2rad(degrees) if degrees is not None else (radians or 0.0)
+            axis = np.asarray(axis, dtype=np.float64)
+            axis = axis / np.linalg.norm(axis)
+            half = 0.5 * angle
+            self.q = np.concatenate([[np.cos(half)], np.sin(half) * axis])
         else:
             self.q = np.array([w, x, y, z], dtype=np.float64)
 
@@ -98,6 +105,11 @@ class Quaternion:
             [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
             [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
         ])
+
+    @property
+    def inverse(self) -> "Quaternion":
+        conj = self.q * np.array([1.0, -1.0, -1.0, -1.0])
+        return Quaternion(array=conj / (np.linalg.norm(self.q) ** 2))
 
     def __mul__(self, other: "Quaternion") -> "Quaternion":
         w1, x1, y1, z1 = self.q
@@ -144,6 +156,17 @@ class Isometry:
         rho, phi = np.asarray(xi)[:3], np.asarray(xi)[3:6]
         return Isometry(q=Quaternion(matrix=so3_exp(phi)),
                         t=so3_left_jacobian(phi) @ rho)
+
+    @property
+    def matrix(self) -> np.ndarray:
+        out = np.eye(4)
+        out[:3, :3] = self.q.rotation_matrix
+        out[:3, 3] = self.t
+        return out
+
+    def inv(self) -> "Isometry":
+        qinv = self.q.inverse
+        return Isometry(q=qinv, t=-qinv.rotate(self.t))
 
     def dot(self, right: "Isometry") -> "Isometry":
         return Isometry(q=self.q * right.q, t=self.q.rotate(right.t) + self.t)

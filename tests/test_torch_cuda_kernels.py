@@ -172,3 +172,135 @@ def test_wrappers_reject_bad_inputs(dev, packed):
         stencil._launch_cuda("window_stats_map_launch", (pc, ok), 4, 5, 2, 0.1, 0.1, rows=3)
     with pytest.raises(ValueError):   # a strip longer than the window
         stencil._launch_cuda("window_stats_map_launch", (pc, ok), 4, 5, 1, 0.1, 0.1, rows=5)
+
+
+# ---------------------------------------------------------------------------
+# The graph program: the tracker's frame as one launch with device-side loops
+# ---------------------------------------------------------------------------
+
+
+def test_graph_program_loops_on_the_device(dev):
+    """A WHILE segment runs until its flag is set, at least once, and the
+    device counts its passes; plain segments before and after run once."""
+    from difusion_tpu_torch.utils.cudagraph import GraphProgram
+    x = torch.zeros((), device=dev)
+    y = torch.zeros((), device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    limit = torch.full((), 5.0, device=dev)
+
+    def init():
+        x.zero_()
+        done.fill_(False)
+
+    def body():
+        x.copy_(torch.where(done, x, x + 1))
+        done.copy_(done | (x >= limit))
+
+    prog = GraphProgram(dev)
+    prog.add(init)
+    prog.add(body, done=done)
+    prog.add(lambda: y.copy_(x * 2))
+    prog.build(keep=[limit])
+    for want in (5.0, 1.0, 7.0):
+        limit.fill_(want)
+        prog.run()
+        torch.cuda.synchronize()
+        assert x.item() == max(want, 1.0) and y.item() == 2 * x.item() and done.item()
+    assert prog.loop_passes() == [0, 13, 0] and prog.n_replays == 3
+    assert prog.n_flag_reads == 0
+
+
+@pytest.fixture(scope="module")
+def tracked(dev):
+    """A small system on the card after frame 0, and the next frames packed."""
+    from difusion_tpu_torch.core import map as M
+    from difusion_tpu_torch.core import tracker as T
+    from difusion_tpu_torch.data.production import SyntheticSequence
+    from difusion_tpu_torch.models.weights import load_prior
+    from difusion_tpu_torch.ops.imgproc import Intrinsic
+    from difusion_tpu_torch.slam import SLAMSystem
+    calib = Intrinsic(300.0, 300.0, 79.5, 59.5, 5000.0)
+    dec, enc, _ = load_prior(HYPER, 300, device=dev)
+    cfg = M.MapConfig(bound_min=(-2.0, -2.0, -0.5), n_xyz=(40, 40, 40), voxel_size=0.1,
+                      latent_dim=29, capacity=1 << 14, prune_min_vox_obs=4,
+                      ignore_count_th=1.0, encoder_count_th=600.0)
+    frames = list(SyntheticSequence(n_frames=4, h=120, w=160, calib=calib,
+                                    corrugation=0.1, motion_scale=0.6))
+
+    def make():
+        system = SLAMSystem(cfg, T.TrackerConfig(point_budget=4096), dec, enc, calib,
+                            integrate_interval=2, meshing=False, device=dev)
+        system.process_frame(frames[0])
+        return system
+    packed = torch.stack([torch.from_numpy(T.pack_frame(f.rgb, f.depth, 5000.0))
+                          for f in frames[1:]]).to(dev)
+    return make, frames, packed
+
+
+def test_graph_replay_of_gn_step_equals_eager(tracked):
+    """The chunked path (graph replays, the loops on the card) gives the
+    per-frame path's poses and map bit for bit, reads no exit flag, and
+    launches kernels 1 and 2 from inside the captured graphs."""
+    make, frames, packed = tracked
+    eager, graphed = make(), make()
+    for frame in frames[1:]:
+        eager.process_frame(frame)
+    _build.reset_launch_counts()
+    graphed.process_chunk(packed, 160)
+    counts = _build.launch_counts()
+    for a, b in zip(graphed.tracker.pose_history(), eager.tracker.pose_history()):
+        assert torch.equal(a, b), (a - b).abs().max()
+    assert torch.equal(graphed.state.latents, eager.state.latents)
+    assert graphed.tracker.n_host_syncs == 0 < eager.tracker.n_host_syncs
+    prog = next(iter(graphed.tracker.programs.values()))
+    from difusion_tpu_torch.utils.cudagraph import WARM_UP_PASSES
+    assert prog.program.n_replays == 3
+    assert counts["window_stat_sums"] == 3 + WARM_UP_PASSES
+    passes = prog.program.loop_passes()
+    assert counts["decode_grad_fused"] == passes[4] + passes[6] + 2 * WARM_UP_PASSES
+
+
+def test_replay_after_done_leaves_the_carry(tracked):
+    """One more eager ``gn_step`` on the carry the graph left (done) returns
+    every field ``torch.equal``: a step past ``done`` is a no-op."""
+    from difusion_tpu_torch.core import tracker as T
+    make, _, packed = tracked
+    system = make()
+    prog = system.tracker.program(packed.shape[1:], 160)
+    prog.load_state(system.state)
+    prog.preprocess_and_track(packed[0])
+    torch.cuda.synchronize()
+    assert bool(prog.carry.done)
+    n, terms = system.tracker.tcfg.iter_config[-1]
+    before = [t.clone() for t in prog.carry]
+    again = T.gn_step(prog._problem, n, terms, prog.carry)
+    for a, b in zip(again, before):
+        assert torch.equal(a, b)
+
+
+def test_kernels_launch_inside_a_captured_graph(dev, packed):
+    """Kernels 1 and 2, captured into a CUDA graph through their wrappers and
+    replayed on new inputs, match their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lat = torch.randn(4096, 29, generator=gen, device=dev) * 0.3
+    rel = torch.rand(4096, 3, generator=gen, device=dev) - 0.5
+    pc = torch.randn(60, 80, 3, generator=gen, device=dev) * 0.1
+    ok = torch.rand(60, 80, generator=gen, device=dev) > 0.2
+    fused.decode_grad_fused(packed, lat, rel)             # loads outside the capture
+    stencil.window_stat_sums_map(pc, ok, 6, 0.01, 0.04)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fused.decode_grad_fused(packed, lat, rel)
+        sums = stencil.window_stat_sums_map(pc, ok, 6, 0.01, 0.04)
+    lat.copy_(torch.randn(4096, 29, generator=gen, device=dev) * 0.3)
+    pc.copy_(torch.randn(60, 80, 3, generator=gen, device=dev) * 0.1)
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = fused.decode_grad_plain(packed, lat, rel)
+    assert torch.allclose(got[0], ref[0], atol=1e-5) and torch.allclose(got[1], ref[1], atol=1e-5)
+    assert not bool(fused.grad_rows_off(got[2], packed, lat, rel).any())
+    zero = torch.zeros((), device=dev)
+    planes = (*(torch.where(ok, pc[..., c], zero).contiguous() for c in range(3)), ok.float())
+    plain = torch.stack(stencil.window_stat_sums_plain(*planes, 6, 0.01, 0.04))
+    assert torch.equal(sums, plain)

@@ -1,0 +1,312 @@
+"""The port's chunked path (``track_fuse_scan`` / ``process_chunk`` /
+``run_sequence``) on the CPU: against its own per-frame path, which it must
+reproduce exactly, and against the JAX package at 120x160 with the in-repo
+prior.  On the CPU the tracker's program runs the same stage functions
+eagerly that the card replays as one CUDA graph."""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import conftest  # noqa: F401  (JAX on the CPU)
+
+import jax.numpy as jnp
+
+from difusion_tpu.core import map as JM
+from difusion_tpu.core import tracker as JT
+from difusion_tpu.data import SyntheticSequence as JSequence
+from difusion_tpu.ops.imgproc import Intrinsic as JIntrinsic
+from difusion_tpu.slam import SLAMSystem as JSLAMSystem
+from difusion_tpu.slam import load_prior as jax_load_prior
+from difusion_tpu_torch.core import map as M
+from difusion_tpu_torch.core import tracker as T
+from difusion_tpu_torch.data.production import SyntheticSequence
+from difusion_tpu_torch.ops.imgproc import Intrinsic
+from difusion_tpu_torch.ops.se3 import Pose
+from difusion_tpu_torch.slam import SLAMSystem, load_prior, track_fuse_scan
+
+HYPER = Path(__file__).resolve().parents[1] / "di-checkpoints/study_mixed/hyper.json"
+CALIB = (300.0, 300.0, 79.5, 59.5, 5000.0)
+H, W = 120, 160
+N = 6                      # frame 0 + a chunk of 5
+MAP = dict(bound_min=(-2.0, -2.0, -0.5), n_xyz=(40, 40, 40), voxel_size=0.1,
+           latent_dim=29, capacity=1 << 14, prune_min_vox_obs=4,
+           ignore_count_th=1.0, encoder_count_th=600.0)
+ITERS = ((3, (("rgb", 2),)), (3, (("sdf",), ("rgb", 1))),
+         (6, (("sdf",), ("rgb", 0))))
+
+
+def _sequence(n=N, cls=SyntheticSequence, intrinsic=Intrinsic):
+    return cls(n_frames=n, h=H, w=W, calib=intrinsic(*CALIB), corrugation=0.1,
+               motion_scale=0.6)
+
+
+def _pack(frames):
+    return np.stack([T.pack_frame(f.rgb, f.depth, CALIB[4]) for f in frames])
+
+
+@pytest.fixture(scope="module")
+def port():
+    """Frames, and a factory of port systems on the CPU (fusion every 2)."""
+    dec, enc, _ = load_prior(HYPER, 300, device="cpu")
+
+    def make(**tracker_kw):
+        return SLAMSystem(M.MapConfig(**MAP),
+                          T.TrackerConfig(point_budget=4096, iter_config=ITERS,
+                                          **tracker_kw),
+                          dec, enc, Intrinsic(*CALIB), integrate_interval=2,
+                          meshing=False, device="cpu")
+    return list(_sequence()), make
+
+
+@pytest.fixture(scope="module")
+def per_frame(port):
+    frames, make = port
+    system = make()
+    for frame in frames:
+        system.process_frame(frame)
+    return system
+
+
+@pytest.fixture(scope="module")
+def chunked(port):
+    """Frame 0 alone, then one chunk of 5."""
+    frames, make = port
+    system = make()
+    system.process_frame(frames[0])
+    system.process_chunk(torch.from_numpy(_pack(frames[1:])), W)
+    return system
+
+
+@pytest.fixture(scope="module")
+def jax_prior():
+    return jax_load_prior(str(HYPER), 300)
+
+
+def _jax_system(jax_prior, **tracker_kw):
+    dec, enc, spec = jax_prior
+    return JSLAMSystem(JM.MapConfig(**MAP),
+                       JT.TrackerConfig(point_budget=4096, warp_tiled=False,
+                                        iter_config=ITERS, **tracker_kw),
+                       dec, enc, spec, JIntrinsic(*CALIB), integrate_interval=2,
+                       meshing=False)
+
+
+def _poses(system):
+    return [t.numpy() for t in system.tracker.pose_history()]
+
+
+def _assert_poses_close(got, ref):
+    """1e-4 m and 1e-4 rad per pose: the bound of
+    tests/test_torch_slam.py::test_slice_poses_match_jax (what remains between
+    the packages is f32 summation order in the GN normal equations)."""
+    assert len(got) == len(ref)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert np.abs(a.t - b.t).max() < 1e-4, (k, a.t, b.t)
+        dR = a.q.rotation_matrix.T @ b.q.rotation_matrix
+        angle = np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))
+        assert angle < 1e-4, (k, angle)
+
+
+def test_program_matches_host_loop_on_one_frame(port):
+    """The masked-step program (``TrackProgram``) against the host-loop
+    ``gauss_newton`` on frame 1: every ``GNResult`` field ``torch.equal``."""
+    frames, make = port
+    system = make()
+    system.process_frame(frames[0])
+    tr = system.tracker
+    packed = torch.from_numpy(_pack(frames[1:2])[0])
+    cur = T.preprocess_packed(tr.tcfg, tr.calib, packed, W)
+    ref = T.gauss_newton(tr.tcfg, tr.map_cfg, tr.packed, tr.cams, system.state,
+                         tr.last_pose, tr.last_pyramid, cur, tr.rgb_weight,
+                         tr.n_unstable, tr._identity)
+    prog = tr.program(packed.shape, W)
+    prog.load_state(system.state)
+    prog.preprocess_and_track(packed)
+    assert torch.equal(prog.out[:9].reshape(3, 3), ref.final.R)
+    assert torch.equal(prog.out[9:12], ref.final.t)
+    assert torch.equal(prog.out[12], ref.final_energy)
+    assert torch.equal(prog.delta.R, ref.delta.R) and torch.equal(prog.delta.t, ref.delta.t)
+    assert torch.equal(torch.clamp(prog.carry.i - 1, min=0), ref.last_group_iters)
+    assert torch.equal(prog.n_unstable, ref.n_unstable)
+    assert torch.equal(prog.rgb_weight, ref.rgb_weight)
+    assert ref.last_group_iters.dtype == torch.int32 and ref.rgb_weight.dtype == torch.float32
+    assert 0 < ref.host_syncs <= sum(n for n, _ in ITERS)
+    for a, b in zip(T._tensors(prog.cur), T._tensors(cur)):
+        assert torch.equal(a, b)
+
+
+def test_step_past_done_changes_nothing(port):
+    """Once ``done``, a further ``gn_step`` returns every carry field
+    ``torch.equal`` (what lets a caller run more steps than a group needs)."""
+    frames, make = port
+    system = make()
+    system.process_frame(frames[0])
+    tr = system.tracker
+    cur = T.preprocess_packed(tr.tcfg, tr.calib, torch.from_numpy(_pack(frames[1:2])[0]), W)
+    problem = T.GNProblem(tr.tcfg, tr.map_cfg, tr.packed, tr.cams, system.state,
+                          tr.last_pose, cur,
+                          T.gn_prepare(tr.tcfg, system.state, tr.last_pyramid, cur),
+                          tr.rgb_weight)
+    n, terms = ITERS[1]
+    carry = T.gn_group_init(Pose.identity("cpu"))
+    for _ in range(n + 1):
+        carry = T.gn_step(problem, n, terms, carry)
+    assert bool(carry.done) and int(carry.i) <= n + 1
+    again = T.gn_step(problem, n, terms, carry)
+    for a, b in zip(again, carry):
+        assert torch.equal(a, b)
+
+
+def test_chunk_matches_per_frame(per_frame, chunked):
+    """``process_chunk`` of K = 5 against 5 ``process_frame`` calls: poses,
+    ``state.latents`` and ``obs_count`` ``torch.equal`` (same functions in the
+    same order)."""
+    for a, b in zip(_poses(chunked), _poses(per_frame)):
+        np.testing.assert_array_equal(a, b)
+    assert chunked.tracker.n_tracked == N
+    assert torch.equal(chunked.state.latents, per_frame.state.latents)
+    assert torch.equal(chunked.state.obs_count, per_frame.state.obs_count)
+    assert torch.equal(chunked.state.indexer, per_frame.state.indexer)
+    assert int(chunked.state.n_occupied) > 100
+    assert torch.equal(chunked.tracker.rgb_weight, per_frame.tracker.rgb_weight)
+    assert torch.equal(chunked.tracker.last_delta.t, per_frame.tracker.last_delta.t)
+
+
+def test_split_chunks_match_single_chunk(port, chunked):
+    """Chunks of 3 + 2 against one of 5: equal."""
+    frames, make = port
+    system = make()
+    system.process_frame(frames[0])
+    packed = torch.from_numpy(_pack(frames[1:]))
+    system.process_chunk(packed[:3], W)
+    system.process_chunk(packed[3:], W)
+    for a, b in zip(_poses(system), _poses(chunked)):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(system.state.latents, chunked.state.latents)
+    assert torch.equal(system.state.obs_count, chunked.state.obs_count)
+
+
+def test_chunk_matches_jax_chunk(chunked, jax_prior):
+    """The port's ``process_chunk`` against the JAX package's (one
+    ``lax.scan`` of 5 frames, ``warp_tiled=False``): 1e-4 m, 1e-4 rad."""
+    jsys = _jax_system(jax_prior)
+    frames = list(_sequence(cls=JSequence, intrinsic=JIntrinsic))
+    jsys.process_frame(frames[0])
+    jsys.process_chunk(jnp.asarray(_pack(frames[1:])), H, W)
+    _assert_poses_close(chunked.tracker.all_pd_pose, jsys.tracker.all_pd_pose)
+    assert int(chunked.state.n_occupied) == int(jsys.state.n_occupied)
+
+
+def test_constant_velocity_matches_jax(port, jax_prior):
+    """``motion_prior="constant_velocity"`` (each frame's GN starts from the
+    last frame's delta) through the port's chunked path against the JAX
+    package's per-frame path: 1e-4 m, 1e-4 rad; and the port's own two paths
+    agree exactly."""
+    frames, make = port
+    system = make(motion_prior="constant_velocity")
+    system.process_frame(frames[0])
+    system.process_chunk(torch.from_numpy(_pack(frames[1:])), W)
+    stepwise = make(motion_prior="constant_velocity")
+    for frame in frames:
+        stepwise.process_frame(frame)
+    for a, b in zip(_poses(system), _poses(stepwise)):
+        np.testing.assert_array_equal(a, b)
+    assert not torch.equal(system.tracker.last_delta.t, torch.zeros(3))
+    jsys = _jax_system(jax_prior, motion_prior="constant_velocity")
+    for frame in _sequence(cls=JSequence, intrinsic=JIntrinsic):
+        jsys.process_frame(frame)
+    _assert_poses_close(system.tracker.all_pd_pose, jsys.tracker.all_pd_pose)
+    # the JAX result's keys, from its per-frame program compiled just above
+    jres = jsys.run_sequence(_sequence(n=2, cls=JSequence, intrinsic=JIntrinsic))
+    tres = make().run_sequence(_sequence(n=2))
+    assert set(tres) == set(jres)
+
+
+def test_run_sequence_chunked_matches_per_frame(port):
+    """``run_sequence(chunk=3)`` over 8 frames (1 + 3 + 3 + 1) against
+    ``run_sequence()``: equal trajectory, voxels and ATE."""
+    _, make = port
+    a, b = make(), make()
+    ra = a.run_sequence(_sequence(n=8), chunk=3)
+    rb = b.run_sequence(_sequence(n=8))
+    assert ra["n_frames"] == rb["n_frames"] == 8
+    for p, q in zip(ra["trajectory"], rb["trajectory"]):
+        np.testing.assert_array_equal(p.matrix, q.matrix)
+    assert ra["n_voxels"] == rb["n_voxels"] > 100
+    assert ra["ate_rmse"] == rb["ate_rmse"] < 5e-3
+    assert ra["alloc_overflow"] == 0 and ra["opt_overflow"] == 0
+    assert torch.equal(a.state.latents, b.state.latents)
+    # profile=True adds the per-stage keys
+    c = make()
+    c.profile = True
+    rc = c.run_sequence(_sequence(n=3))
+    assert {"track_ms", "track_first_ms", "integrate_ms", "integrate_first_ms"} <= set(rc)
+
+
+def test_chunk_refreshes_last_processed(port, chunked):
+    """After a chunk ``tracker.last_processed`` is the chunk's final frame
+    (as tests/test_scan.py::test_chunk_refreshes_last_processed): a later
+    per-frame integrate must fuse it, not a frame from before the chunk."""
+    frames, _ = port
+    tr = chunked.tracker
+    ref = T.preprocess_packed(tr.tcfg, tr.calib, torch.from_numpy(_pack(frames[-1:])[0]), W)
+    got = tr.last_processed
+    assert torch.equal(got.pts_cam, ref.pts_cam)
+    assert torch.equal(got.normals_cam, ref.normals_cam)
+    assert torch.equal(got.pc_mask, ref.pc_mask)
+    for a, b in zip(T._tensors(tr.last_pyramid), T._tensors(ref.pyramid)):
+        assert torch.equal(a, b)
+    assert got.pyramid is tr.last_pyramid
+
+
+def test_gt_pose_mapping_only_matches_jax(port, jax_prior):
+    """``use_gt_poses`` (every frame takes its ground-truth pose, no tracking)
+    against the JAX package, after every frame: ``n_occupied`` and the indexer
+    equal; of the latent entries 98% within rtol 1e-5 (atol 1e-6 near 0), the
+    tolerance of one fusion of the same points (tests/test_torch_map.py), and
+    none off by more than 1e-3.  The rest is the input, not the fusion: the
+    packages' point normals agree to 2e-3 only (closed-form eigenvectors of
+    small windows, tests/test_torch_tracker.py), and a world point on a voxel
+    face may feed other voxels.  ``chunk`` is ignored in this mode and
+    ``process_chunk`` refuses."""
+    frames, make = port
+    system, jsys = make(), _jax_system(jax_prior)
+    system.use_gt_poses = jsys.use_gt_poses = True
+    jframes = list(_sequence(n=4, cls=JSequence, intrinsic=JIntrinsic))
+    for k in range(4):
+        system.process_frame(frames[k])
+        jsys.process_frame(jframes[k])
+        assert int(system.state.n_occupied) == int(jsys.state.n_occupied) > 100
+        np.testing.assert_array_equal(system.state.indexer.numpy(),
+                                      np.asarray(jsys.state.indexer))
+        got, ref = system.state.latents.numpy(), np.asarray(jsys.state.latents)
+        close = np.isclose(got, ref, rtol=1e-5, atol=1e-6)
+        assert close.mean() > 0.98 and np.abs(got - ref).max() < 1e-3
+    assert system.tracker.n_host_syncs == 0
+    for p, f in zip(system.tracker.all_pd_pose, frames):
+        np.testing.assert_allclose(p.matrix, f.gt_pose.matrix, atol=1e-6)
+    with pytest.raises(RuntimeError):
+        system.process_chunk(torch.zeros(1, H, 3 * W, dtype=torch.uint8), W)
+    other = make()
+    other.use_gt_poses = True
+    result = other.run_sequence(_sequence(n=4), chunk=3)
+    assert result["ate_rmse"] < 1e-6 and result["n_frames"] == 4
+    assert torch.equal(other.state.latents, system.state.latents)
+
+
+def test_unported_options_raise(port):
+    frames, make = port
+    system = make()
+    system.process_frame(frames[0])
+    packed = torch.from_numpy(_pack(frames[1:2]))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        track_fuse_scan(system.tracker, system.encoder, system.state, packed,
+                        [False], W, with_merge=True)
+    dec, enc, _ = load_prior(HYPER, 300, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        SLAMSystem(M.MapConfig(**MAP), T.TrackerConfig(), dec, enc, Intrinsic(*CALIB),
+                   latent_optimize=True, device="cpu")
+    with pytest.raises(RuntimeError):
+        make().process_chunk(packed, W)          # frame 0 must come first

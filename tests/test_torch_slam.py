@@ -91,7 +91,9 @@ def test_slice_poses_match_jax(runs):
 
 def test_slice_tracks_and_fuses(runs):
     """The port tracks the noise-free sequence to ~1 mm ATE, fuses voxels,
-    and spends at most one host sync per GN update."""
+    and on the per-frame path the host waits for at most one exit flag per
+    GN update (``n_host_syncs`` counts the flags the host waited for; the
+    chunked path on the card reads none, tests/test_torch_cuda_kernels.py)."""
     jseq, jposes, tseq, _, tsys, _ = runs
     ate = ate_rmse(tseq.gt_trajectory, tsys.tracker.all_pd_pose)
     assert ate < 5e-3, ate
