@@ -13,17 +13,30 @@ Phases, each printing one JSON line:
               also at the edges of its tiling and through both its entries);
               its device time (CUDA-graph replay of back-to-back launches),
               the wrapper's host time per call, and its bounds.
-4. main    -- SLAMSystem on the card at bench.py's configuration: a 640x480
-              SyntheticSequence, a dense 70x70x40 map of 0.1 m voxels, point
-              budget 8192, fusion every 20 frames, meshing off, the in-repo
-              study_mixed prior at epoch 300.  41 frames (fusions at 0, 20,
-              40); launch counts, ms/frame, n_occupied and ATE.
+4. main    -- SLAMSystem.process_frame on the card at bench.py's
+              configuration: a 640x480 SyntheticSequence, a dense 70x70x40
+              map of 0.1 m voxels, point budget 8192, fusion every 20 frames,
+              meshing off, the in-repo study_mixed prior at epoch 300.  41
+              frames (fusions at 0, 20, 40), every tracked frame one launch
+              of the tracker's CUDA graph; launch counts, ms/frame (<= 33.3),
+              exit flags read (0), n_occupied and ATE.
 5. chunk   -- the normal entry point on the same frames: SLAMSystem.from_config
               on a dictionary that mirrors configs/fusion-synthetic.yaml, then
               run_sequence(chunk=12): frame 0 alone, then chunks of 12, 12, 12
               and 4 frames, every tracked frame one CUDA-graph launch whose
               GN loops end on the device.  Its poses must equal the main
-              phase's; the host must have read no exit flag.
+              phase's bit for bit; the host must have read no exit flag.
+   compensated -- the 41 frames under solve_dtype "compensated" through
+              run_sequence(chunk=12), then again with perturb_points=7 (the
+              SDF points in another order): ms/frame, each chunk's host and
+              wait ms, the garbage collector's ms, and the largest pose
+              difference between the two (at most 1e-5); then under
+              "blocked": the same times and ATE.
+   hash    -- the 41 frames through from_config with `indexer: hash` (a
+              hash table of 2^18 entries over 2^16 slots) and meshing on, on
+              the chunked path and on the per-frame path: poses equal bit
+              for bit, ATE, alloc_overflow 0, mesh error, extract ms and
+              transfer bytes, kernel launches.
 6. mesh    -- a second SLAMSystem on the same frames with the meshing
               defaults (r = 4, max_std 0.15, an incremental extract on each
               fusion frame); per-extract ms, blocks and launches, ms/frame,
@@ -31,12 +44,15 @@ Phases, each printing one JSON line:
 7. offline -- save_map of the mesh phase's map, then the offline mesher
               (mesh_tool, r = 8) in-process; ms, triangles, dispatch sizes,
               launches and the mesh's error.
-8. profile -- torch.profiler over 3 more frames on the per-frame path, then
-              over the same 3 frames as one chunk on the chunked path: device
-              time by kernel, device calls and busy share of both (the
-              profiler sees one pass of each device-side loop, so the chunked
-              path's share is also given from the per-frame path's device
-              time); the two paths' poses on these frames must agree.
+8. profile -- torch.profiler over 3 more frames on the per-frame path with
+              its host-loop driver (every kernel a GN loop runs is a record
+              of its own), then over the same 3 frames as one chunk on the
+              chunked path: device time by kernel, device calls and busy
+              share of both.  The profiler sees one pass of each device-side
+              loop: the line counts kernel 1's records against its launches
+              on both paths, and gives the chunked path's share from the
+              per-frame path's device time too.  The two paths' poses on
+              these frames must agree.
 9. mesh_profile -- torch.profiler over one full (no_cache) r = 4 extract.
 
 Then one line {"kernels": [...]} with every kernel's launches on its path,
@@ -46,6 +62,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import statistics
@@ -76,6 +93,7 @@ N_PROFILE = 3
 CHUNK = 12           # frames a chunk, as bench.py streams them
 MESH_MAX_STD = 0.15  # the online default; the offline run uses it too
 MAX_MESH_ERR = 0.05  # m, 95th percentile distance to the analytic surface
+MAX_FRAME_MS = 1e3 / 30   # a 30 fps camera
 
 
 def emit(obj) -> None:
@@ -309,10 +327,11 @@ def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, build_i
             "ptxas": resources, "flops": flops, "bytes": nbytes}
 
 
-def profiled(fn) -> dict:
-    """Run fn under torch.profiler: wall ms, device ms and busy share, and
-    the top device-side rows (kernels, copies; a CPU op's self device time
-    repeats the time of the kernels it launched, so CPU rows are left out)."""
+def profiled(fn, count: str = "decode_grad_kernel") -> dict:
+    """Run fn under torch.profiler: wall ms, device ms and busy share, the
+    top device-side rows (kernels, copies; a CPU op's self device time
+    repeats the time of the kernels it launched, so CPU rows are left out)
+    and the records of kernels whose name holds ``count``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -326,6 +345,7 @@ def profiled(fn) -> dict:
                    and e.self_device_time_total > 0), reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
     return {"wall_ms": wall_ms, "device_calls": sum(r[2] for r in rows),
+            f"{count}_records": sum(c for _, key, c in rows if count in key),
             "device_ms": device_ms if rows else "not measured",
             "device_busy_share": device_ms / wall_ms if rows else "not measured",
             "top": [{"op": key[:80], "ms": us / 1e3, "calls": c}
@@ -339,6 +359,46 @@ def check_mesh(phase: str, tris, merr) -> None:
         fail(f"{phase}: non-finite vertices")
     if not merr["mesh_err_p95"] <= MAX_MESH_ERR:
         fail(f"{phase}: mesh error p95 {merr['mesh_err_p95']:.4f} m > {MAX_MESH_ERR} m")
+
+
+def run_chunked(system, sequence, n: int) -> dict:
+    """run_sequence(chunk=CHUNK) over n frames, each chunk timed to the
+    card's end: ms/frame over the chunks after the first (which captures).
+    ``chunk_ms``: per chunk its frames, its host ms (from the previous
+    chunk's end, or the start, to its last launch) and its wait ms (from
+    there to the card's end); ``gc_ms``: each run of Python's garbage
+    collector during the call."""
+    done, gc_ms, gc_start = [], [], []
+    process_chunk = system.process_chunk
+
+    def timed_chunk(packed, w):
+        out = process_chunk(packed, w)
+        enqueued = time.perf_counter()
+        torch.cuda.synchronize()
+        done.append((int(packed.shape[0]), enqueued, time.perf_counter()))
+        return out
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start.append(time.perf_counter())
+        elif gc_start:
+            gc_ms.append((time.perf_counter() - gc_start.pop()) * 1e3)
+    system.process_chunk = timed_chunk
+    torch.cuda.synchronize()
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    result = system.run_sequence(sequence, max_frames=n, chunk=CHUNK)
+    torch.cuda.synchronize()
+    gc.callbacks.remove(on_gc)
+    system.process_chunk = process_chunk
+    steady = sum(k for k, _, _ in done[1:])
+    ends = [t0] + [end for _, _, end in done]
+    return {"result": result, "chunks": done, "t0": t0, "run_s": time.perf_counter() - t0,
+            "ms_per_frame": (done[-1][2] - done[0][2]) * 1e3 / steady if steady else
+            "not measured",
+            "chunk_ms": [(k, (enq - ends[i]) * 1e3, (end - enq) * 1e3)
+                         for i, (k, enq, end) in enumerate(done)],
+            "gc_ms": gc_ms}
 
 
 def main() -> int:
@@ -425,17 +485,25 @@ def main() -> int:
     finite = all(np.isfinite(p.t).all() and np.isfinite(p.q.q).all() for p in poses)
     n_steady = N_MAIN - 2
     n_tracked = N_MAIN - 1
+    main_ms = steady_s * 1e3 / n_steady
     emit({"phase": "main", "frames": N_MAIN, "h": 480, "w": 640,
-          "ms_per_frame": steady_s * 1e3 / n_steady,
+          "driver": "program (one CUDA-graph launch a tracked frame)",
+          "ms_per_frame": main_ms,
           "fps": n_steady / steady_s,
           "frame_ms_median": statistics.median(frame_ms[2:]),
           "fusion_frame_ms": [frame_ms[0], frame_ms[20], frame_ms[40]],
-          "launches": counts, "gn_host_syncs_per_frame": syncs / (N_MAIN - 1),
+          "launches": counts, "exit_flags_read": syncs,
+          "gn_host_syncs_per_frame": syncs / (N_MAIN - 1),
           "n_occupied": n_occ, "ate_rmse_m": ate, "render_s": render_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    if counts.get("window_stat_sums", 0) != N_MAIN:
+    # frame 0 (eager), 40 graph launches and the capture's warm-up passes
+    if counts.get("window_stat_sums", 0) != N_MAIN + WARM_UP_PASSES:
         fail(f"window_stat_sums launched {counts.get('window_stat_sums', 0)} "
-             f"times on the main path, expected {N_MAIN}")
+             f"times on the main path, expected {N_MAIN} + {WARM_UP_PASSES}")
+    if syncs != 0:
+        fail(f"the host read {syncs} exit flags on the per-frame path")
+    if not main_ms <= MAX_FRAME_MS:
+        fail(f"the per-frame path ran {main_ms:.2f} ms/frame > {MAX_FRAME_MS:.1f}")
     if counts.get("decode_grad_fused", 0) < 2 * n_tracked:
         fail(f"decode_grad_fused launched {counts.get('decode_grad_fused', 0)} "
              f"times, expected >= {2 * n_tracked}")
@@ -513,9 +581,10 @@ def main() -> int:
     steady_s = chunk_done[-1][2] - chunk_done[0][2]
     history, reference = csys.tracker.pose_history(), system.tracker.pose_history()
     pose_diff = max((a - b).abs().max().item() for a, b in zip(history, reference))
+    chunk_ms_per_frame = steady_s * 1e3 / n_steady
     emit({"phase": "chunk", "frames": N_MAIN, "chunk": CHUNK,
           "chunks": [k for k, _, _ in chunk_done],
-          "ms_per_frame": steady_s * 1e3 / n_steady, "fps": n_steady / steady_s,
+          "ms_per_frame": chunk_ms_per_frame, "fps": n_steady / steady_s,
           "first_chunk_ms": (chunk_done[0][2] - t0) * 1e3,
           "chunk_ms": [(done - (chunk_done[i - 1][2] if i else t0)) * 1e3
                        for i, (_, _, done) in enumerate(chunk_done)],
@@ -538,7 +607,7 @@ def main() -> int:
         fail(f"run_sequence chunked the frames as {[k for k, _, _ in chunk_done]}")
     if result["n_frames"] != N_MAIN or program.n_replays != n_tracked:
         fail(f"{result['n_frames']} frames, {program.n_replays} graph launches")
-    if not pose_diff <= 1e-6:
+    if not all(torch.equal(a, b) for a, b in zip(history, reference)):
         fail(f"chunked poses differ from the per-frame path's by {pose_diff:.3g}")
     if not result["ate_rmse"] <= 0.05:
         fail(f"chunk phase ATE {result['ate_rmse']:.4f} m > 0.05 m")
@@ -555,6 +624,110 @@ def main() -> int:
         fail(f"the host read {csys.tracker.n_host_syncs} exit flags on the chunked path")
     for k in kernels[:2]:
         k["launches_chunk"] = ccounts.get(k["name"], 0)
+
+    # ---- compensated / blocked: the order-robust normal equations ----
+    comp = {}
+    for label, kw in (("compensated", dict(solve_dtype="compensated")),
+                      ("compensated_perturbed_7", dict(solve_dtype="compensated",
+                                                       perturb_points=7)),
+                      ("blocked", dict(solve_dtype="blocked"))):
+        vsys = SLAMSystem(map_cfg, tcfg._replace(**kw), dec, enc, calib, integrate_interval=20,
+                          depth_cut=(0.5, 5.0), meshing=False, device=dev)
+        run = run_chunked(vsys, Rendered(N_MAIN), N_MAIN)
+        comp[label] = (vsys, run)
+        if vsys.tracker.n_host_syncs != 0:
+            fail(f"{label}: the host read {vsys.tracker.n_host_syncs} exit flags")
+    perturb_diff = max((x - y).abs().max().item() for x, y in
+                       zip(comp["compensated"][0].tracker.pose_history(),
+                           comp["compensated_perturbed_7"][0].tracker.pose_history()))
+    emit({"phase": "compensated", "frames": N_MAIN, "chunk": CHUNK,
+          **{f"{k}_ms_per_frame": run["ms_per_frame"] for k, (_, run) in comp.items()},
+          **{f"{k}_chunk_frames_host_wait_ms": run["chunk_ms"]
+             for k, (_, run) in comp.items()},
+          **{f"{k}_gc_ms": run["gc_ms"] for k, (_, run) in comp.items()},
+          **{f"{k}_ate_rmse_m": run["result"]["ate_rmse"] for k, (_, run) in comp.items()},
+          "pose_max_abs_diff_perturbed_vs_not": perturb_diff,
+          "poses_torch_equal_perturbed_vs_not": all(
+              torch.equal(x, y) for x, y in zip(comp["compensated"][0].tracker.pose_history(),
+                                                comp["compensated_perturbed_7"][0]
+                                                .tracker.pose_history())),
+          "f32_ms_per_frame_chunk_phase": chunk_ms_per_frame})
+    if not perturb_diff <= 1e-5:
+        fail(f"compensated poses move by {perturb_diff:.3g} under perturb_points")
+    for label, (_, run) in comp.items():
+        if not run["result"]["ate_rmse"] <= 0.05:
+            fail(f"{label} ATE {run['result']['ate_rmse']:.4f} m > 0.05 m")
+    del comp
+
+    # ---- hash: the hash-indexed map through from_config, meshing on ----
+    hargs = dict_to_args({**vars(args), "mapping": {
+        "indexer": "hash", "voxel_size": 0.1, "prune_min_vox_obs": 16,
+        "ignore_count_th": 16.0, "encoder_count_th": 600.0}})
+    hsys = SLAMSystem.from_config(hargs, calib, seq.first_iso, capacity=1 << 16,
+                                  point_budget=8192, meshing=True)
+    fsys = SLAMSystem.from_config(hargs, calib, seq.first_iso, capacity=1 << 16,
+                                  point_budget=8192, meshing=True)
+    if not hsys.is_hash or hsys.map_cfg.table_size != 1 << 18:
+        fail(f"from_config built {hsys.map_cfg} for `indexer: hash`")
+    hextracts = []
+
+    def timed(system):
+        inner = system.mesher.extract
+
+        def extract(state, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(state, **kw)
+            torch.cuda.synchronize()
+            hextracts.append({"ms": (time.perf_counter() - t0) * 1e3,
+                              "transfer_bytes": system.mesher.last_transfer_bytes,
+                              **system.mesher.last_stats})
+            return out
+        system.mesher.extract = extract
+    timed(hsys)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    hrun = run_chunked(hsys, Rendered(N_MAIN), N_MAIN)
+    hcounts = _build.launch_counts()
+    hres = hrun["result"]
+    htris, _ = hsys.mesher.triangles()
+    hmerr = mesh_error_stats(htris)
+    hframe_ms = []
+    for k in range(N_MAIN):
+        t0 = time.perf_counter()
+        fsys.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
+        torch.cuda.synchronize()
+        hframe_ms.append((time.perf_counter() - t0) * 1e3)
+    hist_c, hist_f = hsys.tracker.pose_history(), fsys.tracker.pose_history()
+    hdiff = max((x - y).abs().max().item() for x, y in zip(hist_c, hist_f))
+    emit({"phase": "hash", "frames": N_MAIN, "chunk": CHUNK,
+          "table_size": hsys.map_cfg.table_size, "capacity": hsys.map_cfg.capacity,
+          "ms_per_frame_chunked": hrun["ms_per_frame"],
+          "chunk_frames_host_wait_ms": hrun["chunk_ms"], "gc_ms": hrun["gc_ms"],
+          "first_chunk_ms": (hrun["chunks"][0][2] - hrun["t0"]) * 1e3,
+          "ms_per_frame_per_frame_path": statistics.mean(
+              [t for k, t in enumerate(hframe_ms) if k >= 2 and k % 20]),
+          "fusion_mesh_frame_ms_per_frame_path": [hframe_ms[k] for k in (0, 20, 40)],
+          "extracts_chunked_path": hextracts, "launches": hcounts,
+          "exit_flags_read": hsys.tracker.n_host_syncs + fsys.tracker.n_host_syncs,
+          "pose_max_abs_diff_chunked_vs_per_frame": hdiff,
+          "poses_torch_equal": all(torch.equal(x, y) for x, y in zip(hist_c, hist_f)),
+          "n_voxels": hres["n_voxels"], "alloc_overflow": hres["alloc_overflow"],
+          "ate_rmse_m": hres["ate_rmse"], "triangles": len(htris), **hmerr})
+    if not all(torch.equal(x, y) for x, y in zip(hist_c, hist_f)):
+        fail(f"hash: chunked and per-frame poses differ by {hdiff:.3g}")
+    if hsys.tracker.n_host_syncs + fsys.tracker.n_host_syncs:
+        fail("hash: the host read exit flags")
+    if not hres["ate_rmse"] <= 0.05:
+        fail(f"hash ATE {hres['ate_rmse']:.4f} m > 0.05 m")
+    if hres["alloc_overflow"] != 0:
+        fail(f"hash alloc_overflow {hres['alloc_overflow']}")
+    check_mesh("hash", htris, hmerr)
+    for k in kernels:
+        k["launches_hash"] = hcounts.get(k["name"], 0)
+        if k["launches_hash"] < 1:
+            fail(f"{k['name']} was not launched on the hash path")
+    del hsys, fsys
 
     # ---- mesh phase: the same frames with the meshing defaults ----
     msys = SLAMSystem(map_cfg, tcfg, dec, enc, calib, integrate_interval=20,
@@ -642,14 +815,20 @@ def main() -> int:
     # Last, so that no phase above runs after the profiler has run.
     def profile_frames():
         for k in range(N_MAIN, N_MAIN + N_PROFILE):
-            system.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
+            system.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True),
+                                 driver="host")
     syncs_before = system.tracker.n_host_syncs
+    k1_before = _build.launch_counts().get("decode_grad_fused", 0)
     frame_profile = profiled(profile_frames)
-    emit({"phase": "profile", "path": "per-frame", "frames": N_PROFILE, **frame_profile,
-          "gn_updates_read": system.tracker.n_host_syncs - syncs_before})
+    emit({"phase": "profile", "path": "per-frame, host-loop driver", "frames": N_PROFILE,
+          **frame_profile, "gn_updates_read": system.tracker.n_host_syncs - syncs_before,
+          "decode_grad_launches": _build.launch_counts().get("decode_grad_fused", 0)
+          - k1_before})
     tail = torch.stack([uploads[k] for k in range(N_MAIN, N_MAIN + N_PROFILE)]).to(dev)
     passes_before = sum(program.loop_passes())
+    k1_before = _build.launch_counts().get("decode_grad_fused", 0)
     chunk_profile = profiled(lambda: process_chunk(tail, frames[0].depth.shape[1]))
+    k1_chunk = _build.launch_counts().get("decode_grad_fused", 0) - k1_before
     tail_diff = max((a[-N_PROFILE:] - b[-N_PROFILE:]).abs().max().item()
                     for a, b in zip(csys.tracker.pose_history(),
                                     system.tracker.pose_history()))
@@ -659,6 +838,9 @@ def main() -> int:
     # over the chunked path's wall time is the share to read
     emit({"phase": "profile", "path": "chunk", "frames": N_PROFILE,
           "gn_evaluations": sum(program.loop_passes()) - passes_before,
+          "decode_grad_launches": k1_chunk,
+          "decode_grad_launches_not_recorded":
+              k1_chunk - chunk_profile["decode_grad_kernel_records"],
           "pose_max_abs_diff_vs_per_frame": tail_diff, **chunk_profile,
           "device_busy_share_by_per_frame_device_ms":
               frame_profile["device_ms"] / chunk_profile["wall_ms"]

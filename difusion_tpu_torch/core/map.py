@@ -72,6 +72,9 @@ def create_map_state(cfg: MapConfig, device) -> MapState:
         n_occupied=torch.zeros((), **i32),
         overflow=torch.zeros((), **i32),
     )
+create_state = create_map_state
+# the fields of a state that tracking reads
+TRACKED_FIELDS = ("indexer", "latents", "obs_count")
 
 
 def linearize(cfg: MapConfig, xyz_id: torch.Tensor) -> torch.Tensor:
@@ -256,13 +259,13 @@ def save_map(path, cfg: MapConfig, state: MapState) -> None:
 
 
 def load_map(path, device="cuda") -> Tuple[MapConfig, MapState]:
-    """Read a dense-map npz written by either package onto ``device``."""
+    """Read a map npz written by either package onto ``device``: a dense
+    one here, a hash-map snapshot through :func:`.hash_map.load_map`."""
     dev = resolve_device(device)
     with np.load(path) as data:
         if "cfg.table_size" in data:
-            raise NotImplementedError(
-                f"{path} is a hash-map snapshot; the port has no hash map "
-                "(core/hash_map.py) yet")
+            from . import hash_map
+            return hash_map.load_map(path, device=dev)
         cfg = MapConfig(
             bound_min=tuple(float(x) for x in data["cfg.bound_min"]),
             n_xyz=tuple(int(x) for x in data["cfg.n_xyz"]),

@@ -1,6 +1,14 @@
-"""Incremental mesh extraction on the dense map (counterpart of
-difusion_tpu/core/meshing.py: ``_mesh_prep_dense``, ``_batch_tables``,
-``_eval_and_negate``, ``_MeshExtractorBase`` and ``MeshExtractor``).
+"""Incremental mesh extraction (counterpart of difusion_tpu/core/meshing.py:
+``_mesh_prep_dense``, ``_mesh_prep_hash``, ``_batch_tables``,
+``_build_subgrid``, ``_eval_and_negate``, ``_MeshExtractorBase``,
+``MeshExtractor`` and ``HashMeshExtractor``; the JAX module's
+``_dilate6_cells`` serves its tests only, and the port's tests use it).
+
+Two backends share the driver: :class:`MeshExtractor` for the dense map,
+whose own indexer is the marching-cubes grid, and :class:`HashMeshExtractor`
+for the hash-indexed map, which scatters the extract's (cell, slot) rows
+into a dense sub-grid over their bounding box on the device (only the
+12-byte origin crosses to the card).
 
 Per extract:
 
@@ -19,8 +27,8 @@ Per extract:
 4. The triangles splice into a host-side cache keyed by latent slot: a
    re-meshed slot's old triangles are replaced.
 
-Left out: the coarse-to-fine fast mode (``_eval_and_negate_fast``), the
-hash-map backend (``HashMeshExtractor``) and sharded decoding.
+Left out: the coarse-to-fine fast mode (``_eval_and_negate_fast``) and
+sharded decoding.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from ..models.decoder import Decoder
 from ..ops import decoder_fused as _fused
 from ..ops.marching_cubes import marching_cubes_sparse, mc_triangles_np
 from ..ops.sampling import block_lattice
+from . import hash_map as HM
 from . import map as M
 
 _NEIGHBORS7 = ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0),
@@ -63,6 +72,37 @@ def _mesh_prep_dense(cfg: M.MapConfig, state: M.MapState, no_cache: bool
     flag = flag & (state.positions >= 0) & (state.obs_count > cfg.ignore_count_th)
     slots = torch.nonzero(flag)[:, 0]                  # the one count sync
     return cell[slots], slots
+
+
+def _mesh_prep_hash(cfg: HM.HashMapConfig, state: HM.HashMapState, no_cache: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_mesh_prep_dense` for the hash map: the 7 neighbour probes go
+    through the hash table.  Returns (cells (n, 3), slots (n,)) int64,
+    slots ascending."""
+    dev = state.obs_count.device
+    dirty = (state.obs_count > 0.0) if no_cache else state.mesh_dirty
+    occupied = torch.arange(cfg.capacity, device=dev) < state.n_occupied
+    cell = state.slot_cell.to(torch.int64)
+    flag = torch.zeros(cfg.capacity, dtype=torch.bool, device=dev)
+    for off in _NEIGHBORS7:
+        nb_slot = HM.slot_of(cfg, state, cell + const(off, dev, torch.int64))
+        flag = flag | ((nb_slot >= 0)
+                       & dirty[torch.clamp(nb_slot, 0, cfg.capacity - 1)])
+    flag = flag & occupied & (state.obs_count > cfg.ignore_count_th)
+    slots = torch.nonzero(flag)[:, 0]                  # the one count sync
+    return cell[slots], slots
+
+
+def _build_subgrid(cells: torch.Tensor, slots: torch.Tensor, lo: torch.Tensor,
+                   n_xyz: Tuple[int, int, int]) -> torch.Tensor:
+    """The live (cell, slot) rows scattered into a dense (-1 filled)
+    sub-grid with origin ``lo``, on the device: the hash backend's
+    marching-cubes indexer."""
+    local = cells - lo[None, :]
+    lin = local[:, 0] * (n_xyz[1] * n_xyz[2]) + local[:, 1] * n_xyz[2] + local[:, 2]
+    grid = torch.full((int(np.prod(n_xyz)),), -1, dtype=torch.int32, device=cells.device)
+    grid[lin] = slots.to(torch.int32)
+    return grid
 
 
 def _batch_tables(slots: torch.Tensor, B: int, capacity: int
@@ -143,17 +183,17 @@ def _jet_lut() -> np.ndarray:
 _JET = _jet_lut()
 
 
-class MeshExtractor:
-    """Dense-map mesher with a host-side triangle cache keyed by latent slot.
+class _MeshExtractorBase:
+    """The cache and the extract driver; a backend resolves cells and slots
+    (:meth:`_mesh_prep`) and gives the marching-cubes grid (:meth:`_mc_grid`).
 
     ``max_eval_points`` bounds the lattice sites a decode dispatch and (over
     4) the candidate cubes a marching-cubes chunk, so a full ``no_cache``
     extract of a large map runs in bounded memory."""
 
-    def __init__(self, cfg: M.MapConfig, decoder: Decoder,
-                 voxel_resolution: int = 4, max_triangles: int = 1 << 20,
-                 interpolate: bool = True, max_eval_points: int = 1 << 20):
-        self.cfg = cfg
+    def __init__(self, decoder: Decoder, voxel_resolution: int = 4,
+                 max_triangles: int = 1 << 20, interpolate: bool = True,
+                 max_eval_points: int = 1 << 20):
         self.decoder = decoder
         self.packed = (_fused.pack_fused_decoder(decoder)
                        if _fused.supports_spec(decoder.spec) else None)
@@ -161,8 +201,6 @@ class MeshExtractor:
         self.max_triangles = int(max_triangles)
         self.interpolate = interpolate
         self.max_eval_points = int(max_eval_points)
-        self.voxel_size = cfg.voxel_size
-        self.world_origin = np.asarray(cfg.bound_min, np.float32)
         # host<->device traffic of the last extract, excluding the triangle
         # output itself; and its sizes (blocks, bucket, dispatches)
         self.last_transfer_bytes = 0
@@ -184,15 +222,26 @@ class MeshExtractor:
         faces = np.arange(verts.shape[0]).reshape(-1, 3)
         return verts, faces
 
+    # -- backend hooks ---------------------------------------------------------
+    def _mesh_prep(self, state, no_cache: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (cells (n, 3), slots (n,)) of the blocks to mesh, on the device."""
+        raise NotImplementedError
+
+    def _mc_grid(self, state, cells: np.ndarray, cells_d: torch.Tensor,
+                 slots_d: torch.Tensor):
+        """-> (indexer (n_local,) device int32, n_xyz_local, origin (3,)
+        int64, upload bytes).  ``cells`` is the host copy of the rows (for
+        the bounding box), ``cells_d``/``slots_d`` the device ones."""
+        raise NotImplementedError
+
     # -- extraction ----------------------------------------------------------
-    def extract(self, state: M.MapState, max_std: float = 2000.0,
-                no_cache: bool = False) -> M.MapState:
+    def extract(self, state, max_std: float = 2000.0, no_cache: bool = False):
         """Re-mesh the blocks around dirty slots (every observed block with
         ``no_cache``) and return the state with its dirty flags cleared."""
-        cfg = self.cfg
         if no_cache:
             self.clear_cache()
-        cells_d, slots_d = _mesh_prep_dense(cfg, state, no_cache)
+        capacity = state.latents.shape[0]
+        cells_d, slots_d = self._mesh_prep(state, no_cache)
         state = state._replace(mesh_dirty=torch.zeros_like(state.mesh_dirty))
         n = slots_d.shape[0]
         self.last_transfer_bytes = 4
@@ -206,10 +255,14 @@ class MeshExtractor:
 
         dev = state.latents.device
         B = _next_bucket(n)
-        slot_pad_d, slot_to_batch_d = _batch_tables(slots_d, B, cfg.capacity)
-        _, ny, nz = cfg.n_xyz
-        lin_local = (cells[:, 0] * ny * nz + cells[:, 1] * nz
-                     + cells[:, 2]).astype(np.int32)
+        slot_pad_d, slot_to_batch_d = _batch_tables(slots_d, B, capacity)
+        indexer_d, n_xyz_local, origin, up_bytes = self._mc_grid(state, cells, cells_d,
+                                                                 slots_d)
+        self.last_transfer_bytes += up_bytes
+        nxl, nyl, nzl = (int(v) for v in n_xyz_local)
+        local = cells - origin[None, :]
+        lin_local = (local[:, 0] * nyl * nzl + local[:, 1] * nzl
+                     + local[:, 2]).astype(np.int32)
         valid_blocks = np.full(B, -1, np.int32)
         valid_blocks[:n] = lin_local
 
@@ -235,7 +288,7 @@ class MeshExtractor:
             self.last_transfer_bytes += int(vb.numel()) * 4
             budget = min(self.max_triangles, 5 * n_sub * C_mc)
             result = marching_cubes_sparse(
-                state.indexer, slot_to_batch_d, vb, cube_sdf, cube_std, cfg.n_xyz,
+                indexer_d, slot_to_batch_d, vb, cube_sdf, cube_std, (nxl, nyl, nzl),
                 self.r, budget, max_std=max_std, interpolate=self.interpolate)
             tris_c, stds_c, blocks_c, cnt = mc_triangles_np(result)
             emitted += cnt
@@ -252,15 +305,16 @@ class MeshExtractor:
             stds = stds[:self.max_triangles]
             blocks = blocks[:self.max_triangles]
 
-        # world space: grid units -> meters
-        tris = tris * self.voxel_size + self.world_origin[None, None, :]
+        # world space: local grid units -> meters
+        tris = ((tris + origin[None, None, :].astype(np.float32)) * self.voxel_size
+                + self.world_origin[None, None, :])
 
         # per-triangle slot for the cache splice
-        lin_to_slot = np.full(cfg.n_cells, -1, np.int64)
+        lin_to_slot = np.full(nxl * nyl * nzl, -1, np.int64)
         lin_to_slot[lin_local] = slots
         tri_slot = lin_to_slot[blocks]
 
-        remeshed = np.zeros(cfg.capacity, bool)
+        remeshed = np.zeros(capacity, bool)
         remeshed[slots] = True
         keep_mask = ~remeshed[self._slot] if len(self._slot) else np.zeros(0, bool)
         self._tris = np.concatenate([self._tris[keep_mask], tris])
@@ -305,3 +359,42 @@ class MeshExtractor:
                 "property list uchar int vertex_indices\nend_header\n").encode())
             f.write(vrec.tobytes())
             f.write(frec.tobytes())
+
+
+class MeshExtractor(_MeshExtractorBase):
+    """Dense-map backend: the map's own indexer is the marching-cubes grid
+    (nothing uploads)."""
+
+    def __init__(self, cfg: M.MapConfig, decoder: Decoder, **kw):
+        super().__init__(decoder, **kw)
+        self.cfg = cfg
+        self.voxel_size = cfg.voxel_size
+        self.world_origin = np.asarray(cfg.bound_min, np.float32)
+
+    def _mesh_prep(self, state, no_cache):
+        return _mesh_prep_dense(self.cfg, state, no_cache)
+
+    def _mc_grid(self, state, cells, cells_d, slots_d):
+        return state.indexer, self.cfg.n_xyz, np.zeros(3, np.int64), 0
+
+
+class HashMeshExtractor(_MeshExtractorBase):
+    """Hash-map backend: a dense sub-grid over the bounding box of the
+    extract's cells (one cell of margin; dims padded to multiples of 16),
+    scattered on the device."""
+
+    def __init__(self, cfg: HM.HashMapConfig, decoder: Decoder, **kw):
+        super().__init__(decoder, **kw)
+        self.cfg = cfg
+        self.voxel_size = cfg.voxel_size
+        self.world_origin = np.zeros(3, np.float32)
+
+    def _mesh_prep(self, state, no_cache):
+        return _mesh_prep_hash(self.cfg, state, no_cache)
+
+    def _mc_grid(self, state, cells, cells_d, slots_d):
+        lo = cells.min(axis=0) - 1
+        span = cells.max(axis=0) + 2 - lo
+        n_xyz = tuple(int(-(-int(v) // 16) * 16) for v in span)
+        lo_d = torch.from_numpy(lo.astype(np.int64)).to(cells_d.device)
+        return _build_subgrid(cells_d, slots_d, lo_d, n_xyz), n_xyz, lo.astype(np.int64), 12

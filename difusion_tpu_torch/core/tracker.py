@@ -9,29 +9,38 @@ pixel for radius-outlier counts and PCA normals (kernel 2,
 run the grouped Gauss-Newton schedule over se(3): an SDF term (decoder
 forward + d sdf/d xyz in one kernel, kernel 1, ``ops/decoder_fused.py``)
 and a photometric term (per-pixel bilinear warp), a Jacobi-preconditioned
-6x6 solve and energy rejection.
+6x6 solve and energy rejection.  ``solve_dtype`` ``compensated`` /
+``blocked`` accumulate each term's normal equations as one order-robust Gram
+of ``[J | r]`` (``ops/compsum.py``), and ``compensated`` adds one
+iterative-refinement step to the solve; ``perturb_points`` permutes the SDF
+points by a fixed permutation (a test that the sums do not depend on order).
+The map is the dense one (``core/map.py``) or the hash-indexed one
+(``core/hash_map.py``), chosen by the type of its configuration.
 
 One iteration is :func:`gn_step`, a masked step on a carry of tensors: once
 the carry's ``done`` is set, a further step changes nothing.  Two loops
-run it.  :func:`gauss_newton`, the per-frame path's, loops on the host and
-reads ``done`` after every update (each such read makes the host wait for
-the device; ``SDFTracker.n_host_syncs`` counts them).
-:class:`TrackProgram`, the chunked path's, is the counterpart of the JAX
-package's one-dispatch ``preprocess_and_track``: preprocessing, every group's
-loop and the commit of the result are one
-:class:`~..utils.cudagraph.GraphProgram`, whose loops end on the device, so
-a tracked frame is one graph launch and the host reads no exit flag.
+run it.  :class:`TrackProgram`, the counterpart of the JAX package's
+one-dispatch ``preprocess_and_track``, runs preprocessing, every group's
+loop and the commit of the result as one
+:class:`~..utils.cudagraph.GraphProgram` whose loops end on the device: on
+the card a tracked frame is one graph launch and the host reads no exit
+flag.  Both the chunked and the per-frame path track through it there.
+:func:`gauss_newton` loops on the host and reads ``done`` after every
+update (each read makes the host wait for the device;
+``SDFTracker.n_host_syncs`` counts them): the CPU's per-frame driver, and
+``driver="host"`` of :meth:`SDFTracker.track_camera_packed` on the card,
+where the profiler sees every pass of its loops.
 """
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.decoder import Decoder
-from ..ops import imgproc
+from ..ops import compsum, imgproc
 from ..ops.decoder_fused import decode_grad_fused, pack_fused_decoder
 from ..ops.imgproc import Intrinsic, Pyramid
 from ..ops.pcproc import point_box_filter
@@ -39,6 +48,7 @@ from ..ops.se3 import Pose, exp_twist
 from ..ops.stencil import window_stat_sums_map
 from ..utils.cudagraph import GraphProgram
 from ..utils.motion import Isometry
+from . import hash_map as HM
 from . import map as M
 
 
@@ -151,9 +161,10 @@ class TrackerConfig(NamedTuple):
 
 
 _SUPPORTED = {"warp_tiled": (False,), "sdf_fused": ("on",),
-              "solve_dtype": ("f32",), "sdf_compute_dtype": ("float32",),
+              "solve_dtype": ("f32", "compensated", "blocked"),
+              "sdf_compute_dtype": ("float32",),
               "rgb_bilinear": (True,), "sdf_gather_cache": (False,),
-              "gn_unroll": (1,), "perturb_points": (0,),
+              "gn_unroll": (1,),
               "motion_prior": ("none", "constant_velocity")}
 
 
@@ -330,7 +341,13 @@ def _robust_weight(x: torch.Tensor, kind: str, k: float) -> torch.Tensor:
 
 
 def _normal_equations(J: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
-                      scale) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      scale, gram_mode: str = "f32"
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """H, g, E of weighted residuals; under ``compensated`` / ``blocked``
+    all three from one order-robust Gram of ``[J | r]``."""
+    if gram_mode != "f32":
+        Mm = compsum.gram(torch.cat([J, r[:, None]], dim=1), w, scale, gram_mode)
+        return Mm[:6, :6], Mm[:6, 6], Mm[6, 6]
     H = (J * w[:, None]).T @ J * scale
     g = torch.sum(J * (w * r)[:, None], dim=0) * scale
     return H, g, torch.sum(w * r * r) * scale
@@ -338,7 +355,8 @@ def _normal_equations(J: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
 
 def _sdf_term(map_cfg: M.MapConfig, packed: torch.Tensor, state: M.MapState,
               last: Pose, delta: Pose, pts: torch.Tensor, mask: torch.Tensor,
-              robust_kernel: str, robust_k: float, aug_table: torch.Tensor):
+              robust_kernel: str, robust_k: float, aug_table: torch.Tensor,
+              gram_mode: str = "f32"):
     """SDF residual r = sdf(last o delta y)/std with Jacobian [G | y x G],
     through the fused decode + position-gradient kernel.  The chain factors
     ``d rel/d x = 1/voxel_size`` and ``d x/d y = R_last`` turn the kernel's
@@ -346,7 +364,8 @@ def _sdf_term(map_cfg: M.MapConfig, packed: torch.Tensor, state: M.MapState,
     stop-gradients it)."""
     y = delta.apply(pts)
     x = last.apply(y)
-    latent, rel, valid = M.gather_latent_rel(map_cfg, state, x, aug_table)
+    latent, rel, valid = HM.map_module(map_cfg).gather_latent_rel(map_cfg, state, x,
+                                                                  aug_table)
     sdf, std, grel = decode_grad_fused(packed, latent.contiguous(),
                                        rel.contiguous())
     zero = torch.zeros((), dtype=sdf.dtype, device=sdf.device)
@@ -357,7 +376,7 @@ def _sdf_term(map_cfg: M.MapConfig, packed: torch.Tensor, state: M.MapState,
     J = torch.cat([G, torch.cross(y, G, dim=-1)], dim=-1)       # (N, 6)
     w = torch.where(ok, _robust_weight(r, robust_kernel, robust_k), zero)
     scale = 1.0 / torch.clamp(ok.sum(), min=1).to(r.dtype)
-    return _normal_equations(J, r, w, scale)
+    return _normal_equations(J, r, w, scale, gram_mode)
 
 
 class LevelCamera(NamedTuple):
@@ -382,7 +401,7 @@ def level_camera(tcfg: TrackerConfig, calib: Intrinsic, level: int,
 
 def _rgb_term(tcfg: TrackerConfig, cam: LevelCamera, stride: int,
               prev_tex: torch.Tensor, cur_level, delta: Pose,
-              rgb_weight: torch.Tensor):
+              rgb_weight: torch.Tensor, gram_mode: str = "f32"):
     """Photometric residual over one pyramid level: the current level's
     (strided) pixels warped into the previous frame's texture."""
     krkinv = cam.K @ delta.R @ cam.Kinv
@@ -396,17 +415,23 @@ def _rgb_term(tcfg: TrackerConfig, cam: LevelCamera, stride: int,
                                        tcfg.rgb_robust_k),
                     torch.zeros((), dtype=f.dtype, device=f.device))
     scale = rgb_weight / torch.clamp(ok.sum(), min=1).to(f.dtype)
-    return _normal_equations(J, f, w, scale)
+    return _normal_equations(J, f, w, scale, gram_mode)
 
 
-def _solve_precond(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _solve_precond(H: torch.Tensor, g: torch.Tensor,
+                   refine: bool = False) -> torch.Tensor:
     """Jacobi-preconditioned 6x6 solve in f32.  ``solve_ex`` does not check
     for singularity on the host, so it costs no sync; a singular system
-    gives a non-finite step, which the caller rejects."""
+    gives a non-finite step, which the caller rejects.  ``refine`` (the
+    ``compensated`` mode) adds one iterative-refinement step: the residual
+    in the preconditioned frame and a second solve."""
     d = torch.sqrt(torch.abs(torch.diagonal(H)) + 1e-12)
     Hr = H / (d[:, None] * d[None, :]) + 1e-9 * torch.eye(6, dtype=H.dtype,
                                                           device=H.device)
-    xi, _ = torch.linalg.solve_ex(Hr, -g / d)
+    b = -g / d
+    xi, _ = torch.linalg.solve_ex(Hr, b)
+    if refine:
+        xi = xi + torch.linalg.solve_ex(Hr, b - Hr @ xi)[0]
     return xi / d
 
 
@@ -430,6 +455,8 @@ class GNInputs(NamedTuple):
     cur_levels: Dict[int, tuple]      # level -> strided (int, depth, ok, grad, gok)
     prev_texs: Dict[int, torch.Tensor]
     aug_table: torch.Tensor
+    sdf_pts: torch.Tensor             # the SDF term's points and mask, in the
+    sdf_mask: torch.Tensor            # order perturb_points gives them
 
 
 class GNProblem(NamedTuple):
@@ -460,10 +487,20 @@ def _rgb_stride(tcfg: TrackerConfig, lvl: int) -> int:
     return tcfg.rgb_stride[min(lvl, len(tcfg.rgb_stride) - 1)]
 
 
-def gn_prepare(tcfg: TrackerConfig, state: M.MapState, prev: Pyramid,
-               cur: ProcessedFrame) -> GNInputs:
+@lru_cache(maxsize=16)
+def point_permutation(seed: int, n: int, device) -> torch.Tensor:
+    """``perturb_points``' fixed permutation of ``n`` points, drawn from
+    ``seed`` by numpy (the JAX package draws its own from ``jax.random``;
+    any fixed permutation is the same test)."""
+    return torch.from_numpy(np.random.default_rng(seed).permutation(n)).to(device)
+
+
+def gn_prepare(tcfg: TrackerConfig, state, prev: Pyramid, cur: ProcessedFrame
+               ) -> GNInputs:
     """The strided current-frame inputs and the previous frame's warp
-    texture per RGB level, and the latent + count table."""
+    texture per RGB level, the latent + count table, and the SDF points
+    (permuted by :func:`point_permutation` where ``perturb_points`` is
+    set)."""
     rgb_levels = sorted({int(term[1]) for _, terms in tcfg.iter_config
                          for term in terms if term[0] == "rgb"})
     p = cur.pyramid
@@ -473,7 +510,11 @@ def gn_prepare(tcfg: TrackerConfig, state: M.MapState, prev: Pyramid,
                   for lvl in rgb_levels}
     prev_texs = {lvl: imgproc.warp_texture(prev.intensity[lvl], prev.depth[lvl])
                  for lvl in rgb_levels}
-    return GNInputs(cur_levels, prev_texs, M.latent_count_table(state))
+    pts, mask = cur.pts_cam, cur.pc_mask
+    if tcfg.perturb_points:
+        perm = point_permutation(tcfg.perturb_points, pts.shape[0], pts.device)
+        pts, mask = pts[perm], mask[perm]
+    return GNInputs(cur_levels, prev_texs, M.latent_count_table(state), pts, mask)
 
 
 def _eval_Hg(p: GNProblem, delta: Pose, terms):
@@ -484,14 +525,15 @@ def _eval_Hg(p: GNProblem, delta: Pose, terms):
     for term in terms:
         if term[0] == "sdf":
             tH, tg, tE = _sdf_term(p.map_cfg, p.packed, p.state, p.last, delta,
-                                   p.cur.pts_cam, p.cur.pc_mask,
+                                   p.inputs.sdf_pts, p.inputs.sdf_mask,
                                    p.tcfg.sdf_robust_kernel, p.tcfg.sdf_robust_k,
-                                   p.inputs.aug_table)
+                                   p.inputs.aug_table, p.tcfg.solve_dtype)
         elif term[0] == "rgb":
             lvl = int(term[1])
             tH, tg, tE = _rgb_term(p.tcfg, p.cams[lvl], _rgb_stride(p.tcfg, lvl),
                                    p.inputs.prev_texs[lvl],
-                                   p.inputs.cur_levels[lvl], delta, p.rgb_weight)
+                                   p.inputs.cur_levels[lvl], delta, p.rgb_weight,
+                                   p.tcfg.solve_dtype)
         else:
             raise ValueError(f"unknown GN term {term!r}")
         H, g, E = H + tH, g + tg, E + tE
@@ -521,7 +563,7 @@ def gn_step(p: GNProblem, n: int, terms, c: GNCarry) -> GNCarry:
     bR = torch.where(accept, c.dR, c.bR)
     bt = torch.where(accept, c.dt, c.bt)
     bE = torch.where(accept, E, c.bE)
-    xi = _solve_precond(H, g)
+    xi = _solve_precond(H, g, refine=tcfg.solve_dtype != "f32")
     xi_ok = torch.all(torch.isfinite(xi))
     upd = exp_twist(torch.where(xi_ok, xi, torch.zeros_like(xi)))
     is_last = c.i == n
@@ -589,9 +631,11 @@ class TrackProgram:
     :class:`~..utils.cudagraph.GraphProgram` over tensors this object owns.
 
     Inputs, written by :meth:`load`, :meth:`load_state` and
-    :meth:`preprocess_and_track`: the packed frame, the map's ``indexer``,
-    ``latents`` and ``obs_count``, the last pose and delta, the previous
-    frame's pyramid, ``rgb_weight`` and ``n_unstable``.  Every frame advances
+    :meth:`preprocess_and_track`: the packed frame, what tracking reads of
+    the map (its module's ``TRACKED_FIELDS``: the dense ``indexer``, or the
+    hash ``keys`` and ``table_slot``; ``latents`` and ``obs_count``), the last
+    pose and delta, the previous frame's pyramid, ``rgb_weight`` and
+    ``n_unstable``.  Every frame advances
     the temporal ones in place.  Outputs, rewritten by every frame (copy what
     must outlive the next one): ``out`` ((13,): R row-major, t, the final
     energy), ``cur`` (the frame's :class:`ProcessedFrame`), ``world`` (its
@@ -606,7 +650,9 @@ class TrackProgram:
         self.w = w
         dev = tracker.device
         self.packed = torch.zeros(packed_shape, dtype=torch.uint8, device=dev)
-        self.state = M.create_map_state(tracker.map_cfg, dev)
+        cfg = tracker.map_cfg
+        self.state = HM.map_module(cfg).create_state(cfg, dev)
+        self._loaded: Tuple[torch.Tensor, ...] = ()
         self.last = Pose.identity(dev)
         self.delta = Pose.identity(dev)
         self.rgb_weight = torch.zeros((), device=dev)
@@ -619,10 +665,18 @@ class TrackProgram:
         self._problem: Optional[GNProblem] = None
         self.program: Optional[GraphProgram] = None
 
-    def load_state(self, state: M.MapState) -> None:
-        """Copy in what tracking reads of the map."""
-        for name in ("indexer", "latents", "obs_count"):
-            getattr(self.state, name).copy_(getattr(state, name))
+    def load_state(self, state) -> None:
+        """Copy in what tracking reads of the map, unless the program holds
+        these very tensors already (a fusion makes new ones; a mesh extract
+        keeps them)."""
+        fields = HM.map_module(self.tr.map_cfg).TRACKED_FIELDS
+        src = tuple(getattr(state, f) for f in fields)
+        if len(src) == len(self._loaded) and all(
+                a is b for a, b in zip(src, self._loaded)):
+            return
+        for f, t in zip(fields, src):
+            getattr(self.state, f).copy_(t)
+        self._loaded = src
 
     def load(self) -> None:
         """Copy in the tracker's temporal state."""
@@ -711,10 +765,10 @@ class SDFTracker:
     :class:`Isometry` only on export (:attr:`all_pd_pose`, :meth:`pose_at`).
 
     ``n_host_syncs`` counts the exit flags of the GN loop that the host
-    waited for: one per update on the per-frame path, none where the frame
-    runs as a :class:`TrackProgram` on the card (on the CPU the program's
-    loop reads them).  ``n_spec_evals`` counts evaluations made past a
-    group's ``done``: the program's loops end on the device, so it stays 0."""
+    waited for: one per update of the host loop, none where the frame runs
+    as a :class:`TrackProgram` on the card (on the CPU the program's loop
+    reads them).  ``n_spec_evals`` counts evaluations made past a group's
+    ``done``: the program's loops end on the device, so it stays 0."""
 
     def __init__(self, map_cfg: M.MapConfig, tcfg: TrackerConfig,
                  decoder: Decoder, calib: Intrinsic, device: torch.device):
@@ -731,6 +785,9 @@ class SDFTracker:
         self.last_pose: Optional[Pose] = None
         self.last_pyramid: Optional[Pyramid] = None
         self.last_processed: Optional[ProcessedFrame] = None
+        # the last program-tracked frame's world-space cloud (points,
+        # normals, mask), None after a frame tracked otherwise
+        self.last_world: Optional[Tuple[torch.Tensor, ...]] = None
         self.n_unstable = torch.zeros((), dtype=torch.int32, device=device)
         self.rgb_weight = torch.tensor(tcfg.rgb_weight, dtype=torch.float32,
                                        device=device)
@@ -779,11 +836,33 @@ class SDFTracker:
             return self.last_delta
         return self._identity
 
-    def track_camera_packed(self, state: M.MapState, packed: torch.Tensor,
-                            w: int, set_pose: Optional[Isometry] = None) -> Pose:
+    def track_camera_packed(self, state, packed: torch.Tensor, w: int,
+                            set_pose: Optional[Isometry] = None,
+                            driver: Optional[str] = None) -> Pose:
         """Track one :func:`pack_frame` buffer (a uint8 tensor on the
-        tracker's device) with the loop on the host.  ``set_pose`` fixes the
-        pose instead (frame 0, or a ground-truth pose)."""
+        tracker's device).  ``set_pose`` fixes the pose instead (frame 0, or a
+        ground-truth pose).  ``driver``: ``"program"`` runs the frame as this
+        shape's :class:`TrackProgram` (one graph launch on the card),
+        ``"host"`` runs :func:`gauss_newton`'s host loop; by default the
+        program on the card and the host loop on the CPU.  Both give the
+        same pose."""
+        if driver is None:
+            driver = "program" if self.device.type == "cuda" else "host"
+        if driver not in ("program", "host"):
+            raise ValueError(f"driver {driver!r} (use 'program' or 'host')")
+        self.last_world = None
+        if set_pose is None and driver == "program":
+            prog = self.program(packed.shape, w)
+            prog.load_state(state)
+            prog.preprocess_and_track(packed)
+            pose = Pose(prog.out[:9].reshape(3, 3).clone(), prog.out[9:12].clone())
+            self.last_pyramid = prog.prev
+            self.last_delta = prog.delta
+            self.rgb_weight, self.n_unstable = prog.rgb_weight, prog.n_unstable
+            self.last_processed = prog.cur._replace(pyramid=prog.prev)
+            self.last_world = prog.world
+            self.append_pose(pose)
+            return pose
         processed = preprocess_packed(self.tcfg, self.calib, packed, w)
         if set_pose is not None:
             pose = Pose(torch.tensor(set_pose.q.rotation_matrix, dtype=torch.float32,
@@ -817,5 +896,9 @@ class SDFTracker:
 
     def last_pc_world(self, pose: Pose
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """World-space (points, normals, mask) of the last processed frame."""
+        """World-space (points, normals, mask) of the last processed frame
+        under ``pose``, its tracked pose: the program's own cloud where the
+        program tracked it."""
+        if self.last_world is not None:
+            return self.last_world
         return world_points(self.last_processed, pose)

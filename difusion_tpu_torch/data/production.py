@@ -1,8 +1,8 @@
 """RGB-D sequences (counterpart of difusion_tpu/data/production.py): the
 ``RGBDSequence`` iterator protocol yielding host-side numpy ``FrameData``,
 the ICL-NUIM and ScanNet loaders, the analytic ``SyntheticSequence``
-renderer (its ``"drift"`` trajectory) that drives the tests and the on-card
-smoke run without a dataset, the mesh's error against that analytic surface
+renderer (trajectories ``drift``, ``loop`` and ``out_back``) that drives the
+tests, the accuracy runs and the on-card smoke run without a dataset, the mesh's error against that analytic surface
 (:func:`mesh_error_stats`), and :func:`open_sequence`.
 """
 from __future__ import annotations
@@ -218,29 +218,66 @@ def mesh_error_stats(tris: np.ndarray, corrugation: float = 0.1) -> dict:
 
 class SyntheticSequence(RGBDSequence):
     """Analytic corrugated surface ``z = 2 + a (sin 5x + 0.7 cos 4y)`` with a
-    world-x/y texture, seen along the JAX package's smooth ``"drift"``
-    trajectory (a wander over fresh surface): deterministic, noise-free
-    RGB-D with exact GT poses."""
+    world-x/y texture: deterministic, noise-free RGB-D with exact GT poses.
+
+    ``trajectory`` selects the camera path:
+
+    * ``"drift"`` (default): a smooth wander over fresh surface;
+    * ``"loop"``: a closed circuit of radius ``motion_scale`` m, one lap
+      over the sequence; its last ~20% re-enters territory mapped at the
+      start, so tracking runs against an old map;
+    * ``"out_back"``: straight out along +x for half the frames, then back;
+      the second half tracks against the first half's map.
+
+    ``seed`` is accepted as the JAX package accepts it; nothing is random."""
 
     def __init__(self, n_frames: int = 100, h: int = 480, w: int = 640,
                  calib: Optional[Intrinsic] = None, corrugation: float = 0.1,
-                 motion_scale: float = 1.0):
+                 motion_scale: float = 1.0, seed: int = 0,
+                 trajectory: str = "drift"):
         super().__init__()
         self.n_frames = n_frames
         self.h, self.w = h, w
         self.calib = calib or Intrinsic(481.2, 480.0, (w - 1) / 2.0,
                                         (h - 1) / 2.0, 5000.0)
         self.corrugation = corrugation
-        poses, pose = [], Isometry()
-        for k in range(n_frames):
-            poses.append(pose)
-            twist = motion_scale * np.array([
-                0.012 * np.sin(k / 9.0), 0.010 * np.cos(k / 7.0), 0.008,
-                0.004 * np.sin(k / 5.0), 0.004 * np.cos(k / 6.0), 0.003,
-            ]) * np.array([1, 1, np.sin(k / 15.0), 1, 1, 1])
-            pose = pose.dot(Isometry.from_twist(twist))
-        self.gt_trajectory = poses
-        self.first_iso = poses[0]
+        self.gt_trajectory = self._make_trajectory(trajectory, n_frames, motion_scale)
+        self.first_iso = self.gt_trajectory[0]
+
+    @staticmethod
+    def _make_trajectory(kind: str, n_frames: int, motion_scale: float) -> List[Isometry]:
+        poses = []
+        if kind == "drift":
+            pose = Isometry()
+            for k in range(n_frames):
+                poses.append(pose)
+                twist = motion_scale * np.array([
+                    0.012 * np.sin(k / 9.0), 0.010 * np.cos(k / 7.0), 0.008,
+                    0.004 * np.sin(k / 5.0), 0.004 * np.cos(k / 6.0), 0.003,
+                ]) * np.array([1, 1, np.sin(k / 15.0), 1, 1, 1])
+                pose = pose.dot(Isometry.from_twist(twist))
+        elif kind == "loop":
+            R = motion_scale
+            for k in range(n_frames):
+                th = 2.0 * np.pi * k / n_frames
+                t = np.array([R * np.sin(th), R * (1.0 - np.cos(th)),
+                              0.05 * np.sin(3.0 * th)])
+                # a gentle yaw/pitch sway exercises the rotation too
+                q = (Quaternion(axis=[0, 0, 1], radians=0.15 * np.sin(2 * th))
+                     * Quaternion(axis=[1, 0, 0], radians=0.08 * np.sin(th)))
+                poses.append(Isometry(q=q, t=t))
+        elif kind == "out_back":
+            half = max(n_frames // 2, 1)
+            step = 2.0 * motion_scale / half
+            for k in range(n_frames):
+                x = step * (k if k < half else (2 * half - k - 1))
+                t = np.array([x, 0.1 * np.sin(0.5 * x), 0.0])
+                q = Quaternion(axis=[0, 1, 0],
+                               radians=0.06 * np.sin(2.0 * np.pi * k / half))
+                poses.append(Isometry(q=q, t=t))
+        else:
+            raise ValueError(f"unknown trajectory {kind!r}")
+        return poses
 
     def __len__(self):
         return self.n_frames
@@ -271,15 +308,18 @@ class SyntheticSequence(RGBDSequence):
                         3, -1)
         return rgb, depth, ok
 
+    def frame(self, k: int) -> FrameData:
+        """Frame ``k``, rendered (u16 depth)."""
+        pose = self.gt_trajectory[k]
+        rgb, depth, ok = self.render(pose)
+        depth = np.clip(depth * self.calib.dcam_scale, 0, 65535).astype(np.uint16)
+        return FrameData(rgb, depth, ok, self.calib, pose, k)
+
     def __next__(self) -> FrameData:
         if self.frame_id >= len(self):
             raise StopIteration
-        pose = self.gt_trajectory[self.frame_id]
-        rgb, depth, ok = self.render(pose)
-        depth = np.clip(depth * self.calib.dcam_scale, 0, 65535).astype(np.uint16)
-        fd = FrameData(rgb, depth, ok, self.calib, pose, self.frame_id)
         self.frame_id += 1
-        return fd
+        return self.frame(self.frame_id - 1)
 
 
 _SEQUENCE_TYPES = {

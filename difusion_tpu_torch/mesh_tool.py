@@ -1,6 +1,7 @@
-"""Offline mesh extraction from a saved dense-map snapshot (counterpart of
-difusion_tpu/mesh_tool.py): load the map, extract every observed block at a
-higher resolution and triangle budget than the interactive run.
+"""Offline mesh extraction from a saved map snapshot, dense or hash-indexed
+(counterpart of difusion_tpu/mesh_tool.py): load the map, extract every
+observed block at a higher resolution and triangle budget than the
+interactive run.
 
 Usage:
     python -m difusion_tpu_torch.mesh_tool map.npz out.ply \\
@@ -8,20 +9,21 @@ Usage:
         --resolution 8 [--max-std 0.15] [--max-triangles 10000000] \\
         [--no-interpolate] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given.  Hash-map snapshots,
-``--fast`` and ``--shard`` raise ``NotImplementedError``.
+Runs on the card unless ``--device cpu`` is given.  ``--fast`` and
+``--shard`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 
+from .core import hash_map as HM
 from .core import map as M
-from .core.meshing import MeshExtractor
+from .core.meshing import HashMeshExtractor, MeshExtractor
 from .models.weights import load_prior
 
 
-def main(argv=None) -> MeshExtractor:
+def main(argv=None):
     parser = argparse.ArgumentParser(description="difusion-tpu offline mesher (PyTorch)")
     parser.add_argument("map", help="map .npz written by SLAMSystem.save_map")
     parser.add_argument("output", help="output mesh (.ply or .obj)")
@@ -47,9 +49,10 @@ def main(argv=None) -> MeshExtractor:
     logging.basicConfig(level=logging.INFO)
     dec, _, _ = load_prior(args.hyper, args.epoch, device=args.device)
     cfg, state = M.load_map(args.map, device=args.device)
-    mesher = MeshExtractor(cfg, dec, voxel_resolution=args.resolution,
-                           max_triangles=args.max_triangles,
-                           interpolate=not args.no_interpolate)
+    mesher_cls = HashMeshExtractor if isinstance(cfg, HM.HashMapConfig) else MeshExtractor
+    mesher = mesher_cls(cfg, dec, voxel_resolution=args.resolution,
+                        max_triangles=args.max_triangles,
+                        interpolate=not args.no_interpolate)
     mesher.extract(state, max_std=args.max_std, no_cache=True)
     tris, _ = mesher.triangles()
     logging.info("extracted %d triangles at resolution %d", len(tris), args.resolution)

@@ -1,22 +1,23 @@
-"""Online SLAM on the dense map: track + fuse + mesh, and the offline runner
+"""Online SLAM: track + fuse + mesh, and the offline runner
 ``python -m difusion_tpu_torch.slam <fusion yaml>`` (counterpart of
-difusion_tpu/slam.py, without latent optimization, the hash map, the
-interactive step-through and the profiler trace).
+difusion_tpu/slam.py, without latent optimization, the interactive
+step-through and the profiler trace).
 
-Per frame: ``SDFTracker.track_camera_packed`` (the first frame takes its
-given pose); every ``integrate_interval`` frames ``integrate_keyframe``
-with the tracked pose applied to the frame's point cloud; and every
-``meshing_interval`` frames (by default the integrate interval) a
-synchronous incremental mesh extract.
+The map is the dense one (``core/map.py``) when the mapping config gives
+bounds, else (or with ``indexer: hash``) the hash-indexed one
+(``core/hash_map.py``).  Per frame: ``SDFTracker.track_camera_packed`` (the
+first frame takes its given pose); every ``integrate_interval`` frames
+``integrate_keyframe`` with the tracked pose applied to the frame's point
+cloud; and every ``meshing_interval`` frames (by default the integrate
+interval) a synchronous incremental mesh extract.
 
-Two paths run that program.  :meth:`SLAMSystem.process_frame` drives the GN
-loop from the host.  :func:`track_fuse_scan` /
-:meth:`SLAMSystem.process_chunk` run K frames from one stacked upload, each
-tracked frame one launch of the tracker's
-:class:`~.core.tracker.TrackProgram` (on the card a CUDA graph whose GN
-loops end on the device), with fusion between launches on the frames the
-schedule names; the host reads nothing back until the chunk's poses are
-asked for.  Both compute the same values.
+Two paths run that program.  :meth:`SLAMSystem.process_frame` tracks one
+frame at a time, :func:`track_fuse_scan` / :meth:`SLAMSystem.process_chunk`
+K frames from one stacked upload, with fusion between frames on those the
+schedule names.  On the card both track each frame as one launch of the
+tracker's :class:`~.core.tracker.TrackProgram` (a CUDA graph whose GN loops
+end on the device), so the host reads no exit flag; on the CPU the
+per-frame path runs the host loop.  Both compute the same values.
 """
 from __future__ import annotations
 
@@ -32,9 +33,10 @@ import numpy as np
 import torch
 
 from .config import apply_override, dict_to_args, load_yaml_args
+from .core import hash_map as HM
 from .core import map as M
 from .core import tracker as tracker_mod
-from .core.meshing import MeshExtractor
+from .core.meshing import HashMeshExtractor, MeshExtractor
 from .core.tracker import ProcessedFrame, SDFTracker, TrackerConfig
 from .data.production import FrameData, RGBDSequence, open_sequence
 from .device import resolve_device
@@ -54,7 +56,7 @@ class ScanCarry(NamedTuple):
     """What :func:`track_fuse_scan` leaves behind (the JAX scan's carry).
     All but ``state`` and ``integrated`` are the tracker program's own
     tensors: the next chunk rewrites them."""
-    state: M.MapState
+    state: Any                       # M.MapState or HM.HashMapState
     last: Pose
     pyramid: Pyramid
     rgb_weight: torch.Tensor
@@ -86,6 +88,7 @@ def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
             "latent optimisation with with_merge)")
     K = int(packed_chunk.shape[0])
     dev = packed_chunk.device
+    integrate = HM.map_module(tracker.map_cfg).integrate_keyframe
     prog = tracker.program(packed_chunk.shape[1:], w)
     prog.load_state(state)
     outs = torch.empty(K, 13, device=dev)
@@ -96,7 +99,7 @@ def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
         prog.preprocess_and_track(packed_chunk[k])
         outs[k].copy_(prog.out)
         if do_integrate[k]:
-            state = M.integrate_keyframe(tracker.map_cfg, encoder, state, *prog.world)
+            state = integrate(tracker.map_cfg, encoder, state, *prog.world)
             prog.load_state(state)
             integrated = tuple(t.clone() for t in prog.world)
     carry = ScanCarry(state, prog.last, prog.prev, prog.rgb_weight, prog.n_unstable,
@@ -108,7 +111,7 @@ class SLAMSystem:
     """Track + fuse + mesh over an RGB-D stream on ``device`` (``"cuda"``
     unless the caller asks for ``"cpu"``)."""
 
-    def __init__(self, map_cfg: M.MapConfig, tcfg: TrackerConfig,
+    def __init__(self, map_cfg, tcfg: TrackerConfig,
                  decoder: Decoder, encoder: Encoder, calib: Intrinsic,
                  integrate_interval: int = 20,
                  depth_cut: tuple = (0.5, 5.0),
@@ -136,17 +139,20 @@ class SLAMSystem:
                 "order': latent optimisation with with_merge)")
         self.device = resolve_device(device)
         self.map_cfg = map_cfg
+        self._map_mod = HM.map_module(map_cfg)
+        self.is_hash = self._map_mod is HM
         self.decoder = decoder.to(self.device)
         self.encoder = encoder.to(self.device)
-        self.state = M.create_map_state(map_cfg, self.device)
+        self.state = self._map_mod.create_state(map_cfg, self.device)
         tcfg = tcfg._replace(depth_cut_min=float(depth_cut[0]),
                              depth_cut_max=float(depth_cut[1]))
         self.tracker = SDFTracker(map_cfg, tcfg, self.decoder, calib,
                                   self.device)
         self.integrate_interval = integrate_interval
-        self.mesher = MeshExtractor(map_cfg, self.decoder,
-                                    voxel_resolution=mesh_resolution,
-                                    max_triangles=max_triangles) if meshing else None
+        mesher_cls = HashMeshExtractor if self.is_hash else MeshExtractor
+        self.mesher = mesher_cls(map_cfg, self.decoder,
+                                 voxel_resolution=mesh_resolution,
+                                 max_triangles=max_triangles) if meshing else None
         self.meshing_interval = (meshing_interval if meshing_interval > 0
                                  else integrate_interval)
         self.mesh_max_std = mesh_max_std
@@ -164,17 +170,20 @@ class SLAMSystem:
                     capacity: int = 1 << 16, point_budget: int = 1 << 14,
                     meshing: bool = True, device="cuda") -> "SLAMSystem":
         """Build from a reference-style fusion config namespace
-        (configs/fusion-synthetic.yaml, configs/fusion-lr-kt.yaml)."""
+        (configs/fusion-synthetic.yaml, configs/fusion-lr-kt.yaml,
+        configs/fusion-scannet.yaml).  The hash-indexed map when the mapping
+        config has no bounds or asks for ``indexer: hash``, with a table of
+        4 x ``capacity`` entries as the JAX package builds it."""
         mapping = dict_to_args(args.mapping) if isinstance(args.mapping, dict) else args.mapping
         tracking = dict_to_args(args.tracking) if isinstance(args.tracking, dict) else args.tracking
-        if getattr(mapping, "indexer", None) == "hash" or not hasattr(mapping, "bound_min"):
-            raise NotImplementedError(
-                "a mapping config with `indexer: hash` or without bounds needs the "
-                "hash-indexed map, which is not ported yet (ROADMAP.md, 'Next, in "
-                "order': core/hash_map.py)")
         dec, enc, spec = load_prior(args.training_hypers, args.using_epoch, device=device)
-        map_cfg = M.MapConfig.from_args(mapping, latent_dim=spec.latent_size,
-                                        capacity=capacity)
+        if getattr(mapping, "indexer", None) == "hash" or not hasattr(mapping, "bound_min"):
+            map_cfg = HM.HashMapConfig.from_args(mapping, latent_dim=spec.latent_size,
+                                                 capacity=capacity,
+                                                 table_size=4 * capacity)
+        else:
+            map_cfg = M.MapConfig.from_args(mapping, latent_dim=spec.latent_size,
+                                            capacity=capacity)
         tcfg = TrackerConfig.from_args(tracking, point_budget=point_budget)
         system = cls(map_cfg, tcfg, dec, enc, calib,
                      integrate_interval=int(getattr(args, "integrate_interval", 20)),
@@ -204,10 +213,13 @@ class SLAMSystem:
         self._stage_done("mesh", t0)
 
     def process_frame(self, frame: FrameData,
-                      packed: Optional[torch.Tensor] = None) -> Pose:
+                      packed: Optional[torch.Tensor] = None,
+                      driver: Optional[str] = None) -> Pose:
         """Track (and on schedule fuse and mesh) one frame.
         Returns the device pose.  ``packed``: optionally the frame's
-        :func:`~.core.tracker.pack_frame` buffer already on the device."""
+        :func:`~.core.tracker.pack_frame` buffer already on the device.
+        ``driver``: :meth:`~.core.tracker.SDFTracker.track_camera_packed`'s
+        (by default the program on the card, the host loop on the CPU)."""
         t0 = time.perf_counter()
         set_pose = None
         if self.use_gt_poses:
@@ -223,13 +235,13 @@ class SLAMSystem:
                 frame.rgb, frame.depth, tr.calib.dcam_scale,
                 lossless=tr.tcfg.lossless_packing)).to(self.device)
         pose = tr.track_camera_packed(self.state, packed, frame.depth.shape[1],
-                                      set_pose)
+                                      set_pose, driver=driver)
         self._stage_done("track", t0)
         if (tr.n_tracked - 1) % self.integrate_interval == 0:
             t0 = time.perf_counter()
             w_pts, w_nrm, w_mask = tr.last_pc_world(pose)
-            self.state = M.integrate_keyframe(self.map_cfg, self.encoder,
-                                              self.state, w_pts, w_nrm, w_mask)
+            self.state = self._map_mod.integrate_keyframe(
+                self.map_cfg, self.encoder, self.state, w_pts, w_nrm, w_mask)
             self._stage_done("integrate", t0)
         if self.mesher is not None and (tr.n_tracked - 1) % self.meshing_interval == 0:
             self._mesh()
@@ -262,6 +274,7 @@ class SLAMSystem:
         # a later per-frame integrate fuses tracker.last_pc_world, which must
         # see this chunk's final frame
         tr.last_processed = carry.processed
+        tr.last_world = None
         tr.append_pose_chunk(Rs, ts)
         if self.mesher is not None and any(
                 (start + k) % self.meshing_interval == 0 for k in range(K)):
@@ -372,7 +385,7 @@ class SLAMSystem:
 
     def save_map(self, path) -> None:
         """Write the map in the JAX package's npz format."""
-        M.save_map(path, self.map_cfg, self.state)
+        self._map_mod.save_map(path, self.map_cfg, self.state)
 
 
 def main(argv=None):

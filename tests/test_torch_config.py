@@ -94,13 +94,31 @@ def test_from_config_matches_jax():
 
 
 def test_from_config_rejects_the_hash_map():
-    """configs/fusion-scannet.yaml asks for ``indexer: hash``: the error
-    names the module that is missing."""
-    args = C.load_yaml_args(str(ROOT / "configs/fusion-scannet.yaml"))
-    C.apply_override(args, f"training_hypers={ROOT / PRIOR}")
-    with pytest.raises(NotImplementedError, match="core/hash_map.py"):
-        SLAMSystem.from_config(args, None, None, device="cpu")
+    """``from_config`` on configs/fusion-scannet.yaml (``indexer: hash``)
+    builds a hash-map system, as the JAX package's does: the same map
+    configuration (a table of 4 x capacity), tracker, intervals and depth
+    cut, and a ``HashMeshExtractor``; so does a config without bounds."""
+    from difusion_tpu_torch.core import hash_map as HM
+    from difusion_tpu_torch.core.meshing import HashMeshExtractor
+    from difusion_tpu.ops.imgproc import Intrinsic as JIntrinsic
+    from difusion_tpu_torch.data.synthetic_scannet import CALIB
+    built = []
+    for mod, system, calib, kw in ((C, SLAMSystem, CALIB, dict(device="cpu")),
+                                   (JC, JSLAMSystem, JIntrinsic(*CALIB), {})):
+        args = mod.load_yaml_args(str(ROOT / "configs/fusion-scannet.yaml"))
+        mod.apply_override(args, f"training_hypers={ROOT / PRIOR}")
+        built.append(system.from_config(args, calib, None, capacity=1 << 12, **kw))
+    t, j = built
+    assert t.is_hash and j.is_hash
+    assert t.map_cfg._asdict() == j.map_cfg._asdict()
+    assert t.map_cfg.table_size == 4 * t.map_cfg.capacity
+    assert isinstance(t.state, HM.HashMapState) and isinstance(t.mesher, HashMeshExtractor)
+    assert t.tracker.tcfg.depth_cut_min == 0.3 and t.tracker.tcfg.depth_cut_max == 6.0
+    for field, value in t.tracker.tcfg._asdict().items():
+        if field not in ("warp_tiled", "sdf_fused"):
+            assert value == getattr(j.tracker.tcfg, field), field
     args = C.load_yaml_args(str(ROOT / "configs/fusion-synthetic.yaml"))
+    C.apply_override(args, f"training_hypers={ROOT / PRIOR}")
     del args.mapping["bound_min"]
-    with pytest.raises(NotImplementedError, match="core/hash_map.py"):
-        SLAMSystem.from_config(args, None, None, device="cpu")
+    assert SLAMSystem.from_config(args, CALIB, None, capacity=1 << 12, meshing=False,
+                                  device="cpu").is_hash

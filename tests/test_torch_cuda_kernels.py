@@ -239,12 +239,13 @@ def tracked(dev):
 
 def test_graph_replay_of_gn_step_equals_eager(tracked):
     """The chunked path (graph replays, the loops on the card) gives the
-    per-frame path's poses and map bit for bit, reads no exit flag, and
-    launches kernels 1 and 2 from inside the captured graphs."""
+    per-frame path's host-loop driver's poses and map bit for bit, reads no
+    exit flag, and launches kernels 1 and 2 from inside the captured
+    graphs."""
     make, frames, packed = tracked
     eager, graphed = make(), make()
     for frame in frames[1:]:
-        eager.process_frame(frame)
+        eager.process_frame(frame, driver="host")
     _build.reset_launch_counts()
     graphed.process_chunk(packed, 160)
     counts = _build.launch_counts()

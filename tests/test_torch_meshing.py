@@ -1,7 +1,8 @@
 """Parity of the port's mesher (kernel 3's plain version, the dense
-MeshExtractor with its cache splice, map save/load, the exporters and the
-offline mesh tool) against the JAX package on the CPU, with the in-repo
-prior.  Map state crosses between the packages through the npz snapshot."""
+MeshExtractor with its cache splice, the HashMeshExtractor over a hash map,
+map save/load, the exporters and the offline mesh tool) against the JAX
+package on the CPU, with the in-repo prior.  Map state crosses between the
+packages through the npz snapshot."""
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 
 from difusion_tpu.core import hash_map as JHM
 from difusion_tpu.core import map as JM
+from difusion_tpu.core.meshing import HashMeshExtractor as JHashMeshExtractor
 from difusion_tpu.core.meshing import MeshExtractor as JMeshExtractor
 from difusion_tpu.models.decoder import DecoderSpec as JDecoderSpec
 from difusion_tpu.models.decoder import decode as jax_decode
@@ -23,7 +25,8 @@ from difusion_tpu.ops import decoder_fused as jax_fused
 from difusion_tpu.slam import load_prior as jax_load_prior
 from difusion_tpu_torch import mesh_tool
 from difusion_tpu_torch.core import map as M
-from difusion_tpu_torch.core.meshing import MeshExtractor
+from difusion_tpu_torch.core import hash_map as HM
+from difusion_tpu_torch.core.meshing import HashMeshExtractor, MeshExtractor
 from difusion_tpu_torch.models.decoder import Decoder, DecoderSpec
 from difusion_tpu_torch.models.weights import from_jax_params, load_prior
 from difusion_tpu_torch.ops import _build
@@ -242,16 +245,69 @@ def test_unsupported_decoder_meshes_through_decode(prior, tmp_path):
     np.testing.assert_allclose(tsd, jsd, atol=1e-5)
 
 
-def test_unported_mesher_options_raise(prior, tmp_path):
-    """Hash-map snapshots, --fast and --shard name what is missing."""
-    hcfg = JHM.HashMapConfig(voxel_size=0.1, latent_dim=29, capacity=256,
-                             table_size=1024)
-    JHM.save_map(str(tmp_path / "hash.npz"), hcfg, JHM.create_hash_map_state(hcfg))
+HCFG = dict(voxel_size=0.1, latent_dim=29, capacity=1 << 12, table_size=1 << 14,
+            prune_min_vox_obs=4, ignore_count_th=1.0, encoder_count_th=600.0)
+
+
+@pytest.fixture(scope="module")
+def hash_meshes(prior, tmp_path_factory):
+    """Both hash meshers (r = 3) on the same fused hash state, then again
+    after a second, overlapping fusion (incremental, through the cache)."""
+    dec, enc, spec, t_dec = prior
+    tmp = tmp_path_factory.mktemp("hash_mesh")
+    jcfg = JHM.HashMapConfig(**HCFG)
+    jm = JHashMeshExtractor(jcfg, dec, spec, voxel_resolution=3, max_triangles=1 << 16)
+    tm = HashMeshExtractor(HM.HashMapConfig(**HCFG), t_dec, voxel_resolution=3,
+                           max_triangles=1 << 16)
+    js, steps = JHM.create_hash_map_state(jcfg), []
+    for k, x0 in enumerate((0.0, 0.35)):
+        js = JHM.integrate_keyframe(jcfg, enc, js, *_surface(k, x0))
+        JHM.save_map(str(tmp / f"map{k}.npz"), jcfg, js)
+        _, ts = M.load_map(tmp / f"map{k}.npz", device="cpu")
+        js = jm.extract(js, max_std=MAX_STD)
+        ts = tm.extract(ts, max_std=MAX_STD)
+        assert not bool(ts.mesh_dirty.any())
+        steps.append(dict(jax=jm.triangles(), port=tm.triangles(),
+                          jax_bytes=jm.last_transfer_bytes,
+                          port_bytes=tm.last_transfer_bytes))
+    return steps, tmp
+
+
+@pytest.mark.parametrize("step", [0, 1], ids=["first", "incremental"])
+def test_hash_mesh_extract_matches_jax(hash_meshes, step):
+    """HashMeshExtractor against the JAX package's on a fused hash state:
+    triangle count exact, triangles and stds atol 1e-5 in the JAX package's
+    order (the sub-grid, its origin and the cache splice are the same), the
+    same transfer bytes (the 12-byte origin among them); the mesh lies on
+    the surface (z = 2 + 0.1 (sin 5x + 0.7 cos 4y), within a voxel)."""
+    s = hash_meshes[0][step]
+    (jt, jsd), (tt, tsd) = s["jax"], s["port"]
+    assert len(tt) == len(jt) > 500
+    np.testing.assert_allclose(tt, jt, atol=1e-5)
+    np.testing.assert_allclose(tsd, jsd, atol=1e-5)
+    assert s["port_bytes"] == s["jax_bytes"]
+    v = tt.reshape(-1, 3).astype(np.float64)
+    z = 2.0 + 0.1 * (np.sin(5 * v[:, 0]) + 0.7 * np.cos(4 * v[:, 1]))
+    assert np.percentile(np.abs(v[:, 2] - z), 95) < 0.05
+
+
+def test_unported_mesher_options_raise(prior, hash_meshes, tmp_path):
+    """``mesh_tool`` meshes a hash snapshot (the JAX package's, through
+    ``HashMeshExtractor``) as the JAX tool does; --fast and --shard still
+    name what is missing."""
+    dec, _, spec, _ = prior
+    snap = hash_meshes[1] / "map1.npz"
+    base = [str(tmp_path / "out.ply"), "--hyper", str(HYPER), "--device", "cpu"]
+    tool = mesh_tool.main([str(snap), *base, "--resolution", "3", "--max-std", str(MAX_STD)])
+    assert isinstance(tool, HashMeshExtractor)
+    jcfg, js = JHM.load_map(str(snap))
+    ref = JHashMeshExtractor(jcfg, dec, spec, voxel_resolution=3, max_triangles=int(1e7))
+    ref.extract(js, max_std=MAX_STD, no_cache=True)
+    assert len(tool.triangles()[0]) == len(ref.triangles()[0]) > 500
+    np.testing.assert_allclose(tool.triangles()[0], ref.triangles()[0], atol=1e-5)
+    assert (tmp_path / "out.ply").stat().st_size > 0
     jcfg = JM.MapConfig(**CFG)
     JM.save_map(str(tmp_path / "dense.npz"), jcfg, JM.create_map_state(jcfg))
-    base = [str(tmp_path / "out.ply"), "--hyper", str(HYPER), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="hash"):
-        mesh_tool.main([str(tmp_path / "hash.npz"), *base])
     with pytest.raises(NotImplementedError, match="_eval_and_negate_fast"):
         mesh_tool.main([str(tmp_path / "dense.npz"), *base, "--fast"])
     with pytest.raises(NotImplementedError, match="shard"):

@@ -1,8 +1,9 @@
 """The port's chunked path (``track_fuse_scan`` / ``process_chunk`` /
-``run_sequence``) on the CPU: against its own per-frame path, which it must
-reproduce exactly, and against the JAX package at 120x160 with the in-repo
-prior.  On the CPU the tracker's program runs the same stage functions
-eagerly that the card replays as one CUDA graph."""
+``run_sequence``) and its per-frame path's two drivers on the CPU: against
+each other, which they must reproduce exactly, and against the JAX package
+at 120x160 with the in-repo prior, on the dense and the hash map and under
+each ``solve_dtype``.  On the CPU the tracker's program runs the same stage
+functions eagerly that the card replays as one CUDA graph."""
 from pathlib import Path
 
 import numpy as np
@@ -11,14 +12,17 @@ import torch
 
 import conftest  # noqa: F401  (JAX on the CPU)
 
+import jax
 import jax.numpy as jnp
 
+from difusion_tpu.core import hash_map as JHM
 from difusion_tpu.core import map as JM
 from difusion_tpu.core import tracker as JT
 from difusion_tpu.data import SyntheticSequence as JSequence
 from difusion_tpu.ops.imgproc import Intrinsic as JIntrinsic
 from difusion_tpu.slam import SLAMSystem as JSLAMSystem
 from difusion_tpu.slam import load_prior as jax_load_prior
+from difusion_tpu_torch.core import hash_map as HM
 from difusion_tpu_torch.core import map as M
 from difusion_tpu_torch.core import tracker as T
 from difusion_tpu_torch.data.production import SyntheticSequence
@@ -33,6 +37,8 @@ N = 6                      # frame 0 + a chunk of 5
 MAP = dict(bound_min=(-2.0, -2.0, -0.5), n_xyz=(40, 40, 40), voxel_size=0.1,
            latent_dim=29, capacity=1 << 14, prune_min_vox_obs=4,
            ignore_count_th=1.0, encoder_count_th=600.0)
+HASH = dict(voxel_size=0.1, latent_dim=29, capacity=1 << 14, table_size=1 << 16,
+            prune_min_vox_obs=4, ignore_count_th=1.0, encoder_count_th=600.0)
 ITERS = ((3, (("rgb", 2),)), (3, (("sdf",), ("rgb", 1))),
          (6, (("sdf",), ("rgb", 0))))
 
@@ -51,12 +57,12 @@ def port():
     """Frames, and a factory of port systems on the CPU (fusion every 2)."""
     dec, enc, _ = load_prior(HYPER, 300, device="cpu")
 
-    def make(**tracker_kw):
-        return SLAMSystem(M.MapConfig(**MAP),
+    def make(hash_map=False, meshing=False, **tracker_kw):
+        return SLAMSystem(HM.HashMapConfig(**HASH) if hash_map else M.MapConfig(**MAP),
                           T.TrackerConfig(point_budget=4096, iter_config=ITERS,
                                           **tracker_kw),
                           dec, enc, Intrinsic(*CALIB), integrate_interval=2,
-                          meshing=False, device="cpu")
+                          meshing=meshing, device="cpu")
     return list(_sequence()), make
 
 
@@ -84,9 +90,9 @@ def jax_prior():
     return jax_load_prior(str(HYPER), 300)
 
 
-def _jax_system(jax_prior, **tracker_kw):
+def _jax_system(jax_prior, hash_map=False, **tracker_kw):
     dec, enc, spec = jax_prior
-    return JSLAMSystem(JM.MapConfig(**MAP),
+    return JSLAMSystem(JHM.HashMapConfig(**HASH) if hash_map else JM.MapConfig(**MAP),
                        JT.TrackerConfig(point_budget=4096, warp_tiled=False,
                                         iter_config=ITERS, **tracker_kw),
                        dec, enc, spec, JIntrinsic(*CALIB), integrate_interval=2,
@@ -294,6 +300,119 @@ def test_gt_pose_mapping_only_matches_jax(port, jax_prior):
     result = other.run_sequence(_sequence(n=4), chunk=3)
     assert result["ate_rmse"] < 1e-6 and result["n_frames"] == 4
     assert torch.equal(other.state.latents, system.state.latents)
+
+
+@pytest.mark.parametrize("mode", ["f32", "compensated", "blocked"])
+def test_program_driver_matches_host_loop(port, mode):
+    """``process_frame`` over 5 tracked frames (fusions on 0, 2, 4) with
+    ``driver="program"`` (the card's per-frame route: one program run a
+    frame, its own world cloud fused) against ``driver="host"`` (the host
+    loop): poses, latents and the temporal state ``torch.equal`` under each
+    ``solve_dtype``; the program reads the map again only after a fusion."""
+    frames, make = port
+    prog, host = make(solve_dtype=mode), make(solve_dtype=mode)
+    loads = []
+    for frame in frames:
+        prog.process_frame(frame, driver="program")
+        host.process_frame(frame, driver="host")
+        p = next(iter(prog.tracker.programs.values()), None)
+        loads.append(None if p is None else p._loaded[1])
+    for a, b in zip(_poses(prog), _poses(host)):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(prog.state.latents, host.state.latents)
+    assert torch.equal(prog.tracker.rgb_weight, host.tracker.rgb_weight)
+    assert torch.equal(prog.tracker.last_delta.t, host.tracker.last_delta.t)
+    # map tables loaded on frames 1 (after frame 0's fusion), 3 and 5
+    assert len({id(t) for t in loads[1:]}) == 3
+    with pytest.raises(ValueError):
+        prog.process_frame(frames[0], driver="graph")
+
+
+def test_compensated_step_ignores_point_order(port):
+    """Under ``compensated`` one GN step (both terms at L0) is ``torch.equal``
+    with and without ``perturb_points`` (the same points in another order);
+    under f32 the step moves."""
+    frames, make = port
+    energies = {}
+    for mode in ("compensated", "f32"):
+        system = make(solve_dtype=mode)
+        system.process_frame(frames[0])
+        tr = system.tracker
+        cur = T.preprocess_packed(tr.tcfg, tr.calib,
+                                  torch.from_numpy(_pack(frames[1:2])[0]), W)
+        n, terms = ITERS[2]
+        steps = []
+        for seed in (0, 7):
+            inputs = T.gn_prepare(tr.tcfg._replace(perturb_points=seed), system.state,
+                                  tr.last_pyramid, cur)
+            problem = T.GNProblem(tr.tcfg, tr.map_cfg, tr.packed, tr.cams, system.state,
+                                  tr.last_pose, cur, inputs, tr.rgb_weight)
+            steps.append(T.gn_step(problem, n, terms, T.gn_group_init(Pose.identity("cpu"))))
+        assert not torch.equal(T.gn_prepare(tr.tcfg._replace(perturb_points=7), system.state,
+                                            tr.last_pyramid, cur).sdf_pts, cur.pts_cam)
+        energies[mode] = steps
+    for a, b in zip(*energies["compensated"]):
+        assert torch.equal(a, b)
+    assert not all(torch.equal(a, b) for a, b in zip(*energies["f32"]))
+
+
+@pytest.mark.parametrize("mode,perturb", [("compensated", 0), ("compensated", 7),
+                                          ("blocked", 0)])
+def test_gram_modes_chunk_matches_jax(port, jax_prior, monkeypatch, mode, perturb):
+    """A chunk of 5 under ``compensated`` / ``blocked`` (and with
+    ``perturb_points``) against the JAX package's per-frame path at 1e-4 m,
+    1e-4 rad.  The permutation is JAX's own (``jax.random``), handed to the
+    port through ``point_permutation``."""
+    frames, make = port
+    monkeypatch.setattr(T, "point_permutation", lambda seed, n, device: torch.tensor(
+        np.asarray(jax.random.permutation(jax.random.key(seed), n))))
+    system = make(solve_dtype=mode, perturb_points=perturb)
+    system.process_frame(frames[0])
+    system.process_chunk(torch.from_numpy(_pack(frames[1:])), W)
+    jsys = _jax_system(jax_prior, solve_dtype=mode, perturb_points=perturb)
+    for frame in _sequence(cls=JSequence, intrinsic=JIntrinsic):
+        jsys.process_frame(frame)
+    _assert_poses_close(system.tracker.all_pd_pose, jsys.tracker.all_pd_pose)
+
+
+@pytest.fixture(scope="module")
+def hash_chunked(port):
+    """Frame 0 alone, then one chunk of 5, on the hash map with meshing."""
+    frames, make = port
+    system = make(hash_map=True, meshing=True)
+    system.process_frame(frames[0])
+    system.process_chunk(torch.from_numpy(_pack(frames[1:])), W)
+    return system
+
+
+def test_hash_chunk_matches_jax_chunk(hash_chunked, jax_prior):
+    """The chunk of 5 on the hash map against the JAX package's
+    ``process_chunk`` on its hash map: 1e-4 m, 1e-4 rad; the same number of
+    voxels, no overflow."""
+    jsys = _jax_system(jax_prior, hash_map=True)
+    frames = list(_sequence(cls=JSequence, intrinsic=JIntrinsic))
+    jsys.process_frame(frames[0])
+    jsys.process_chunk(jnp.asarray(_pack(frames[1:])), H, W)
+    _assert_poses_close(hash_chunked.tracker.all_pd_pose, jsys.tracker.all_pd_pose)
+    assert int(hash_chunked.state.n_occupied) == int(jsys.state.n_occupied) > 100
+    assert int(hash_chunked.state.overflow) == int(jsys.state.overflow) == 0
+
+
+def test_hash_chunk_matches_per_frame(port, hash_chunked):
+    """On the hash map the chunked path and the per-frame path (both
+    drivers) give ``torch.equal`` poses and latents, and the mesher meshes
+    the fused map on both."""
+    frames, make = port
+    for driver in ("host", "program"):
+        system = make(hash_map=True, meshing=True)
+        for frame in frames:
+            system.process_frame(frame, driver=driver)
+        for a, b in zip(_poses(system), _poses(hash_chunked)):
+            np.testing.assert_array_equal(a, b)
+        assert torch.equal(system.state.latents, hash_chunked.state.latents)
+        assert torch.equal(system.state.keys, hash_chunked.state.keys)
+        assert len(system.mesher.triangles()[0]) > 100
+    assert len(hash_chunked.mesher.triangles()[0]) > 100
 
 
 def test_unported_options_raise(port):
