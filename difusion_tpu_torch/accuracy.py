@@ -1,12 +1,12 @@
 """Tracking and mapping accuracy on the synthetic datasets (the port's
-counterpart of tools/accuracy_study.py's ``run_slam`` and
-``run_scannet_long``).
+counterpart of tools/accuracy_study.py's ``run_slam``, ``run_scannet_long``
+and ``run_mapping_only``).
 
     python -m difusion_tpu_torch.accuracy [--frames 120] [--loop-frames 300]
         [--scannet 300] [--variants default,compensated] [--only SUBSTR]
         [--loop-variants compensated]
         [--perturb-variants perturbed_comp-7,perturbed_comp-23]
-        [--out accuracy_out] [--workers 8] [--device cuda]
+        [--mapping-only 120] [--out accuracy_out] [--workers 8] [--device cuda]
         [--hyper di-checkpoints/study_mixed/hyper.json] [--epoch 300]
         [--reference ACCURACY_r05.json]
 
@@ -25,7 +25,12 @@ end for the mesh error against the analytic surface):
   ``--perturb-variants`` (the same run with the SDF points reordered);
 * with ``--scannet N``, ``scannet{N}-synth`` on the hash map with meshing at
   the integrate cadence and chunk 10: ATE, ``alloc_overflow``, each
-  extract's transfer bytes and ms, and the mesh error.
+  extract's transfer bytes and ms, and the mesh error;
+* with ``--mapping-only N`` (default 120; 0 skips), ``mapping_only_ab``: N
+  rendered 480x640 frames under their ground-truth poses (no tracking),
+  fusion every 10 with ``encoder_count_th`` 200, once without and once with
+  latent optimization (sync, 20 Adam iterations a fusion), then a no-cache
+  r = 4 extract at max_std 0.25: the optimizer's effect on the mesh error.
 
 Variants: ``default`` (the port's tracker defaults: the per-pixel warp),
 ``compensated``, ``blocked``, and
@@ -50,7 +55,8 @@ from .core import hash_map as HM
 from .core import map as M
 from .core.tracker import TrackerConfig
 from .data import synthetic_icl, synthetic_scannet
-from .data.production import ICLNUIMSequence, ScanNetSequence, mesh_error_stats
+from .data.production import (ICLNUIMSequence, ScanNetSequence, SyntheticSequence,
+                              mesh_error_stats)
 from .device import resolve_device
 from .models.weights import load_prior
 from .slam import SLAMSystem
@@ -146,6 +152,32 @@ def run_scannet_long(data_dir, frames: int, prior, device, chunk: int = 10) -> d
     return out
 
 
+def run_mapping_only(frames: int, latent_optimize: bool, prior, device) -> dict:
+    """One arm of the mapping-only A/B: the rendered drift sequence under its
+    ground-truth poses, fusion every 10 frames, voxels converged at 200
+    observations (so that the optimizer works within 120 frames), a final
+    full extract."""
+    dec, enc, _ = prior
+    seq = SyntheticSequence(n_frames=frames, h=480, w=640, calib=ICLNUIMSequence.CALIB,
+                            corrugation=0.1, motion_scale=0.5)
+    system = SLAMSystem(dense_map_cfg()._replace(encoder_count_th=200.0),
+                        TrackerConfig.from_args(tracking_args(), point_budget=1 << 13),
+                        dec, enc, seq.calib, integrate_interval=10, depth_cut=(0.5, 5.0),
+                        meshing=True, meshing_interval=10 ** 9, mesh_resolution=4,
+                        latent_optimize=latent_optimize, latent_optimize_mode="sync",
+                        optim_n_iters=20, device=device)
+    system.use_gt_poses = True
+    t0 = time.perf_counter()
+    result = system.run_sequence(seq, max_frames=frames)
+    out = {"latent_optimize": latent_optimize, "n_frames": result["n_frames"],
+           "n_voxels": result["n_voxels"], "opt_overflow": result["opt_overflow"],
+           "n_optimized": int(system.state.optimized.sum()),
+           "seconds": time.perf_counter() - t0}
+    system.state = system.mesher.extract(system.state, max_std=0.25, no_cache=True)
+    out.update(mesh_error_stats(system.mesher.triangles()[0]))
+    return out
+
+
 def _card() -> str:
     try:
         return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -172,6 +204,8 @@ def main(argv=None) -> dict:
     p.add_argument("--frames", type=int, default=120)
     p.add_argument("--loop-frames", type=int, default=300)
     p.add_argument("--scannet", type=int, default=0)
+    p.add_argument("--mapping-only", type=int, default=120,
+                   help="frames of the mapping-only A/B (0 skips it)")
     p.add_argument("--variants", default="default,compensated")
     p.add_argument("--loop-variants", default="compensated")
     p.add_argument("--perturb-variants", default="perturbed_comp-7,perturbed_comp-23")
@@ -229,9 +263,21 @@ def main(argv=None) -> dict:
                                                  "mesh_err_p95") if k in jr}
         rows.append(r)
         print(json.dumps(r), flush=True)
+    mapping_only = []
+    if args.mapping_only > 0 and (not args.only or args.only in "mapping_only_ab"):
+        reference = (json.loads(Path(args.reference).read_text()).get("mapping_only_ab", [])
+                     if Path(args.reference).exists() else [])
+        for opt in (False, True):
+            r = run_mapping_only(args.mapping_only, opt, prior, device)
+            jr = [x for x in reference if x.get("latent_optimize") == opt]
+            if jr:
+                r["reference"] = {k: jr[0][k] for k in ("mesh_err_mean", "mesh_err_p95",
+                                                        "n_voxels") if k in jr[0]}
+            mapping_only.append(r)
+            print(json.dumps(r), flush=True)
     payload = {"card": _card() if device.type == "cuda" else "cpu",
                "torch": torch.__version__, "hyper": args.hyper, "epoch": args.epoch,
-               "rows": rows}
+               "rows": rows, "mapping_only_ab": mapping_only}
     out.mkdir(parents=True, exist_ok=True)
     (out / "results.json").write_text(json.dumps(payload, indent=1))
     print("| sequence | config | ATE RMSE (m) | reference ATE (m) | mesh err p95 (m) | fps |")
@@ -240,6 +286,10 @@ def main(argv=None) -> dict:
         print(f"| {r['seq']} | {r['config']} | {r['ate_rmse']:.4f} | "
               f"{r.get('reference', {}).get('ate_rmse', float('nan')):.4f} | "
               f"{r['mesh_err_p95']:.4f} | {r['fps']:.1f} |")
+    for r in mapping_only:
+        print(f"| mapping_only_ab | optimize={r['latent_optimize']} | mesh err mean "
+              f"{r['mesh_err_mean']:.6f} | p95 {r['mesh_err_p95']:.6f} | voxels "
+              f"{r['n_voxels']} | optimized {r['n_optimized']} |")
     print(payload["card"])
     return payload
 

@@ -1,5 +1,6 @@
 """Hash-indexed latent voxel map for unbounded scenes (counterpart of
-difusion_tpu/core/hash_map.py:32-287 and its save/load, :339-356).
+difusion_tpu/core/hash_map.py: the state, fusion, queries, the latent
+optimizer's samples and save/load).
 
 Voxels are keyed by integer cell coordinates in an open-addressing table of
 fixed size with linear probing, so no scene bounds are needed up front.
@@ -65,9 +66,11 @@ class HashMapState(NamedTuple):
     latents: torch.Tensor     # (capacity, L) f32
     slot_cell: torch.Tensor   # (capacity, 3) int32 reverse map, EMPTY when free
     obs_count: torch.Tensor   # (capacity,) f32
+    optimized: torch.Tensor   # (capacity,) bool: latent refined by the optimizer
     mesh_dirty: torch.Tensor  # (capacity,) bool: touched since last meshing
     n_occupied: torch.Tensor  # () int32
     overflow: torch.Tensor    # () int32: inserts dropped (probes or capacity)
+    opt_overflow: torch.Tensor  # () int32: the optimizer's working-table truncations
 
 
 def create_hash_map_state(cfg: HashMapConfig, device) -> HashMapState:
@@ -78,9 +81,11 @@ def create_hash_map_state(cfg: HashMapConfig, device) -> HashMapState:
         latents=torch.zeros(cfg.capacity, cfg.latent_dim, device=device),
         slot_cell=torch.full((cfg.capacity, 3), EMPTY, **i32),
         obs_count=torch.zeros(cfg.capacity, device=device),
+        optimized=torch.zeros(cfg.capacity, dtype=torch.bool, device=device),
         mesh_dirty=torch.zeros(cfg.capacity, dtype=torch.bool, device=device),
         n_occupied=torch.zeros((), **i32),
         overflow=torch.zeros((), **i32),
+        opt_overflow=torch.zeros((), **i32),
     )
 
 
@@ -93,7 +98,8 @@ def map_module(cfg):
     """The module that implements ``cfg``'s map: this one for a
     :class:`HashMapConfig`, :mod:`.map` for a dense config.  Both define
     ``create_state``, ``integrate_keyframe``, ``gather_latent_rel``,
-    ``save_map`` and ``TRACKED_FIELDS``."""
+    ``build_optimize_samples``, ``optimize_latents``,
+    ``merge_optimize_result``, ``save_map`` and ``TRACKED_FIELDS``."""
     return sys.modules[__name__] if isinstance(cfg, HashMapConfig) else M
 
 
@@ -127,14 +133,6 @@ def lookup(cfg: HashMapConfig, keys: torch.Tensor, cells: torch.Tensor) -> torch
     return pos.reshape(cells.shape[:-1])
 
 
-def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``dst`` with rows ``idx`` set to ``src``; an index of ``len(dst)``
-    drops its row (the JAX ``.at[].set(mode="drop")``)."""
-    ext = torch.cat([dst, dst[:1]])
-    ext[idx] = src.to(dst.dtype)
-    return ext[:-1]
-
-
 def insert(cfg: HashMapConfig, state: HashMapState, cells: torch.Tensor,
            want: torch.Tensor) -> Tuple[HashMapState, torch.Tensor]:
     """Insert (or find) a batch of cells (M, 3) where ``want`` (M,).
@@ -153,7 +151,7 @@ def insert(cfg: HashMapConfig, state: HashMapState, cells: torch.Tensor,
         winner = torch.full((T,), m, dtype=torch.int64, device=dev).scatter_reduce(
             0, p, claim, "amin")
         won = pending & empty & (winner[p] == rank)
-        keys = _scatter_drop(keys, torch.where(won, p, T), cells)
+        keys = M.scatter_drop(keys, torch.where(won, p, T), cells)
         # re-read: own wins, a duplicate cell's win and old entries resolve
         match = torch.all(keys[p] == cells, dim=-1)
         table_pos = torch.where(pending & match, p, table_pos)
@@ -165,8 +163,8 @@ def insert(cfg: HashMapConfig, state: HashMapState, cells: torch.Tensor,
     slot = state.n_occupied + order - 1
     ok = is_new & (slot < cfg.capacity)
     table_slot = torch.where(ok, slot, state.table_slot)
-    slot_cell = _scatter_drop(state.slot_cell,
-                              torch.where(ok, slot, cfg.capacity).to(torch.int64), keys)
+    slot_cell = M.scatter_drop(state.slot_cell,
+                               torch.where(ok, slot, cfg.capacity).to(torch.int64), keys)
     n_new = order[-1]
     n_occupied = torch.clamp(state.n_occupied + n_new, max=cfg.capacity)
     overflow = (state.overflow + (pending & want).sum().to(torch.int32)
@@ -279,16 +277,36 @@ def query_sdf(cfg: HashMapConfig, decoder: Decoder, state: HashMapState,
     return sdf, std, valid
 
 
+def build_optimize_samples(cfg: HashMapConfig, state: HashMapState,
+                           surface_xyz: torch.Tensor, surface_normal: torch.Tensor,
+                           valid: torch.Tensor, noise: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense :func:`~.map.build_optimize_samples` on the hash map: each
+    point's 8 voxels resolve through :func:`slot_of`, and a sample counts
+    where its voxel is converged and not yet optimized."""
+    dev = surface_xyz.device
+    pn = surface_xyz * recip(cfg.voxel_size)
+    ng = torch.ceil(pn[:, None, :] + const(M._INTEGRATION_OFFSETS, dev)[None]) - 1
+    rel = pn[:, None, :] - ng - 0.5
+    slot = slot_of(cfg, state, ng.to(torch.int64))                    # (N, 8)
+    slot_safe = torch.clamp(slot, 0, cfg.capacity - 1)
+    optim = ((slot >= 0) & (state.obs_count[slot_safe] >= cfg.encoder_count_th)
+             & ~state.optimized[slot_safe])
+    return M.noisy_samples(valid[:, None] & optim, slot, rel, surface_normal, noise,
+                           cfg.capacity)
+
+
+# the Adam loop and the merge work in slot space only: the dense map's serve
+optimize_latents = M.optimize_latents
+merge_optimize_result = M.merge_optimize_result
+
+
 _FLOAT_FIELDS = ("voxel_size", "ignore_count_th", "encoder_count_th")
 
 
 def save_map(path, cfg: HashMapConfig, state: HashMapState) -> None:
     """Write the map as the JAX package's hash ``save_map`` does."""
     arrays = {f"state.{k}": getattr(state, k).cpu().numpy() for k in HashMapState._fields}
-    # the JAX package's state also carries the latent optimizer's fields,
-    # which the port does not run: written as zeros, ignored on load
-    arrays["state.optimized"] = np.zeros(cfg.capacity, bool)
-    arrays["state.opt_overflow"] = np.zeros((), np.int32)
     arrays.update({f"cfg.{k}": np.asarray(getattr(cfg, k)) for k in HashMapConfig._fields})
     np.savez_compressed(path, **arrays)
 
@@ -299,6 +317,7 @@ def load_map(path, device="cuda") -> Tuple[HashMapConfig, HashMapState]:
     with np.load(path) as data:
         cfg = HashMapConfig(**{k: (float if k in _FLOAT_FIELDS else int)(data[f"cfg.{k}"])
                                for k in HashMapConfig._fields})
-        state = HashMapState(**{k: torch.from_numpy(data[f"state.{k}"]).to(dev)
-                                for k in HashMapState._fields})
+        state = HashMapState(**{k: torch.from_numpy(a).to(dev) for k, a in
+                                M.state_arrays(data, HashMapState._fields,
+                                               cfg.capacity).items()})
     return cfg, state

@@ -1,6 +1,7 @@
 """Incremental mesh extraction (counterpart of difusion_tpu/core/meshing.py:
 ``_mesh_prep_dense``, ``_mesh_prep_hash``, ``_batch_tables``,
-``_build_subgrid``, ``_eval_and_negate``, ``_MeshExtractorBase``,
+``_build_subgrid``, ``_eval_and_negate``, ``_align_corners_matrix``,
+``_eval_and_negate_fast``, ``_MeshExtractorBase``,
 ``MeshExtractor`` and ``HashMeshExtractor``; the JAX module's
 ``_dilate6_cells`` serves its tests only, and the port's tests use it).
 
@@ -21,14 +22,17 @@ Per extract:
    gathered on the device.  The production decoder goes through kernel 3
    (``ops.decoder_fused.decode_fused``: the CUDA kernel on the card, its
    plain version on the CPU); any other decoder through ``Decoder.decode``.
+   With ``fast`` the decode is coarse-to-fine: the r^3 lattice, trilinear
+   upsampling to (2r)^3, and an exact decode of each block's ``refine_k``
+   sites nearest the surface -- two decodes a dispatch.
 3. Sparse marching cubes runs in block chunks against the full lattice
    buffers, so chunk seams are exact; each chunk costs one count read and
    one packed download.
 4. The triangles splice into a host-side cache keyed by latent slot: a
    re-meshed slot's old triangles are replaced.
 
-Left out: the coarse-to-fine fast mode (``_eval_and_negate_fast``) and
-sharded decoding.
+Sharded decoding (the JAX package's ``shard``, several devices) has no
+counterpart on one card.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from ..device import const
 from ..models.decoder import Decoder
 from ..ops import decoder_fused as _fused
 from ..ops.marching_cubes import marching_cubes_sparse, mc_triangles_np
-from ..ops.sampling import block_lattice
+from ..ops.sampling import block_lattice, get_samples
 from . import hash_map as HM
 from . import map as M
 
@@ -149,6 +153,77 @@ def _eval_and_negate(decoder: Decoder, packed: Optional[torch.Tensor],
     return (-sdf).reshape(C, side, side, side), std.reshape(C, side, side, side)
 
 
+@lru_cache(maxsize=16)
+def _coarse_lattice(r: int, device: torch.device) -> torch.Tensor:
+    """The r^3 lattice over the (2r)^3 lattice's extent."""
+    a, b = -(r // 2) * (1.0 / r), 1.0 + ((r - 1) // 2) * (1.0 / r)
+    return torch.from_numpy(get_samples(r, a=a, b=b) - np.float32(0.5)).to(device)
+
+
+def _align_corners_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """(n_out, n_in) f32 1-D linear interpolation with align_corners=True
+    endpoints; applied along each axis it is trilinear upsampling."""
+    t = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+    j0 = np.minimum(t.astype(np.int64), n_in - 2)
+    w = t - j0
+    m = np.zeros((n_out, n_in), np.float32)
+    m[np.arange(n_out), j0] = 1.0 - w
+    m[np.arange(n_out), j0 + 1] = w
+    return m
+
+
+@lru_cache(maxsize=16)
+def _upsample_matrix(r: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_align_corners_matrix(2 * r, r)).to(device)
+
+
+def _coarse_to_fine(decoder: Decoder, packed: Optional[torch.Tensor],
+                    latents: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode each block's r^3 lattice and upsample it trilinearly to
+    (2r)^3 (three contractions with the align-corners matrix): (C, (2r)^3)
+    sdf and std."""
+    C, L = latents.shape
+    K = r ** 3
+    coarse = _coarse_lattice(r, latents.device)
+    sdf_c, std_c = _decode_lattice(decoder, packed,
+                                   latents[:, None, :].expand(C, K, L).reshape(C * K, L),
+                                   coarse[None].expand(C, K, 3).reshape(C * K, 3))
+    m = _upsample_matrix(r, latents.device)
+
+    def up(vol):
+        vol = torch.einsum("xa,Bayz->Bxyz", m, vol.reshape(C, r, r, r))
+        vol = torch.einsum("yb,Bxbz->Bxyz", m, vol)
+        return torch.einsum("zc,Bxyc->Bxyz", m, vol).reshape(C, (2 * r) ** 3)
+    return up(sdf_c), up(std_c)
+
+
+def _refine_sites(sdf_f: torch.Tensor, refine_k: int) -> torch.Tensor:
+    """(C, refine_k) the sites of each row with the smallest |sdf|, in
+    ``jax.lax.top_k(-|sdf|, refine_k)``'s order: a stable sort, so among
+    equal values the lower index comes first."""
+    return torch.sort(sdf_f.abs(), dim=1, stable=True).indices[:, :refine_k]
+
+
+def _eval_and_negate_fast(decoder: Decoder, packed: Optional[torch.Tensor],
+                          table: torch.Tensor, slot_chunk: torch.Tensor, r: int,
+                          refine_k: int):
+    """:func:`_eval_and_negate` coarse-to-fine (:func:`_coarse_to_fine`),
+    then the ``refine_k`` sites of each block nearest the surface
+    (:func:`_refine_sites`) decoded exactly over the interpolation.  Decoder
+    evaluations a block: r^3 + refine_k against (2r)^3."""
+    latents = table[slot_chunk]
+    C, L = latents.shape
+    side = 2 * r
+    sdf_f, std_f = _coarse_to_fine(decoder, packed, latents, r)
+    idx = _refine_sites(sdf_f, refine_k)
+    sdf_r, std_r = _decode_lattice(
+        decoder, packed, latents[:, None, :].expand(C, refine_k, L).reshape(-1, L),
+        _lattice(r, table.device)[idx.reshape(-1)])
+    sdf_f = sdf_f.scatter(1, idx, sdf_r.reshape(C, refine_k))
+    std_f = std_f.scatter(1, idx, std_r.reshape(C, refine_k))
+    return (-sdf_f).reshape(C, side, side, side), std_f.reshape(C, side, side, side)
+
+
 def _next_bucket(n: int, minimum: int = 64) -> int:
     b = minimum
     while b < n:
@@ -189,10 +264,13 @@ class _MeshExtractorBase:
 
     ``max_eval_points`` bounds the lattice sites a decode dispatch and (over
     4) the candidate cubes a marching-cubes chunk, so a full ``no_cache``
-    extract of a large map runs in bounded memory."""
+    extract of a large map runs in bounded memory.  ``fast`` decodes
+    coarse-to-fine (:func:`_eval_and_negate_fast`) with ``refine_k =
+    max(int(refine_fraction * (2r)^3), 8)`` exact sites a block."""
 
     def __init__(self, decoder: Decoder, voxel_resolution: int = 4,
                  max_triangles: int = 1 << 20, interpolate: bool = True,
+                 fast: bool = False, refine_fraction: float = 0.2,
                  max_eval_points: int = 1 << 20):
         self.decoder = decoder
         self.packed = (_fused.pack_fused_decoder(decoder)
@@ -200,6 +278,8 @@ class _MeshExtractorBase:
         self.r = int(voxel_resolution)
         self.max_triangles = int(max_triangles)
         self.interpolate = interpolate
+        self.fast = fast
+        self.refine_k = max(int(refine_fraction * (2 * self.r) ** 3), 8)
         self.max_eval_points = int(max_eval_points)
         # host<->device traffic of the last extract, excluding the triangle
         # output itself; and its sizes (blocks, bucket, dispatches)
@@ -269,9 +349,16 @@ class _MeshExtractorBase:
         # decoder evaluation in chunks of <= max_eval_points lattice sites
         per_block = (2 * self.r) ** 3
         C = min(_next_bucket(max(self.max_eval_points // per_block, 1)), B)
-        parts = [_eval_and_negate(self.decoder, self.packed, state.latents,
-                                  slot_pad_d[s0:s0 + C], self.r)
-                 for s0 in range(0, B, C)]
+        if self.fast:
+            parts = [_eval_and_negate_fast(self.decoder, self.packed, state.latents,
+                                           slot_pad_d[s0:s0 + C], self.r, self.refine_k)
+                     for s0 in range(0, B, C)]
+            evals_per_block = self.r ** 3 + self.refine_k
+        else:
+            parts = [_eval_and_negate(self.decoder, self.packed, state.latents,
+                                      slot_pad_d[s0:s0 + C], self.r)
+                     for s0 in range(0, B, C)]
+            evals_per_block = per_block
         cube_sdf = torch.cat([p[0] for p in parts])
         cube_std = torch.cat([p[1] for p in parts])
 
@@ -280,7 +367,8 @@ class _MeshExtractorBase:
         n_sub = self.r ** 3
         C_mc = min(_next_bucket(max(self.max_eval_points // (4 * n_sub), 64)), B)
         self.last_stats.update(bucket=B, sites_per_dispatch=C * per_block,
-                               decode_dispatches=B // C, mc_chunks=B // C_mc)
+                               decode_dispatches=B // C, mc_chunks=B // C_mc,
+                               decoder_evals=B * evals_per_block)
         tri_parts, std_parts, blk_parts = [], [], []
         emitted = 0
         for s0 in range(0, B, C_mc):

@@ -15,6 +15,10 @@ recorded into a CUDA graph (``utils/cudagraph.py``) is counted by the graph's
 owner instead: the calls made while it captures go to :func:`recording`'s
 dictionary, and the owner adds them once for every time the device ran that
 part of the graph, through a function it registers with :func:`add_flusher`.
+The counts are safe to update from several threads (the mesher's worker
+launches kernel 3 while the main thread may capture a graph): a thread's
+launches go to its own recording, if it has one, else to the totals under a
+lock.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -36,8 +41,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _launches: Dict[str, int] = {}
-# while a graph is captured, count_launch writes to the innermost of these
-_recording: List[Dict[str, int]] = []
+_lock = threading.RLock()
+# per thread: while it captures a graph, count_launch writes to the
+# innermost of its recordings
+_local = threading.local()
 # bound methods (held weakly) that add the launches graph replays have made
 _flushers: List[weakref.WeakMethod] = []
 # per source: wall seconds of its nvcc run and the ptxas resource report
@@ -98,13 +105,14 @@ def build_all() -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu's library (built on first use)."""
-    lib = _libs.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
-        _libs[name] = lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                build_all()
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
     return lib
 
 
@@ -113,45 +121,61 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
+def _recordings() -> List[Dict[str, int]]:
+    if not hasattr(_local, "stack"):
+        _local.stack = []
+    return _local.stack
+
+
 def count_launch(name: str, n: int = 1) -> None:
-    target = _recording[-1] if _recording else _launches
-    target[name] = target.get(name, 0) + n
+    stack = _recordings()
+    if stack:
+        stack[-1][name] = stack[-1].get(name, 0) + n
+        return
+    with _lock:
+        _launches[name] = _launches.get(name, 0) + n
 
 
 @contextlib.contextmanager
 def recording():
-    """The launches counted inside the block, kept out of the totals: what
-    one pass of a graph under capture will launch at every replay."""
+    """The launches this thread counts inside the block, kept out of the
+    totals: what one pass of a graph under capture will launch at every
+    replay."""
     rec: Dict[str, int] = {}
-    _recording.append(rec)
+    stack = _recordings()
+    stack.append(rec)
     try:
         yield rec
     finally:
-        _recording.pop()
+        stack.pop()
 
 
 def add_flusher(method) -> None:
     """Register a bound method that, when called, counts (through
     :func:`count_launch`) the launches its object's graph replays have made
     since it was last called.  Held weakly."""
-    _flushers.append(weakref.WeakMethod(method))
+    with _lock:
+        _flushers.append(weakref.WeakMethod(method))
 
 
 def _flush() -> None:
-    alive = []
-    for ref in _flushers:
-        method = ref()
-        if method is not None:
-            method()
-            alive.append(ref)
-    _flushers[:] = alive
+    with _lock:
+        alive = []
+        for ref in _flushers:
+            method = ref()
+            if method is not None:
+                method()
+                alive.append(ref)
+        _flushers[:] = alive
 
 
 def launch_counts() -> Dict[str, int]:
-    _flush()
-    return dict(_launches)
+    with _lock:
+        _flush()
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    _flush()
-    _launches.clear()
+    with _lock:
+        _flush()
+        _launches.clear()

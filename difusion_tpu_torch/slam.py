@@ -1,7 +1,7 @@
-"""Online SLAM: track + fuse + mesh, and the offline runner
+"""Online SLAM: track + fuse + optimize + mesh, and the offline runner
 ``python -m difusion_tpu_torch.slam <fusion yaml>`` (counterpart of
-difusion_tpu/slam.py, without latent optimization, the interactive
-step-through and the profiler trace).
+difusion_tpu/slam.py, without the interactive step-through and the
+profiler trace).
 
 The map is the dense one (``core/map.py``) when the mapping config gives
 bounds, else (or with ``indexer: hash``) the hash-indexed one
@@ -9,7 +9,14 @@ bounds, else (or with ``indexer: hash``) the hash-indexed one
 first frame takes its given pose); every ``integrate_interval`` frames
 ``integrate_keyframe`` with the tracked pose applied to the frame's point
 cloud; and every ``meshing_interval`` frames (by default the integrate
-interval) a synchronous incremental mesh extract.
+interval) an incremental mesh extract, synchronous or (``run_async``) in a
+worker thread on a stream of its own over a snapshot of the state.
+
+With ``latent_optimize`` each fusion is followed by Adam over the latents of
+the converged voxels around the fused keyframe (``core/map.optimize_latents``):
+under ``latent_optimize_mode="sync"`` the result replaces the state at once;
+under ``"interleaved"`` it waits and merges (delta de-integration) at the
+start of the next fusion, on both paths at the same point of the schedule.
 
 Two paths run that program.  :meth:`SLAMSystem.process_frame` tracks one
 frame at a time, :func:`track_fuse_scan` / :meth:`SLAMSystem.process_chunk`
@@ -26,6 +33,7 @@ import logging
 import queue
 import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -66,10 +74,20 @@ class ScanCarry(NamedTuple):
     integrated: _PointCloud          # the last fused frame's world-space cloud
 
 
+def apply_merge(state, merge_args):
+    """Fold a pending optimizer result into ``state``: ``merge_args`` =
+    (old latents, new latents, old counts, touched, the result's
+    opt_overflow), the counter kept as the larger of the two (each only
+    grows)."""
+    old_lat, new_lat, old_cnt, touched, snap_overflow = merge_args
+    state = M.merge_optimize_result(state, old_lat, new_lat, old_cnt, touched)
+    return state._replace(opt_overflow=torch.maximum(state.opt_overflow, snap_overflow))
+
+
 def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
                     packed_chunk: torch.Tensor, do_integrate: Sequence[bool],
-                    w: int, merge_at=None, merge_args=None,
-                    with_merge: bool = False):
+                    w: int, merge_at: Optional[Sequence[bool]] = None,
+                    merge_args=None, with_merge: bool = False):
     """K sequential frame steps (unpack + preprocess + GN track + optional
     encoder fusion) from one stacked buffer, starting from ``tracker``'s
     temporal state (which it does not change: see
@@ -79,13 +97,15 @@ def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
     buffers on the device ((K, h, 16w) for the lossless packing).
     ``do_integrate``: K host bools -- fuse that frame's point cloud after
     tracking it.  The schedule is known on the host, so fusion needs no
-    device-side branch.  Returns ``(ScanCarry, (Rs (K, 3, 3), ts (K, 3),
-    energies (K,)))``.  Numerically identical to K ``process_frame`` calls."""
-    if with_merge or merge_at is not None or merge_args is not None:
-        raise NotImplementedError(
-            "with_merge folds a latent-optimizer result into the map; latent "
-            "optimization is not ported yet (ROADMAP.md, 'Next, in order': "
-            "latent optimisation with with_merge)")
+    device-side branch.  ``with_merge``: fold a pending optimizer result
+    (``merge_args``, see :func:`apply_merge`) into the map just before the
+    fusion of each frame that ``merge_at`` (K host bools) flags, where the
+    per-frame path merges it; the tracker's program then loads the merged
+    and fused tables for the next frame.  Returns ``(ScanCarry, (Rs (K, 3,
+    3), ts (K, 3), energies (K,)))``.  Numerically identical to K
+    ``process_frame`` calls."""
+    if with_merge and (merge_at is None or merge_args is None):
+        raise ValueError("with_merge needs merge_at and merge_args")
     K = int(packed_chunk.shape[0])
     dev = packed_chunk.device
     integrate = HM.map_module(tracker.map_cfg).integrate_keyframe
@@ -99,6 +119,8 @@ def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
         prog.preprocess_and_track(packed_chunk[k])
         outs[k].copy_(prog.out)
         if do_integrate[k]:
+            if with_merge and merge_at[k]:
+                state = apply_merge(state, merge_args)
             state = integrate(tracker.map_cfg, encoder, state, *prog.world)
             prog.load_state(state)
             integrated = tuple(t.clone() for t in prog.world)
@@ -108,8 +130,17 @@ def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
 
 
 class SLAMSystem:
-    """Track + fuse + mesh over an RGB-D stream on ``device`` (``"cuda"``
-    unless the caller asks for ``"cpu"``)."""
+    """Track + fuse (+ optimize) + mesh over an RGB-D stream on ``device``
+    (``"cuda"`` unless the caller asks for ``"cpu"``).
+
+    ``mesh_fast``: the mesher's coarse-to-fine lattice decode.
+    ``run_async``: extracts run in a worker thread (on the card, on a stream
+    of its own) over a snapshot of the state; :meth:`finish_meshing` joins
+    the one in flight and raises its error.  ``latent_optimize``,
+    ``latent_optimize_mode`` (``"interleaved"`` or ``"sync"``),
+    ``optim_n_iters`` and ``code_reg_lambda``: see the module's docstring;
+    the samples' noise comes from the system's own generator on the device,
+    seeded with 7."""
 
     def __init__(self, map_cfg, tcfg: TrackerConfig,
                  decoder: Decoder, encoder: Encoder, calib: Intrinsic,
@@ -124,19 +155,13 @@ class SLAMSystem:
                  run_async: bool = False,
                  profile: bool = False,
                  latent_optimize: bool = False,
+                 latent_optimize_mode: str = "interleaved",
+                 optim_n_iters: int = 20,
+                 code_reg_lambda: float = 0.0,
                  device="cuda"):
-        if mesh_fast:
-            raise NotImplementedError(
-                "mesh_fast=True is not ported yet: it needs the coarse-to-fine "
-                "lattice decode (ROADMAP.md, 'Next, in order': _eval_and_negate_fast)")
-        if run_async:
-            raise NotImplementedError(
-                "run_async (meshing in a worker thread) is not ported yet "
-                "(ROADMAP.md, 'Next, in order': run_async)")
-        if latent_optimize:
-            raise NotImplementedError(
-                "latent optimization is not ported yet (ROADMAP.md, 'Next, in "
-                "order': latent optimisation with with_merge)")
+        if latent_optimize_mode not in ("interleaved", "sync"):
+            raise ValueError(f"latent_optimize_mode {latent_optimize_mode!r} "
+                             "(use 'interleaved' or 'sync')")
         self.device = resolve_device(device)
         self.map_cfg = map_cfg
         self._map_mod = HM.map_module(map_cfg)
@@ -152,7 +177,8 @@ class SLAMSystem:
         mesher_cls = HashMeshExtractor if self.is_hash else MeshExtractor
         self.mesher = mesher_cls(map_cfg, self.decoder,
                                  voxel_resolution=mesh_resolution,
-                                 max_triangles=max_triangles) if meshing else None
+                                 max_triangles=max_triangles,
+                                 fast=mesh_fast) if meshing else None
         self.meshing_interval = (meshing_interval if meshing_interval > 0
                                  else integrate_interval)
         self.mesh_max_std = mesh_max_std
@@ -164,6 +190,22 @@ class SLAMSystem:
         self.timings: Dict[str, List[float]] = {"track": [], "integrate": [], "mesh": []}
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        # run_async: one extract at a time in a worker thread
+        self._mesh_executor = (ThreadPoolExecutor(max_workers=1)
+                               if run_async and meshing else None)
+        self._mesh_stream = (torch.cuda.Stream(self.device)
+                             if self._mesh_executor and self.device.type == "cuda"
+                             else None)
+        self._mesh_future: Optional[Future] = None
+        self.latent_optimize = latent_optimize
+        self.latent_optimize_mode = latent_optimize_mode
+        self.optim_n_iters = optim_n_iters
+        self.code_reg_lambda = code_reg_lambda
+        # interleaved: (old latents, old counts, old optimized flags, the
+        # optimized state), merged at the next fusion
+        self._pending_opt: Optional[tuple] = None
+        self._opt_gen = torch.Generator(device=self.device)
+        self._opt_gen.manual_seed(7)
 
     @classmethod
     def from_config(cls, args, calib: Intrinsic, first_iso: Isometry,
@@ -194,7 +236,13 @@ class SLAMSystem:
                      meshing_interval=int(getattr(args, "meshing_interval", -1)),
                      run_async=bool(getattr(args, "run_async", False)),
                      meshing=meshing,
+                     # the optimizer's keys live under mapping, as in the
+                     # reference's configs
                      latent_optimize=bool(getattr(mapping, "latent_optimize", False)),
+                     optim_n_iters=int(getattr(mapping, "optim_n_iters", 20)),
+                     code_reg_lambda=(float(getattr(mapping, "code_reg_lambda", 0.0))
+                                      if getattr(mapping, "code_regularization", False)
+                                      else 0.0),
                      device=device)
         system.first_iso = first_iso
         return system
@@ -208,9 +256,80 @@ class SLAMSystem:
             self.timings[stage].append(time.perf_counter() - t0)
 
     def _mesh(self) -> None:
+        """An incremental extract: here, or (``run_async``) submitted to the
+        worker over a snapshot of the state, whose dirty flags clear now so
+        that fusion marks new work for the next extract."""
         t0 = time.perf_counter()
-        self.state = self.mesher.extract(self.state, max_std=self.mesh_max_std)
+        if self._mesh_executor is None:
+            self.state = self.mesher.extract(self.state, max_std=self.mesh_max_std)
+        else:
+            snapshot = self.state
+            self.state = snapshot._replace(mesh_dirty=torch.zeros_like(snapshot.mesh_dirty))
+            self.finish_meshing()                    # one extract in flight
+            ready = None
+            if self._mesh_stream is not None:
+                ready = torch.cuda.Event()
+                ready.record()
+            self._mesh_future = self._mesh_executor.submit(self._extract_snapshot,
+                                                           snapshot, ready)
         self._stage_done("mesh", t0)
+
+    def _extract_snapshot(self, snapshot, ready: Optional[torch.cuda.Event]) -> None:
+        """The worker's extract.  On the card it runs on the mesh stream once
+        the main stream has made the snapshot (``ready``), and waits for the
+        stream before it drops the snapshot, whose memory the main stream's
+        pool may then hand out again."""
+        if ready is None:
+            self.mesher.extract(snapshot, max_std=self.mesh_max_std)
+            return
+        with torch.cuda.stream(self._mesh_stream):
+            self._mesh_stream.wait_event(ready)
+            self.mesher.extract(snapshot, max_std=self.mesh_max_std)
+        self._mesh_stream.synchronize()
+
+    def finish_meshing(self) -> None:
+        """Join the extract in flight, if any; its error raises here."""
+        if self._mesh_future is not None:
+            future, self._mesh_future = self._mesh_future, None
+            future.result()
+
+    def _fuse(self, w_pts, w_nrm, w_mask) -> None:
+        """Fuse a keyframe: merge a pending optimizer result first, then the
+        encoder fusion, then (``latent_optimize``) optimize around it."""
+        if self._pending_opt is not None:
+            self.state = apply_merge(self.state, self._take_pending())
+        self.state = self._map_mod.integrate_keyframe(
+            self.map_cfg, self.encoder, self.state, w_pts, w_nrm, w_mask)
+        if self.latent_optimize:
+            self._optimize(w_pts, w_nrm, w_mask)
+
+    def _take_pending(self) -> tuple:
+        """The pending result as :func:`apply_merge`'s arguments."""
+        old_lat, old_cnt, pre_optimized, opt_state = self._pending_opt
+        self._pending_opt = None
+        return (old_lat, opt_state.latents, old_cnt, opt_state.optimized & ~pre_optimized,
+                opt_state.opt_overflow)
+
+    def _draw_noise(self, n: int) -> torch.Tensor:
+        """The optimizer samples' (n, 8) standard-normal draw, on the device."""
+        return torch.randn((n, 8), generator=self._opt_gen, device=self.device)
+
+    def _optimize(self, w_pts, w_nrm, w_mask) -> None:
+        """Adam over the converged voxels around a fused keyframe's world
+        cloud; the result replaces the state (sync) or waits for the next
+        fusion (interleaved).  The snapshot holds the state's own tensors:
+        nothing writes a state's tensors in place."""
+        noise = self._draw_noise(w_pts.shape[0])
+        samples = self._map_mod.build_optimize_samples(self.map_cfg, self.state, w_pts,
+                                                       w_nrm, w_mask, noise)
+        opt_state = self._map_mod.optimize_latents(
+            self.map_cfg, self.decoder, self.state, *samples, n_iters=self.optim_n_iters,
+            code_reg_lambda=self.code_reg_lambda)
+        if self.latent_optimize_mode == "sync":
+            self.state = opt_state
+        else:
+            self._pending_opt = (self.state.latents, self.state.obs_count,
+                                 self.state.optimized, opt_state)
 
     def process_frame(self, frame: FrameData,
                       packed: Optional[torch.Tensor] = None,
@@ -239,9 +358,7 @@ class SLAMSystem:
         self._stage_done("track", t0)
         if (tr.n_tracked - 1) % self.integrate_interval == 0:
             t0 = time.perf_counter()
-            w_pts, w_nrm, w_mask = tr.last_pc_world(pose)
-            self.state = self._map_mod.integrate_keyframe(
-                self.map_cfg, self.encoder, self.state, w_pts, w_nrm, w_mask)
+            self._fuse(*tr.last_pc_world(pose))
             self._stage_done("integrate", t0)
         if self.mesher is not None and (tr.n_tracked - 1) % self.meshing_interval == 0:
             self._mesh()
@@ -254,9 +371,13 @@ class SLAMSystem:
 
         Same per-frame semantics as K :meth:`process_frame` calls with the
         ``integrate_interval`` schedule; mesh extraction (if enabled) runs
-        once after the chunk when a frame of it hits ``meshing_interval``.
-        Frame 0 must have been processed via :meth:`process_frame` first (it
-        seeds the pose)."""
+        once after the chunk, synchronously (after joining any extract in
+        flight), when a frame of it hits ``meshing_interval``.  A pending
+        optimizer result merges at the chunk's first fusion, and the
+        optimizer runs after the chunk on its last fused keyframe: with one
+        fusion a chunk the same steps as the per-frame path.  Frame 0 must
+        have been processed via :meth:`process_frame` first (it seeds the
+        pose)."""
         tr = self.tracker
         if tr.n_tracked == 0:
             raise RuntimeError("process frame 0 first (it sets the pose)")
@@ -265,9 +386,18 @@ class SLAMSystem:
         K = int(packed_chunk.shape[0])
         start = tr.n_tracked
         do_integrate = [(start + k) % self.integrate_interval == 0 for k in range(K)]
+        merge_at, merge_args = None, None
+        if self._pending_opt is not None and any(do_integrate):
+            first = do_integrate.index(True)
+            merge_at = [k == first for k in range(K)]
+            merge_args = self._take_pending()
         carry, (Rs, ts, _) = track_fuse_scan(tr, self.encoder, self.state,
-                                             packed_chunk, do_integrate, w)
+                                             packed_chunk, do_integrate, w,
+                                             merge_at=merge_at, merge_args=merge_args,
+                                             with_merge=merge_args is not None)
         self.state = carry.state
+        if self.latent_optimize and any(do_integrate):
+            self._optimize(*carry.integrated)
         tr.last_pyramid = carry.pyramid
         tr.rgb_weight, tr.n_unstable = carry.rgb_weight, carry.n_unstable
         tr.last_delta = carry.delta
@@ -278,7 +408,10 @@ class SLAMSystem:
         tr.append_pose_chunk(Rs, ts)
         if self.mesher is not None and any(
                 (start + k) % self.meshing_interval == 0 for k in range(K)):
-            self._mesh()
+            self.finish_meshing()
+            t0 = time.perf_counter()
+            self.state = self.mesher.extract(self.state, max_std=self.mesh_max_std)
+            self._stage_done("mesh", t0)
         return tr.last_pose
 
     # -- offline runner --------------------------------------------------------
@@ -355,16 +488,17 @@ class SLAMSystem:
             if i % 25 < (use_chunk or 1):
                 logging.info("frame %d/%d", i, n)
         thread.join()
+        self.finish_meshing()
         trajectory = self.tracker.all_pd_pose[start:]
         result: Dict[str, Any] = {
             "n_frames": len(trajectory),
             "trajectory": trajectory,
             "n_voxels": int(self.state.n_occupied),
-            # allocations dropped at the map's capacity: nonzero means the
-            # run lost coverage.  The latent optimizer's counter is the JAX
-            # result's key; the port does not run it.
+            # allocations dropped at the map's capacity, and touched slots
+            # beyond the latent optimizer's working table: nonzero means the
+            # run lost coverage
             "alloc_overflow": int(self.state.overflow),
-            "opt_overflow": 0,
+            "opt_overflow": int(self.state.opt_overflow),
         }
         gt = sequence.gt_trajectory
         if gt is not None and all(g is not None for g in gt[:len(trajectory)]):

@@ -305,3 +305,60 @@ def test_kernels_launch_inside_a_captured_graph(dev, packed):
     planes = (*(torch.where(ok, pc[..., c], zero).contiguous() for c in range(3)), ok.float())
     plain = torch.stack(stencil.window_stat_sums_plain(*planes, 6, 0.01, 0.04))
     assert torch.equal(sums, plain)
+
+
+def test_segment_sum_on_the_card_is_reproducible(dev):
+    """The card's segment sum (a sort, then a segmented reduction: fusion's
+    and the latent optimizer's accumulation) against an f64 ``index_add_``
+    to 1e-4 (rtol 1e-5), with a segment of 40,000 rows, and bit-equal on a
+    second call.  Against f64, not the CPU's f32 ``index_add_``: a
+    sequential f32 sum of 40,000 terms is off by ~1e-3 itself."""
+    from difusion_tpu_torch.core import map as M
+    gen = torch.Generator().manual_seed(0)
+    seg = torch.randint(0, 2048, (65536,), generator=gen)
+    seg[:40000] = 2048
+    values = torch.randn(65536, 29, generator=gen)
+    ref = torch.zeros(2049, 29, dtype=torch.float64).index_add_(0, seg, values.double())
+    a = M._segment_sum(2049, seg.to(dev), values.to(dev))
+    b = M._segment_sum(2049, seg.to(dev), values.to(dev))
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu().double(), ref, rtol=1e-5, atol=1e-4)
+
+
+def test_worker_launches_beside_a_capture(dev, packed):
+    """A thread launching kernel 3 on a stream of its own while the main
+    thread captures kernel 1 into a graph (as the mesh worker runs beside
+    the tracker's first capture): both results right, and the capture's
+    recording holds only its own launch."""
+    import threading
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lat = torch.randn(1 << 18, 29, generator=gen, device=dev) * 0.3
+    rel = torch.rand(1 << 18, 3, generator=gen, device=dev) - 0.5
+    small_lat, small_rel = lat[:4096].clone(), rel[:4096].clone()
+    fused.decode_grad_fused(packed, small_lat, small_rel)
+    torch.cuda.synchronize()
+    out, stop = [0, None], threading.Event()             # launches, the last result
+    stream = torch.cuda.Stream()
+
+    def worker():
+        with torch.cuda.stream(stream):
+            while not stop.is_set():
+                out[1] = fused.decode_fused(packed, lat, rel)
+                out[0] += 1
+        stream.synchronize()
+    t = threading.Thread(target=worker)
+    _build.reset_launch_counts()
+    t.start()
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording() as rec, torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        got = fused.decode_grad_fused(packed, small_lat, small_rel)
+    graph.replay()
+    stop.set()
+    t.join()
+    torch.cuda.synchronize()
+    assert rec == {"decode_grad_fused": 1} and out[0] >= 1
+    assert _build.launch_counts().get("decode_fused", 0) == out[0]
+    ref = fused.decode_fused_plain(packed, lat, rel)
+    assert torch.allclose(out[1][0], ref[0], atol=1e-5)
+    ref_g = fused.decode_grad_plain(packed, small_lat, small_rel)
+    assert torch.allclose(got[0], ref_g[0], atol=1e-5)

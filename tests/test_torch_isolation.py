@@ -30,8 +30,8 @@ def test_no_jax_imports(path):
 
 
 def test_port_runs_without_loading_jax():
-    """Importing the port and decoding with the in-repo prior leaves jax out
-    of sys.modules."""
+    """Importing the port, decoding with the in-repo prior and the optimizer's
+    sort-based unique (``ops/segment.py``) leave jax out of sys.modules."""
     code = (
         "import sys, torch\n"
         "from difusion_tpu_torch.slam import SLAMSystem, load_prior\n"
@@ -39,6 +39,10 @@ def test_port_runs_without_loading_jax():
         " device='cpu')\n"
         "sdf, std = dec.decode(torch.zeros(4, 29), torch.zeros(4, 3))\n"
         "assert sdf.shape == (4,) and bool(torch.isfinite(std).all())\n"
+        "from difusion_tpu_torch.ops.segment import padded_unique_inverse\n"
+        "uq = padded_unique_inverse(torch.tensor([3, 1, 3, 9], dtype=torch.int32),"
+        " torch.tensor([True, True, True, False]))\n"
+        "assert int(uq.count) == 2 and uq.inverse.tolist() == [1, 0, 1, 2]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'difusion_tpu')]\n"
         "assert not bad, bad\n"

@@ -293,8 +293,9 @@ def test_hash_mesh_extract_matches_jax(hash_meshes, step):
 
 def test_unported_mesher_options_raise(prior, hash_meshes, tmp_path):
     """``mesh_tool`` meshes a hash snapshot (the JAX package's, through
-    ``HashMeshExtractor``) as the JAX tool does; --fast and --shard still
-    name what is missing."""
+    ``HashMeshExtractor``) as the JAX tool does; --fast meshes a hash
+    snapshot coarse-to-fine (tests/test_torch_mesh_fast.py holds it against
+    the JAX package); --shard still names what is missing."""
     dec, _, spec, _ = prior
     snap = hash_meshes[1] / "map1.npz"
     base = [str(tmp_path / "out.ply"), "--hyper", str(HYPER), "--device", "cpu"]
@@ -308,7 +309,9 @@ def test_unported_mesher_options_raise(prior, hash_meshes, tmp_path):
     assert (tmp_path / "out.ply").stat().st_size > 0
     jcfg = JM.MapConfig(**CFG)
     JM.save_map(str(tmp_path / "dense.npz"), jcfg, JM.create_map_state(jcfg))
-    with pytest.raises(NotImplementedError, match="_eval_and_negate_fast"):
-        mesh_tool.main([str(tmp_path / "dense.npz"), *base, "--fast"])
+    fast = mesh_tool.main([str(snap), *base, "--resolution", "3", "--max-std",
+                           str(MAX_STD), "--fast", "--refine-fraction", "0.3"])
+    assert fast.fast and fast.refine_k == int(0.3 * 6 ** 3)
+    assert len(fast.triangles()[0]) > 500
     with pytest.raises(NotImplementedError, match="shard"):
         mesh_tool.main([str(tmp_path / "dense.npz"), *base, "--shard"])

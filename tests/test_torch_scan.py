@@ -416,16 +416,18 @@ def test_hash_chunk_matches_per_frame(port, hash_chunked):
 
 
 def test_unported_options_raise(port):
+    """What the chunked path still refuses: ``with_merge`` without a result
+    to merge, the tracker's unported modes, and a chunk before frame 0."""
     frames, make = port
     system = make()
     system.process_frame(frames[0])
     packed = torch.from_numpy(_pack(frames[1:2]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="merge_args"):
         track_fuse_scan(system.tracker, system.encoder, system.state, packed,
                         [False], W, with_merge=True)
     dec, enc, _ = load_prior(HYPER, 300, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SLAMSystem(M.MapConfig(**MAP), T.TrackerConfig(), dec, enc, Intrinsic(*CALIB),
-                   latent_optimize=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="not implemented by the PyTorch port"):
+        SLAMSystem(M.MapConfig(**MAP), T.TrackerConfig(gn_unroll=2), dec, enc,
+                   Intrinsic(*CALIB), latent_optimize=True, device="cpu")
     with pytest.raises(RuntimeError):
         make().process_chunk(packed, W)          # frame 0 must come first

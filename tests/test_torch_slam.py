@@ -121,12 +121,15 @@ def test_slice_meshes_like_jax(runs):
 
 
 def test_slam_rejects_unported_options():
+    """The mesher's fast mode and the optimizer are ported (they build); an
+    unknown optimizer mode and the tracker's unported modes raise."""
     t_dec, t_enc, _ = load_prior(HYPER, 300, device="cpu")
     args = (M.MapConfig(**MAP), T.TrackerConfig(), t_dec, t_enc, Intrinsic(*CALIB))
-    with pytest.raises(NotImplementedError):
-        SLAMSystem(*args, mesh_fast=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        SLAMSystem(*args, latent_optimize=True, device="cpu")
+    assert SLAMSystem(*args, mesh_fast=True, device="cpu").mesher.fast
+    assert SLAMSystem(*args, latent_optimize=True, device="cpu").latent_optimize
+    with pytest.raises(ValueError):
+        SLAMSystem(*args, latent_optimize=True, latent_optimize_mode="async",
+                   device="cpu")
     with pytest.raises(NotImplementedError):
         SLAMSystem(*args[:1], T.TrackerConfig(warp_tiled=True), *args[2:],
                    device="cpu")
