@@ -71,6 +71,26 @@ Phases, each printing one JSON line:
               per-frame path's device time too.  The two paths' poses on
               these frames must agree.
 9. mesh_profile -- torch.profiler over one full (no_cache) r = 4 extract.
+10. prior -- the offline prior pipeline at the shipped configurations'
+              widths: run_generation on configs/data-simple.yaml and
+              configs/data-heightfield.yaml as read (sampler_count 200,000,
+              500,000 surface candidates, a 400x400 z-buffer; only the number
+              of shapes cut, PRIOR_SHAPES) into build/, seconds per mesh by
+              stage (visibility, compute_sdf, split_into_lifs), LIFs and the
+              NaN share of the queries; then train() with
+              configs/train-study-mixed.yaml's hyper (batch 64 x 4,096, decoder
+              128x4 with weight norm and dropout 0.2, BatchNorm encoder
+              6-32-64-256, NLL + reg, float16 upload) on that corpus for
+              PRIOR_STEPS steps: ms/step by CUDA events after the first 3, a
+              torch.profiler window of 5 more steps and two windows of the
+              same 5 batches that split its device time (the forward with
+              its losses, then that and the gradient), peak memory, the logged
+              losses (all finite, the last total below the first); then the
+              snapshot loaded back through load_prior from npz and from
+              .pth.tar (the same weights), kernels 1 and 3 held against their
+              plain versions on the trained weights, and a few frames of
+              SLAMSystem (meshing on) on the trained prior, whose kernel
+              launches the kernels line gives as launches_prior.
 
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error against its plain version, times and bound, the nvidia-smi line, and
@@ -111,6 +131,18 @@ CHUNK = 12           # frames a chunk, as bench.py streams them
 MESH_MAX_STD = 0.15  # the online default; the offline run uses it too
 MAX_MESH_ERR = 0.05  # m, 95th percentile distance to the analytic surface
 MAX_FRAME_MS = 1e3 / 30   # a 30 fps camera
+# the prior phase: shapes generated per data config (the configs' 50 and 100
+# cut so that the corpus holds >= 3 batches of 64), and train steps
+PRIOR_SHAPES = {"simple": 3, "heightfield": 2}
+PRIOR_STEPS = 40
+PRIOR_LOG_EVERY = 5
+PRIOR_FRAMES = 3
+PRIOR_DIR = Path(__file__).resolve().parent / "build" / "prior_smoke"
+# the configs the prior phase runs: each data config cut to PRIOR_SHAPES
+# shapes and written under PRIOR_DIR; the train config on that corpus
+DATA_CONFIGS = {"simple": Path(__file__).resolve().parent / "configs/data-simple.yaml",
+                "heightfield": Path(__file__).resolve().parent / "configs/data-heightfield.yaml"}
+STUDY_MIXED = Path(__file__).resolve().parent / "configs/train-study-mixed.yaml"
 # observations after which a voxel counts as converged in the optimize phase
 # (the configuration's 600 is out of reach in three fusions; the accuracy
 # study lowers it to 200 over twelve)
@@ -454,6 +486,178 @@ def event_timed(fn, sink: list):
 def event_ms(sink: list) -> list:
     torch.cuda.synchronize()
     return [a.elapsed_time(b) for a, b in sink]
+
+
+def prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod,
+                _build) -> None:
+    """The prior phase (see the module docstring): emits one line and adds
+    the trained prior's checks and launches to ``kernels``."""
+    from difusion_tpu_torch.config import args_to_dict, dict_to_args, load_yaml_args
+    from difusion_tpu_torch.models.weights import load_prior
+    from difusion_tpu_torch.ops.decoder_fused import pack_fused_decoder
+    from difusion_tpu_torch.sampler import generator as gen_mod
+    from difusion_tpu_torch.sampler import sampler as sampler_mod
+    from difusion_tpu_torch.slam import SLAMSystem
+    from difusion_tpu_torch.train import lif_dataset as ldata
+    from difusion_tpu_torch.train import trainer as trainer_mod
+    from difusion_tpu_torch.train.losses import LossConfig
+
+    shutil.rmtree(PRIOR_DIR, ignore_errors=True)
+    # ---- generate: each stage of each mesh timed (the stages return numpy,
+    # so the card has finished when they return) ----
+    stage_s = {"visibility": [], "compute_sdf": [], "split_into_lifs": []}
+    nan_counts = [0, 0]
+    originals = (sampler_mod.visible_surface_samples, sampler_mod.compute_sdf,
+                 gen_mod.split_into_lifs)
+
+    last_sdf_call = []
+
+    def timed(name, fn, listed=False):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = list(fn(*a, **kw)) if listed else fn(*a, **kw)
+            stage_s[name].append(time.perf_counter() - t0)
+            if name == "compute_sdf":
+                nan_counts[0] += int(np.isnan(out).sum())
+                nan_counts[1] += len(out)
+                last_sdf_call[:] = [a, kw]
+            return out
+        return run
+    sampler_mod.visible_surface_samples = timed("visibility", originals[0])
+    sampler_mod.compute_sdf = timed("compute_sdf", originals[1])
+    gen_mod.split_into_lifs = timed("split_into_lifs", originals[2], listed=True)
+    corpus, gen_rows = {}, {}
+    try:
+        for name, path in DATA_CONFIGS.items():
+            cfg = args_to_dict(load_yaml_args(str(path)))
+            out = PRIOR_DIR / Path(cfg["output"]).name
+            args = dict_to_args(dict(cfg, output=str(out), provider_kwargs=dict(
+                cfg["provider_kwargs"], n_shapes=PRIOR_SHAPES[name])))
+            n_before = {k: len(v) for k, v in stage_s.items()}
+            t0 = time.perf_counter()
+            n_lifs = gen_mod.run_generation(args, device=dev)
+            gen_rows[name] = {
+                "shapes": PRIOR_SHAPES[name], "lifs": n_lifs,
+                "seconds": time.perf_counter() - t0,
+                **{f"{k}_s_per_mesh": v[n_before[k]:] for k, v in stage_s.items()}}
+            corpus[out.name] = out
+    finally:
+        (sampler_mod.visible_surface_samples, sampler_mod.compute_sdf,
+         gen_mod.split_into_lifs) = originals
+    # the last mesh's compute_sdf again, under the profiler
+    sdf_args, sdf_kw = last_sdf_call
+    sdf_profile = profiled(lambda: originals[1](*sdf_args, **sdf_kw), count="topk")
+    n_lifs = sum(r["lifs"] for r in gen_rows.values())
+    study = args_to_dict(load_yaml_args(str(STUDY_MIXED)))
+    if n_lifs < 3 * study["batch_size"]:
+        fail(f"prior: the corpus holds {n_lifs} LIFs, < 3 batches of {study['batch_size']}")
+
+    # ---- train: CUDA events around every step; snapshot at the last epoch.
+    # Each train_set entry reads the corpus written under its directory's name ----
+    per_epoch = n_lifs // study["batch_size"]
+    last_epoch = -(-PRIOR_STEPS // per_epoch)
+    save_dir = PRIOR_DIR / "study_mixed"
+    hyper = dict(study, save_dir=str(save_dir),
+                 additional_snapshots=study["additional_snapshots"] + [last_epoch],
+                 train_set=[dict(t, data_path="cached$local://" + str(
+                     corpus[Path(t["data_path"].split("://", 1)[1]).name]))
+                     for t in study["train_set"]])
+    step_events = []
+    train_step = trainer_mod.train_step
+    trainer_mod.train_step = event_timed(train_step, step_events)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state = trainer_mod.train(hyper, max_steps=PRIOR_STEPS, log_every=PRIOR_LOG_EVERY,
+                                  device=dev)
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.train_step = train_step
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = event_ms(step_events)
+    rows = [json.loads(line) for line in (save_dir / "metrics.jsonl").read_text().splitlines()]
+    # 5 more steps of the same function under the profiler
+    packed = ldata.pack_dataset(ldata.LifCombinedDataset(*[
+        ldata.LifDataset(**t, num_sample=hyper["samples_per_lif"]) for t in hyper["train_set"]]))
+    batches = list(ldata.prefetch_device(ldata.iterate_batches_packed(
+        packed, hyper["batch_size"], np.random.default_rng(99)), dev, np.float16))[:5]
+    loss_cfg = LossConfig.from_hyper(hyper)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def five_steps():
+        st = state
+        for sdf, surf, _ in batches:
+            st, _ = train_step(loss_cfg, st, sdf, surf, 1e-3, 1e-3, last_epoch, generator=gen)
+
+    def five_forwards():
+        for sdf, surf, _ in batches:
+            trainer_mod.forward_losses(loss_cfg, state, sdf, surf, last_epoch, generator=gen)
+
+    def five_gradients():
+        for sdf, surf, _ in batches:
+            trainer_mod.loss_and_grads(loss_cfg, state, sdf, surf, last_epoch, generator=gen)
+    step_profile = profiled(five_steps, count="gemm")
+    # device ms of the training forward with the losses (autograd graph kept,
+    # BatchNorm statistics moved), of that plus the gradient, and of a whole
+    # step: the windows' differences are the backward's and Adam's shares
+    part_ms = {"forward_and_loss": profiled(five_forwards)["device_ms"],
+               "forward_backward": profiled(five_gradients)["device_ms"],
+               "step": step_profile["device_ms"]}
+
+    # ---- back to serving: npz and .pth.tar, kernels 1 and 3, a few frames ----
+    pth_dir = PRIOR_DIR / "pth_only"
+    pth_dir.mkdir()
+    for f in ("hyper.json", f"model_{last_epoch}.pth.tar", f"encoder_{last_epoch}.pth.tar"):
+        shutil.copy(save_dir / f, pth_dir / f)
+    dec, enc, spec = load_prior(save_dir / "hyper.json", last_epoch, device=dev)
+    dec_p, enc_p, _ = load_prior(pth_dir / "hyper.json", last_epoch, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(
+        list(dec.parameters()) + list(enc.parameters()),
+        list(dec_p.parameters()) + list(enc_p.parameters())))
+    trained = pack_fused_decoder(dec)
+    k1, k3 = check_decoder(trained, fused_mod, dev), check_decode_fused(trained, fused_mod, dev)
+    system = SLAMSystem(map_cfg, tcfg, dec, enc, calib, integrate_interval=20,
+                        depth_cut=(0.5, 5.0), device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for k in range(PRIOR_FRAMES):
+        system.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    tris, _ = system.mesher.triangles()
+    emit({"phase": "prior", "generate": gen_rows, "lifs": n_lifs,
+          "nan_share_of_queries": nan_counts[0] / max(nan_counts[1], 1),
+          "train_steps": state.step, "train_s": train_s,
+          "ms_per_step_after_3": statistics.median(step_ms[3:]),
+          "ms_per_step": step_ms, "peak_mem_gb": peak_gb,
+          "steps_per_epoch": per_epoch, "snapshot_epoch": last_epoch,
+          "logged": [{k: r[k] for k in ("it", "ll", "reg", "surface_abs_sdf", "total")}
+                     for r in rows],
+          "profile_5_steps": step_profile, "device_ms_5_steps_by_part": part_ms,
+          "profile_compute_sdf_last_mesh": sdf_profile,
+          "pth_equals_npz": same,
+          "decode_grad_fused_max_abs_err": k1["max_abs_err"],
+          "decode_grad_rows_at_relu_kink": k1["grad_rows_at_relu_kink"],
+          "decode_fused_max_abs_err": k3["max_abs_err"],
+          "serving_frames": PRIOR_FRAMES, "serving_launches": counts,
+          "serving_triangles": len(tris)})
+    if state.step != PRIOR_STEPS or len(rows) != PRIOR_STEPS // PRIOR_LOG_EVERY:
+        fail(f"prior: {state.step} steps, {len(rows)} logged rows")
+    if not all(np.isfinite(r[k]) for r in rows for k in ("ll", "reg", "total")):
+        fail("prior: a logged loss is not finite")
+    if not rows[-1]["total"] < rows[0]["total"]:
+        fail(f"prior: the total loss rose from {rows[0]['total']:.4f} to "
+             f"{rows[-1]['total']:.4f}")
+    if not same:
+        fail("prior: the .pth.tar snapshot loads other weights than the npz")
+    if counts.get("decode_grad_fused", 0) < 1 or counts.get("decode_fused", 0) < 1:
+        fail(f"prior: the serving frames on the trained prior launched {counts}")
+    for k in kernels:
+        k["launches_prior"] = counts.get(k["name"], 0)
+    kernels[0]["max_abs_err_prior"] = k1["max_abs_err"]
+    kernels[2]["max_abs_err_prior"] = k3["max_abs_err"]
 
 
 def main() -> int:
@@ -1087,6 +1291,9 @@ def main() -> int:
           **profiled(lambda: full.extract(msys.state, max_std=MESH_MAX_STD,
                                           no_cache=True)),
           **full.last_stats})
+
+    # ---- prior: generator -> trainer -> the trained prior in serving ----
+    prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod, _build)
 
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -25,6 +25,7 @@ from ..models.decoder import Decoder
 from ..models.encoder import Encoder
 from ..ops.imgproc import recip
 from ..ops.segment import padded_unique_inverse
+from ..utils.adam import adam_step, bias_corrections
 
 
 class MapConfig(NamedTuple):
@@ -337,15 +338,10 @@ def noisy_samples(contrib: torch.Tensor, slot: torch.Tensor, rel: torch.Tensor,
             rel.reshape(-1, 3), gt_sdf.reshape(-1), contrib.reshape(-1))
 
 
-# Adam as optax's ``adam`` computes it (``scale_by_adam`` + ``scale(-lr)``)
-_B1, _B2, _EPS = 0.9, 0.999, 1e-8
-
-
 def _bias_corrections(n_iters: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(1 - b1^t, 1 - b2^t) for t = 1..n_iters in f32, on the device."""
-    t = np.arange(1, n_iters + 1, dtype=np.float32)
-    return tuple(const(tuple((np.float32(1) - np.float32(b) ** t).tolist()), device)
-                 for b in (_B1, _B2))
+    return tuple(const(tuple(bc.tolist()), device)
+                 for bc in bias_corrections(np.arange(1, n_iters + 1)))
 
 
 def _loss_grad(decoder: Decoder, table: torch.Tensor, comp: torch.Tensor, plan,
@@ -403,9 +399,7 @@ def optimize_latents(cfg, decoder: Decoder, state, slot_ids: torch.Tensor,
                 reg = code_reg_lambda * torch.sum(
                     torch.linalg.vector_norm(leaf[:-1], dim=1) * row_live) / n_samples
                 g = g + torch.autograd.grad(reg, leaf)[0]
-        mu = (1 - _B1) * g + _B1 * mu
-        nu = (1 - _B2) * (g * g) + _B2 * nu
-        table = table + (-lr) * ((mu / bc1[t]) / (torch.sqrt(nu / bc2[t]) + _EPS))
+        table, mu, nu = adam_step(table, g, mu, nu, bc1[t], bc2[t], lr)
 
     scatter_slot = torch.where(row_live, row_slot_safe, capacity)
     latents = scatter_drop(state.latents, scatter_slot,

@@ -3,13 +3,22 @@
 Input is ``concat(latent, xyz)`` of width ``L+3``; hidden dims ``[128]*4``;
 the layer listed in ``latent_in`` re-concatenates the input; the std head
 reads the last hidden activation and maps through ``0.05 + 0.5*softplus``;
-the SDF output goes through ``tanh``.  This module holds the inference form
-only: weight-norm ``(g, v)`` is folded into dense ``w`` on the host
-(:func:`fold_decoder_params`), and :class:`Decoder` runs plain f32 linears.
+the SDF output goes through ``tanh``.  Two forms:
+
+* the inference form: weight-norm ``(g, v)`` is folded into dense ``w`` on
+  the host (:func:`fold_decoder_params`), and :class:`Decoder` runs plain
+  f32 linears;
+* the train form (:class:`DecoderTrain`; calling it is the JAX package's
+  ``decode_train``): ``g``, ``v``, ``b`` per weight-normed layer, the weight
+  computed live as ``g * v / ||v||_row``, dropout after the ReLU of the
+  layers in ``spec.dropout`` (difusion_tpu/models/decoder.py:111-145).  Its
+  constructor takes, and :meth:`DecoderTrain.to_params` gives back, the JAX
+  package's parameter tree of numpy arrays, which
+  :func:`fold_decoder_params` folds for :class:`Decoder`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,3 +126,87 @@ class Decoder(nn.Module):
         return torch.tanh(x)[:, 0], std[:, 0]
 
     forward = decode
+
+
+def init_decoder_params(spec: DecoderSpec, generator: torch.Generator) -> Dict[str, Any]:
+    """Train-form parameters (numpy f32, the JAX package's tree) drawn from
+    ``generator`` with torch's ``Linear`` bounds: weights and biases
+    ~ U(-k, k), k = 1/sqrt(fan_in); a weight-normed layer stores
+    g = ||w||_row and v = w."""
+    def uniform(shape, k):
+        return ((torch.rand(shape, generator=generator) * 2 - 1) * k).numpy()
+
+    ins, outs = spec.layer_dims()
+    layers = []
+    for i, (din, dout) in enumerate(zip(ins, outs)):
+        k = 1.0 / np.sqrt(din)
+        w, b = uniform((dout, din), k), uniform((dout,), k)
+        if spec.weight_norm and i in spec.norm_layers:
+            layers.append({"g": np.linalg.norm(w, axis=1).astype(np.float32),
+                           "v": w, "b": b})
+        else:
+            layers.append({"w": w, "b": b})
+    k = 1.0 / np.sqrt(spec.dims[-1])
+    return {"layers": layers,
+            "uncertainty": {"w": uniform((1, spec.dims[-1]), k), "b": uniform((1,), k)}}
+
+
+def _param(a) -> nn.Parameter:
+    return nn.Parameter(torch.as_tensor(np.asarray(a, np.float32)).clone())
+
+
+class DecoderTrain(nn.Module):
+    """Train-form decoder: ``layers[i]`` holds ``g``, ``v``, ``b`` (weight
+    norm) or ``w``, ``b``; ``uncertainty`` holds the std head's ``w``, ``b``.
+    Parameter names follow the JAX tree (``layers.0.g``, ``uncertainty.w``)."""
+
+    def __init__(self, spec: DecoderSpec, params: Dict[str, Any]):
+        super().__init__()
+        self.spec = spec
+        self.layers = nn.ModuleList(
+            nn.ParameterDict({k: _param(v) for k, v in layer.items()})
+            for layer in params["layers"])
+        self.uncertainty = nn.ParameterDict(
+            {k: _param(v) for k, v in params["uncertainty"].items()})
+
+    def to_params(self) -> Dict[str, Any]:
+        """The JAX package's tree, numpy f32 leaves."""
+        def leaf(p):
+            return p.detach().cpu().numpy().copy()
+        return {"layers": [{k: leaf(p) for k, p in layer.items()} for layer in self.layers],
+                "uncertainty": {k: leaf(p) for k, p in self.uncertainty.items()}}
+
+    def forward(self, net_input: torch.Tensor,
+                masks: Optional[Dict[int, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, L+3) -> sdf (N, 1), std (N, 1).  Dropout: ``masks[i]`` (N,
+        out_i) bool keeps, or draws from ``generator``; neither, none."""
+        spec = self.spec
+        n_layers = len(self.layers)
+        x = inp = net_input
+        std = None
+        dropout = spec.dropout_prob > 0 and (masks is not None or generator is not None)
+        keep = 1.0 - spec.dropout_prob
+        inv_keep = float(np.float32(1) / np.float32(keep))
+        for i, layer in enumerate(self.layers):
+            if i in spec.latent_in:
+                x = torch.cat([x, inp], dim=1)
+            if i == n_layers - 1:
+                u = self.uncertainty
+                std = 0.05 + 0.5 * F.softplus(x @ u["w"].T + u["b"])
+            if "g" in layer:
+                v = layer["v"]
+                w = layer["g"][:, None] * v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+            else:
+                w = layer["w"]
+            x = x @ w.T + layer["b"]
+            if i < n_layers - 1:
+                x = torch.relu(x)
+                if dropout and i in spec.dropout:
+                    m = (masks[i] if masks is not None else
+                         torch.rand(x.shape, generator=generator, device=x.device) < keep)
+                    # XLA turns the JAX package's x / keep into x * (1 / keep)
+                    x = torch.where(m, x * inv_keep, 0.0)
+        return torch.tanh(x), std
+

@@ -1,10 +1,18 @@
 """Point encoder (counterpart of difusion_tpu/models/encoder.py:31-94).
 
 A PointNet-style shared MLP ``6 -> 32 -> 64 -> 256 -> L``: each hidden
-conv1x1 is followed by BatchNorm + ReLU, the last is a biased linear.  This
-module holds the inference form: BatchNorm running statistics are folded into
-each hidden layer's weight and bias (:func:`fold_encoder_params`), and
-:meth:`Encoder.encode_points` is the per-point 'cnp' mode, (N, 6) -> (N, L).
+conv1x1 is followed by BatchNorm + ReLU, the last is a biased linear.  Two
+forms:
+
+* the inference form: BatchNorm running statistics are folded into each
+  hidden layer's weight and bias (:func:`fold_encoder_params`), and
+  :meth:`Encoder.encode_points` is the per-point 'cnp' mode, (N, 6) -> (N, L);
+* the train form (:class:`EncoderTrain`; calling it is the JAX package's
+  ``encode_train``): 'train' mode, BatchNorm over batch x points with batch
+  statistics, the running mean and the unbiased running variance moving
+  with momentum 0.1, eps 1e-5 (difusion_tpu/models/encoder.py:97-123; what
+  ``torch.nn.BatchNorm1d`` does on a (B, C, N) tensor, written out so that
+  the order of the sums is the JAX package's), then a mean over the points.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import torch
 from torch import nn
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.1
 
 
 class EncoderSpec(NamedTuple):
@@ -78,3 +87,82 @@ class Encoder(nn.Module):
         return x
 
     forward = encode_points
+
+
+def init_encoder_params(spec: EncoderSpec, generator: torch.Generator) -> Dict[str, Any]:
+    """Train-form parameters (numpy f32, the JAX package's tree) drawn from
+    ``generator``: weights kaiming-normal (std sqrt(2 / fan_in)); hidden
+    layers carry BatchNorm scale 1, bias 0, running mean 0 and variance 1;
+    the last layer's bias ~ U(-k, k), k = 1/sqrt(fan_in)."""
+    dims = spec.all_dims
+    layers = []
+    for i in range(len(dims) - 1):
+        din, dout = dims[i], dims[i + 1]
+        w = (torch.randn((dout, din), generator=generator) * np.sqrt(2.0 / din)).numpy()
+        if i < len(dims) - 2:
+            layers.append({"w": w, "bn_scale": np.ones(dout, np.float32),
+                           "bn_bias": np.zeros(dout, np.float32),
+                           "bn_mean": np.zeros(dout, np.float32),
+                           "bn_var": np.ones(dout, np.float32)})
+        else:
+            k = 1.0 / np.sqrt(din)
+            b = ((torch.rand((dout,), generator=generator) * 2 - 1) * k).numpy()
+            layers.append({"w": w, "b": b})
+    return {"layers": layers}
+
+
+_BN_BUFFERS = ("bn_mean", "bn_var")
+
+
+class _EncoderLayer(nn.Module):
+    def __init__(self, layer: Dict[str, Any]):
+        super().__init__()
+        for k, v in layer.items():
+            t = torch.as_tensor(np.asarray(v, np.float32)).clone()
+            if k in _BN_BUFFERS:
+                self.register_buffer(k, t)
+            else:
+                setattr(self, k, nn.Parameter(t))
+
+    def keys(self):
+        return [k for k, _ in self.named_parameters()] + [k for k, _ in self.named_buffers()]
+
+
+class EncoderTrain(nn.Module):
+    """Train-form encoder.  Hidden layers: parameters ``w``, ``bn_scale``,
+    ``bn_bias`` and buffers ``bn_mean``, ``bn_var`` (they move with the
+    forward pass, not with the optimizer); the last layer ``w``, ``b``."""
+
+    def __init__(self, spec: EncoderSpec, params: Dict[str, Any]):
+        super().__init__()
+        self.spec = spec
+        self.layers = nn.ModuleList(_EncoderLayer(layer) for layer in params["layers"])
+
+    def to_params(self) -> Dict[str, Any]:
+        """The JAX package's tree, numpy f32 leaves."""
+        return {"layers": [{k: getattr(layer, k).detach().cpu().numpy().copy()
+                            for k in layer.keys()} for layer in self.layers]}
+
+    def forward(self, surface: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        """(B, N, 6) -> codes (B, L).  With ``update_stats`` the running
+        statistics move (in place, outside autograd)."""
+        x = surface
+        for layer in self.layers:
+            x = x @ layer.w.T
+            if hasattr(layer, "bn_mean"):
+                mean = torch.mean(x, dim=(0, 1))
+                var = torch.mean((x - mean) ** 2, dim=(0, 1))
+                x = (x - mean) / torch.sqrt(var + _BN_EPS) * layer.bn_scale + layer.bn_bias
+                if update_stats:
+                    n = x.shape[0] * x.shape[1]
+                    with torch.no_grad():
+                        unbiased = var * n / max(n - 1, 1)
+                        layer.bn_mean.copy_((1 - _BN_MOMENTUM) * layer.bn_mean
+                                            + _BN_MOMENTUM * mean)
+                        layer.bn_var.copy_((1 - _BN_MOMENTUM) * layer.bn_var
+                                           + _BN_MOMENTUM * unbiased)
+                x = torch.relu(x)
+            else:
+                x = x + layer.b
+        return torch.mean(x, dim=1)
+

@@ -1,8 +1,9 @@
 """Host-side SE(3)/SO(3) math in numpy: quaternions, isometries, ATE.
 
 The port's own copy of the parts of difusion_tpu/utils/motion.py that the
-track+fuse path and the sequence loaders use (``Isometry``, ``Quaternion``,
-``ate_rmse`` and the so(3) maps beneath them).  Conventions: quaternions are (w, x, y, z);
+track+fuse path, the sequence loaders and the sample generator use
+(``Isometry`` with ``look_at`` and ``random``, ``Quaternion`` with
+``random``, ``ate_rmse`` and the so(3) maps beneath them).  Conventions: quaternions are (w, x, y, z);
 twists are ``xi = [rho, phi]`` (translation first).
 """
 from __future__ import annotations
@@ -124,6 +125,15 @@ class Quaternion:
     def rotate(self, v: np.ndarray) -> np.ndarray:
         return self.rotation_matrix @ np.asarray(v, dtype=np.float64)
 
+    @staticmethod
+    def random(rng: np.random.Generator = None) -> "Quaternion":
+        """Uniform over SO(3) (Shoemake's subgroup algorithm)."""
+        r = (rng or np.random).random(3)
+        s1, s2 = np.sqrt(1 - r[0]), np.sqrt(r[0])
+        t1, t2 = 2 * np.pi * r[1], 2 * np.pi * r[2]
+        return Quaternion(np.cos(t2) * s2, np.sin(t1) * s1, np.cos(t1) * s1,
+                          np.sin(t2) * s2)
+
     def __repr__(self):
         return (f"Quaternion({self.q[0]:+.6f} {self.q[1]:+.6f}i "
                 f"{self.q[2]:+.6f}j {self.q[3]:+.6f}k)")
@@ -170,6 +180,30 @@ class Isometry:
 
     def dot(self, right: "Isometry") -> "Isometry":
         return Isometry(q=self.q * right.q, t=self.q.rotate(right.t) + self.t)
+
+    @staticmethod
+    def look_at(source: np.ndarray, target: np.ndarray, up: np.ndarray = None) -> "Isometry":
+        """Camera pose at ``source`` whose +z axis points at ``target``; +y is
+        the image-down direction derived from ``up``, which defaults to world
+        +y with a +x fallback when the view direction is vertical."""
+        eye = np.asarray(source, np.float64)
+        fwd = np.asarray(target, np.float64) - eye
+        fwd = fwd / np.linalg.norm(fwd)
+        if up is None:
+            up = np.array([0.0, 1.0, 0.0])
+            if np.linalg.norm(np.cross(fwd, up)) < 1e-6:   # looking along +-y
+                up = np.array([1.0, 0.0, 0.0])
+        else:
+            up = np.asarray(up, np.float64) / np.linalg.norm(up)
+        right = np.cross(fwd, up)
+        right = right / np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        basis = np.stack([right, down, fwd], axis=1)       # camera axes as columns
+        return Isometry(q=Quaternion(matrix=basis), t=eye)
+
+    @staticmethod
+    def random(rng: np.random.Generator = None) -> "Isometry":
+        return Isometry(q=Quaternion.random(rng), t=(rng or np.random).random(3))
 
 
 def ate_rmse(gt: list, pred: list, align: bool = True) -> float:

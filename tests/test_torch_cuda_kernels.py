@@ -362,3 +362,96 @@ def test_worker_launches_beside_a_capture(dev, packed):
     assert torch.allclose(out[1][0], ref[0], atol=1e-5)
     ref_g = fused.decode_grad_plain(packed, small_lat, small_rel)
     assert torch.allclose(got[0], ref_g[0], atol=1e-5)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One train step of the full-width networks (decoder 128x4, encoder
+    6-32-64-256) on the card against the same step on the CPU, with the same
+    dropout masks: every gradient leaf within 1e-4 x its largest |g|; after
+    the step every entry within 2 lr, the entries of large gradient within
+    1e-6, the BatchNorm buffers within 1e-6."""
+    import numpy as np
+
+    from difusion_tpu_torch.models.decoder import DecoderSpec
+    from difusion_tpu_torch.models.encoder import EncoderSpec
+    from difusion_tpu_torch.train import trainer as TR
+    from difusion_tpu_torch.train.losses import LossConfig
+    spec_d, spec_e, cfg = DecoderSpec(), EncoderSpec(), LossConfig()
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform(-1, 1, (8, 512, 3)).astype(np.float32)
+    sdf = np.concatenate([xyz, np.linalg.norm(xyz, axis=-1, keepdims=True) - 0.6], -1)
+    surf = rng.normal(size=(8, 128, 6)).astype(np.float32)
+    _, outs = spec_d.layer_dims()
+    masks = {i: torch.from_numpy(rng.random((8 * 512, outs[i])) < 0.8)
+             for i in spec_d.dropout if i < len(outs) - 1}
+    states = {d: TR.create_train_state(spec_d, spec_e, 0, d) for d in ("cpu", dev)}
+    grads = {}
+    for d, st in states.items():
+        probe = TR.state_from_params(spec_d, spec_e, st.dec.to_params(), st.enc.to_params(), d)
+        _, grads[d] = TR.loss_and_grads(cfg, probe, torch.from_numpy(sdf).to(d),
+                                        torch.from_numpy(surf).to(d), 3,
+                                        masks={i: m.to(d) for i, m in masks.items()})
+    for name, g_cpu in grads["cpu"].items():
+        err = (grads[dev][name].cpu() - g_cpu).abs().max()
+        assert err <= 1e-4 * g_cpu.abs().max() + 1e-12, name
+    lr = 1e-3
+    for d, st in states.items():
+        states[d], _ = TR.train_step(cfg, st, torch.from_numpy(sdf).to(d),
+                                     torch.from_numpy(surf).to(d), lr, lr, 3,
+                                     masks={i: m.to(d) for i, m in masks.items()})
+    cpu_p = dict(states["cpu"].dec.named_parameters(prefix="dec"))
+    cpu_p.update(states["cpu"].enc.named_parameters(prefix="enc"))
+    card = dict(states[dev].dec.named_parameters(prefix="dec"))
+    card.update(states[dev].enc.named_parameters(prefix="enc"))
+    for name, p in cpu_p.items():
+        q = card[name].detach().cpu()
+        assert (q - p.detach()).abs().max() <= 2 * lr, name
+        g = grads["cpu"][name]
+        big = g.abs() > 1e-3 * g.abs().max()
+        assert (q[big] - p.detach()[big]).abs().max() <= 1e-6, name
+    for a, b in zip(states["cpu"].enc.buffers(), states[dev].enc.buffers()):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-6, rtol=0)
+
+
+def test_compute_sdf_on_the_card_matches_the_cpu(dev):
+    """compute_sdf on the card (f32 distances, TF32 off, over two reference
+    tiles) against the CPU: the same NaN set on every query whose 11th and
+    12th squared distances are more than 1e-6 apart, and there the values
+    within 1e-5 where the 1st and 2nd are too.  The value is the nearest
+    neighbour's distance or projection, so where the two nearest are closer
+    than the distances' rounding (cuBLAS and the CPU sum the 3-term dot in
+    another order) either may be taken, as either package may: those
+    queries are counted, and only they may differ."""
+    import numpy as np
+
+    from difusion_tpu_torch.device import resolve_device
+    from difusion_tpu_torch.sampler import mesh_io
+    from difusion_tpu_torch.sampler import sampler as SM
+    from difusion_tpu_torch.utils.motion import Isometry
+    resolve_device(dev)
+    mesh = mesh_io.make_sphere(0.5, 40)
+    rng = np.random.default_rng(1)
+    cams = [Isometry.look_at(p * 1.5, np.zeros(3)) for p in SM.equidist_points_on_sphere(40)]
+    xyz, nrm = SM.visible_surface_samples(mesh, cams, 0.8, 60000, rng, res=200, device=dev)
+    assert len(xyz) > SM.REF_TILE
+    base, _ = SM.sample_on_triangles(mesh, 8000, rng)
+    q = np.concatenate([base + rng.standard_normal((8000, 3)).astype(np.float32) * 0.07,
+                        rng.uniform(-0.6, 0.6, (4000, 3)).astype(np.float32)])
+    on_card = SM.compute_sdf(q, xyz, nrm, np.sqrt(0.005), device=dev)
+    on_cpu = SM.compute_sdf(q, xyz, nrm, np.sqrt(0.005), device="cpu")
+    ref = torch.from_numpy(xyz).to(dev, torch.float64)
+    gap_last, gap_first = [], []
+    for s in range(0, len(q), 1024):
+        d2 = torch.cdist(torch.from_numpy(q[s:s + 1024]).to(dev, torch.float64), ref) ** 2
+        part = torch.topk(d2, 12, dim=1, largest=False).values
+        gap_last.append((part[:, 11] - part[:, 10]).cpu().numpy())
+        gap_first.append((part[:, 1] - part[:, 0]).cpu().numpy())
+    ok = np.concatenate(gap_last) > 1e-6
+    assert ok.mean() > 0.95
+    np.testing.assert_array_equal(np.isnan(on_card)[ok], np.isnan(on_cpu)[ok])
+    fin = ok & ~np.isnan(on_cpu)
+    nearest_apart = np.concatenate(gap_first) > 1e-6
+    np.testing.assert_allclose(on_card[fin & nearest_apart], on_cpu[fin & nearest_apart],
+                               atol=1e-5)
+    off = fin & (np.abs(on_card - on_cpu) > 1e-5)
+    assert off.sum() <= (fin & ~nearest_apart).sum() and off.mean() < 1e-3

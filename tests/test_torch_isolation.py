@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,8 +31,9 @@ def test_no_jax_imports(path):
 
 
 def test_port_runs_without_loading_jax():
-    """Importing the port, decoding with the in-repo prior and the optimizer's
-    sort-based unique (``ops/segment.py``) leave jax out of sys.modules."""
+    """Importing the port (the prior pipeline's modules too), decoding with
+    the in-repo prior, the optimizer's sort-based unique (``ops/segment.py``),
+    a train step and an SDF pass leave jax out of sys.modules."""
     code = (
         "import sys, torch\n"
         "from difusion_tpu_torch.slam import SLAMSystem, load_prior\n"
@@ -43,6 +45,20 @@ def test_port_runs_without_loading_jax():
         "uq = padded_unique_inverse(torch.tensor([3, 1, 3, 9], dtype=torch.int32),"
         " torch.tensor([True, True, True, False]))\n"
         "assert int(uq.count) == 2 and uq.inverse.tolist() == [1, 0, 1, 2]\n"
+        "from difusion_tpu_torch.train import trainer, losses, lif_dataset, lr_schedule\n"
+        "from difusion_tpu_torch.sampler import generator, sampler, mesh_io\n"
+        "from difusion_tpu_torch.models.decoder import DecoderSpec\n"
+        "from difusion_tpu_torch.models.encoder import EncoderSpec\n"
+        "from difusion_tpu_torch.utils import meters, adam\n"
+        "st = trainer.create_train_state(DecoderSpec(), EncoderSpec(), device='cpu')\n"
+        "st, ls = trainer.train_step(losses.LossConfig(), st, torch.rand(2, 8, 4),"
+        " torch.rand(2, 16, 6), 1e-3, 1e-3, 1)\n"
+        "assert st.step == 1 and bool(torch.isfinite(ls['total']))\n"
+        "import numpy as np\n"
+        "sdf = sampler.compute_sdf(np.zeros((3, 3), np.float32),"
+        " np.random.rand(40, 3).astype(np.float32), np.ones((40, 3), np.float32),"
+        " 0.07, device='cpu')\n"
+        "assert sdf.shape == (3,)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'difusion_tpu')]\n"
         "assert not bad, bad\n"
@@ -73,6 +89,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         mesh_tool.main(["map.npz", "mesh.ply", "--hyper", str(hyper)])
     with pytest.raises(RuntimeError, match="CUDA"):
         M.load_map("map.npz")
+    from difusion_tpu_torch.models.decoder import DecoderSpec
+    from difusion_tpu_torch.models.encoder import EncoderSpec
+    from difusion_tpu_torch.sampler import generator, sampler
+    from difusion_tpu_torch.train import trainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.create_train_state(DecoderSpec(), EncoderSpec())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.train({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sampler.compute_sdf(np.zeros((1, 3), np.float32), np.zeros((20, 3), np.float32),
+                            np.ones((20, 3), np.float32), 0.07)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generator.run_generation(None)
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")
