@@ -10,9 +10,11 @@ Phases, each printing one JSON line:
               anew on every run.
 3. kernels -- each kernel on the card against its plain PyTorch version on
               the same inputs, at its path's shapes (kernel 2 bit for bit,
-              also at the edges of its tiling and through both its entries);
-              its device time (CUDA-graph replay of back-to-back launches),
-              the wrapper's host time per call, and its bounds.
+              also at the edges of its tiling and through both its entries;
+              kernels 1 and 3 in their f32 and their bf16 mode, five
+              instances); its device time (CUDA-graph replay of
+              back-to-back launches), the wrapper's host time per call, and
+              its bounds.
 4. main    -- SLAMSystem.process_frame on the card at bench.py's
               configuration: a 640x480 SyntheticSequence, a dense 70x70x40
               map of 0.1 m voxels, point budget 8192, fusion every 20 frames,
@@ -32,6 +34,22 @@ Phases, each printing one JSON line:
               wait ms, the garbage collector's ms, and the largest pose
               difference between the two (at most 1e-5); then under
               "blocked": the same times and ATE.
+   modes   -- the 41 frames through from_config + run_sequence(chunk=12)
+              under the tracker's other modes (MODES): speed (the tiled L0
+              warp with the bf16 texture, RGB strides 1, 2, 2, the SDF term
+              in kernel 1's bf16 mode but for the last group), the JAX
+              package's default (the tiled warp) with and without the bf16
+              texture, parity_strict, sdf_fused off with and without the
+              gather cache, gn_unroll 2; then speed on the per-frame path;
+              then on the hash phase's map (HASH_MAPPING) speed chunked, per
+              frame, and chunked with gn_unroll 2.  ms/frame, ATE, exit
+              flags read, launches per kernel.  Fails on an ATE above
+              0.05 m, an exit flag read, no decode_grad_bf16 launch under
+              speed (either map), or unless these poses are torch.equal:
+              the two textures', gn_unroll 2's and the chunk phase's, the
+              cache's and sdf_fused off's, speed per frame and chunked (on
+              either map), and the hash map's speed with and without
+              gn_unroll 2.
    hash    -- the 41 frames through from_config with `indexer: hash` (a
               hash table of 2^18 entries over 2^16 slots) and meshing on, on
               the chunked path and on the per-frame path: poses equal bit
@@ -92,14 +110,21 @@ Phases, each printing one JSON line:
               SLAMSystem (meshing on) on the trained prior, whose kernel
               launches the kernels line gives as launches_prior.
 
-Then one line {"kernels": [...]} with every kernel's launches on its path,
-error against its plain version, times and bound, the nvidia-smi line, and
-last {"ok": true, "device": {...}}.  Any failed check exits nonzero.
+11. xprof -- `python -m difusion_tpu_torch.slam ... --xprof DIR` in-process
+              on 4 frames: the Chrome trace must exist and name kernel 1.
+
+Then one line {"kernels": [...]} with every kernel's launches on its path
+(and as each phase's counts read them: launches_<phase>), error against its
+plain version, times and bound, the nvidia-smi line, and last {"ok": true,
+"device": {...}}.  Kernel 3's bf16 mode is on no path: the run fails if any
+phase launched it.  Any failed check exits nonzero.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import shutil
 import statistics
@@ -118,6 +143,7 @@ from difusion_tpu_torch.ops._timing import graph_ms, host_us, time_ms
 # cores (dense), f32 outside them (an FMA counted as two operations), and
 # HBM3 bandwidth
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # f32 instructions a second outside the tensor cores: 132 SMs x 128 lanes x
@@ -131,6 +157,17 @@ CHUNK = 12           # frames a chunk, as bench.py streams them
 MESH_MAX_STD = 0.15  # the online default; the offline run uses it too
 MAX_MESH_ERR = 0.05  # m, 95th percentile distance to the analytic surface
 MAX_FRAME_MS = 1e3 / 30   # a 30 fps camera
+# the bf16 mode of kernels 1 and 3 against its plain version (which rounds
+# at the same points; the f32 sums run in another order, so an activation may
+# round to the neighbouring bf16 value): sdf and std within BF16_ATOL (the
+# card's spread at N = 2^20 was 8.8e-4, ten times inside the JAX package's
+# own bf16-against-f32 bound of 2e-2, tests/test_decoder_fused.py); the
+# gradient within 1e-3 + 1e-3 |ref| but on at most BF16_FLIP_ROWS of the
+# rows (and 2 at small N), and every row within that test's bf16 gradient
+# bound, atol 0.15 + rtol 0.05
+BF16_ATOL = 2e-3
+BF16_FLIP_ROWS = 1e-3
+MAX_ATE = 0.05
 # the prior phase: shapes generated per data config (the configs' 50 and 100
 # cut so that the corpus holds >= 3 batches of 64), and train steps
 PRIOR_SHAPES = {"simple": 3, "heightfield": 2}
@@ -147,6 +184,10 @@ STUDY_MIXED = Path(__file__).resolve().parent / "configs/train-study-mixed.yaml"
 # (the configuration's 600 is out of reach in three fusions; the accuracy
 # study lowers it to 200 over twelve)
 OPT_COUNT_TH = 60.0
+# the hash phase's map (configs/fusion-scannet.yaml's indexer at the synthetic
+# frames' voxel size and thresholds)
+HASH_MAPPING = {"indexer": "hash", "voxel_size": 0.1, "prune_min_vox_obs": 16,
+                "ignore_count_th": 16.0, "encoder_count_th": 600.0}
 
 
 def emit(obj) -> None:
@@ -226,6 +267,109 @@ def check_decoder(packed, fused_mod, dev):
                             "with its input gradient",
             "shape": f"N={n}, f32 in and out, 3xTF32 products",
             "flops": flops, "bytes": nbytes}
+
+
+def bf16_bounds(flops: float, nbytes: float) -> dict:
+    """The bf16 mode multiplies once on the tensor cores: flops at the bf16
+    dense peak."""
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    return {"bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_decoder_bf16(packed, fused_mod, dev):
+    """Kernel 1's bf16 mode vs its plain bf16 version at N = 8192, 1 and
+    8191: sdf/std within BF16_ATOL; gradient rows beyond 1e-3 + 1e-3 |ref|
+    (a bf16 rounding that went the other way) at most BF16_FLIP_ROWS of N,
+    all rows within atol 0.15 + rtol 0.05."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst, flip_rows, main_inputs = 0.0, 0, None
+    for n in (8192, 1, 8191):
+        lat = torch.randn(n, 29, generator=gen, device=dev) * 0.3
+        rel = torch.rand(n, 3, generator=gen, device=dev) - 0.5
+        got = fused_mod.decode_grad_fused(packed, lat, rel)
+        ref = fused_mod.decode_grad_plain(packed, lat, rel)
+        torch.cuda.synchronize()
+        for name, g, r in (("sdf", got[0], ref[0]), ("std", got[1], ref[1])):
+            err = (g - r).abs()
+            if not torch.isfinite(g).all() or bool((err > BF16_ATOL).any()):
+                fail(f"decode_grad_bf16 {name} at N={n}: max abs err {err.max().item():.3g}")
+            worst = max(worst, err.max().item())
+        if not torch.isfinite(got[2]).all():
+            fail(f"decode_grad_bf16 grad at N={n}: not finite")
+        err = (got[2] - ref[2]).abs()
+        if bool((err > 0.15 + 0.05 * ref[2].abs()).any()):
+            fail(f"decode_grad_bf16 grad at N={n}: max abs err {err.max().item():.3g}")
+        beyond = (err > 1e-3 + 1e-3 * ref[2].abs()).any(dim=1)
+        if int(beyond.sum()) > max(2, BF16_FLIP_ROWS * n):
+            fail(f"decode_grad_bf16 grad at N={n}: {int(beyond.sum())} rows off")
+        flip_rows += int(beyond.sum())
+        if not bool(beyond.all()):
+            worst = max(worst, err[~beyond].max().item())
+        if n == 8192:
+            main_inputs = (lat, rel)
+    lat, rel = main_inputs
+    n = lat.shape[0]
+    flops = 2.0 * (fused_mod.FWD_MACS + fused_mod.BWD_MACS) * n
+    nbytes = 4.0 * (n * 29 + n * 3 + fused_mod.PACKED_SIZE_BF16 + n * 5)
+
+    def call():
+        return fused_mod.decode_grad_fused(packed, lat, rel)
+    return {"name": "decode_grad_bf16", "route": "cuda",
+            "source": "difusion_tpu_torch/csrc/decoder_grad.cu",
+            "replaces": "difusion_tpu/ops/decoder_fused.py:189",
+            "max_abs_err": worst, "grad_rows_at_bf16_flip": flip_rows,
+            "tolerance": f"sdf/std {BF16_ATOL}; grad 1e-3 + 1e-3|ref| on all but "
+                         f"{BF16_FLIP_ROWS} of the rows, 0.15 + 0.05|ref| on all",
+            "ms": graph_ms(call, 50), "eager_ms": time_ms(call, 20),
+            "host_us": host_us(call),
+            "plain_ms": time_ms(lambda: fused_mod.decode_grad_plain(packed, lat, rel), 5),
+            **bf16_bounds(flops, nbytes), "library_ms": None,
+            "library_note": "no single PyTorch call computes an MLP forward "
+                            "with its input gradient",
+            "shape": f"N={n}, f32 in and out, bf16 products, f32 sums",
+            "flops": flops, "bytes": nbytes}
+
+
+def check_decode_fused_bf16(packed, fused_mod, dev):
+    """Kernel 3's bf16 mode vs its plain bf16 version at N = 2^20, 1 and
+    524,287 on lattice-range inputs: sdf/std within BF16_ATOL."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst, main_inputs = 0.0, None
+    for n in (1 << 20, 1, 524287):
+        lat = torch.randn(n, 29, generator=gen, device=dev) * 0.3
+        rel = torch.rand(n, 3, generator=gen, device=dev) * 1.75 - 1.0
+        got = fused_mod.decode_fused(packed, lat, rel)
+        ref = fused_mod.decode_fused_plain(packed, lat, rel)
+        torch.cuda.synchronize()
+        for name, g, r in (("sdf", got[0], ref[0]), ("std", got[1], ref[1])):
+            err = (g - r).abs()
+            if not torch.isfinite(g).all() or bool((err > BF16_ATOL).any()):
+                fail(f"decode_fwd_bf16 {name} at N={n}: max abs err {err.max().item():.3g}")
+            worst = max(worst, err.max().item())
+        if n == 1 << 20:
+            main_inputs = (lat, rel)
+    lat, rel = main_inputs
+    n = lat.shape[0]
+    flops = 2.0 * fused_mod.FWD_MACS * n
+    nbytes = 4.0 * (n * 29 + n * 3 + fused_mod.PACKED_SIZE_BF16 + n * 2)
+
+    def call():
+        return fused_mod.decode_fused(packed, lat, rel)
+    return {"name": "decode_fwd_bf16", "route": "cuda",
+            "source": "difusion_tpu_torch/csrc/decoder_grad.cu",
+            "replaces": "difusion_tpu/ops/decoder_fused.py:105",
+            "max_abs_err": worst, "tolerance": f"sdf/std {BF16_ATOL}",
+            "ms": graph_ms(call, 5), "eager_ms": time_ms(call, 10, per_batch=5),
+            "host_us": host_us(call, 20),
+            "plain_ms": time_ms(lambda: fused_mod.decode_fused_plain(packed, lat, rel),
+                                5, per_batch=3),
+            **bf16_bounds(flops, nbytes), "library_ms": None,
+            "library_note": "no single PyTorch call computes the decoder MLP",
+            "shape": f"N={n}, f32 in and out, bf16 products, f32 sums",
+            "flops": flops, "bytes": nbytes,
+            "path": "none: no path of either package decodes the lattice in bf16 "
+                    "(decode_fused with a bf16 pack is API only); launches are the "
+                    "mesh phase's count, launches_<phase> every other phase's"}
 
 
 def check_decode_fused(packed, fused_mod, dev):
@@ -660,6 +804,140 @@ def prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod,
     kernels[2]["max_abs_err_prior"] = k3["max_abs_err"]
 
 
+MODES = {
+    # tools/accuracy_study.py's variants, with the JAX package's warp_tiled
+    # default written out (the port's default is the per-pixel warp)
+    "speed": dict(warp_tiled=True, rgb_stride=[1, 2, 2], sdf_compute_dtype="bfloat16"),
+    "default_jax": dict(warp_tiled=True),
+    "default_jax_f32_texture": dict(warp_tiled=True, warp_texture_bf16=False),
+    "parity_strict": dict(xi_tol=0.0, energy_rel_tol=0.0, rgb_bilinear=False,
+                          rgb_fullres_K=True),
+    "sdf_fused_off": dict(sdf_fused="off"),
+    "sdf_fused_off_cache": dict(sdf_fused="off", sdf_gather_cache=True),
+    "gn_unroll_2": dict(gn_unroll=2),
+}
+
+
+def modes_phase(args, tracking, calib, seq, rendered, csys, frames, uploads, dev,
+                chunk_ms_per_frame):
+    """The modes phase (module docstring): each of MODES through
+    from_config + run_sequence(chunk=12) on the 41 frames, then speed on the
+    per-frame path, then speed on the hash map (chunked, per frame, and
+    chunked with gn_unroll 2).  Returns its line and speed's launch counts."""
+    from difusion_tpu_torch.config import dict_to_args
+    from difusion_tpu_torch.ops import _build
+    from difusion_tpu_torch.slam import SLAMSystem
+
+    def system(extra, mapping=None):
+        margs = {**vars(args), "tracking": {**tracking, **extra}}
+        if mapping:
+            margs["mapping"] = mapping
+        return SLAMSystem.from_config(dict_to_args(margs), calib, seq.first_iso,
+                                      capacity=1 << 16, point_budget=8192, meshing=False)
+    rows, poses = {}, {}
+    n_tracked = N_MAIN - 1
+    chunked = [(label, extra, None) for label, extra in MODES.items()] + [
+        ("hash_speed", MODES["speed"], HASH_MAPPING),
+        ("hash_speed_gn_unroll_2", {**MODES["speed"], "gn_unroll": 2}, HASH_MAPPING)]
+    for label, extra, mapping in chunked:
+        msys = system(extra, mapping)
+        if msys.is_hash != bool(mapping):
+            fail(f"modes {label}: from_config built {msys.map_cfg}")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        run = run_chunked(msys, rendered(N_MAIN), N_MAIN)
+        counts = _build.launch_counts()
+        passes = next(iter(msys.tracker.programs.values())).program.loop_passes()
+        k1 = counts.get("decode_grad_fused", 0) + counts.get("decode_grad_bf16", 0)
+        rows[label] = {"ms_per_frame": run["ms_per_frame"],
+                       "ate_rmse_m": run["result"]["ate_rmse"],
+                       "exit_flags_read": msys.tracker.n_host_syncs,
+                       "launches": counts,
+                       "kernel1_launches_per_frame": k1 / n_tracked,
+                       "gn_evaluations_per_frame": sum(passes) / n_tracked,
+                       "loop_passes_by_group": [p for p in passes if p]}
+        poses[label] = msys.tracker.pose_history()
+        if label == "speed":
+            speed_counts = counts
+        del msys, run
+    for label, mapping in (("speed_per_frame", None), ("hash_speed_per_frame", HASH_MAPPING)):
+        psys = system(MODES["speed"], mapping)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        pf_ms = run_per_frame(psys, frames, uploads, dev, N_MAIN)
+        rows[label] = {"ms_per_frame": statistics.median(pf_ms[2:]),
+                       "exit_flags_read": psys.tracker.n_host_syncs,
+                       "launches": _build.launch_counts()}
+        poses[label] = psys.tracker.pose_history()
+        del psys
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(poses[a], poses[b]))
+
+    def diff(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(poses[a], poses[b]))
+    poses["chunk_phase"] = csys.tracker.pose_history()
+    checks = {
+        "textures_torch_equal": equal("default_jax", "default_jax_f32_texture"),
+        "gn_unroll_2_torch_equal_chunk_phase": equal("gn_unroll_2", "chunk_phase"),
+        "cache_torch_equal_off": equal("sdf_fused_off_cache", "sdf_fused_off"),
+        "speed_per_frame_torch_equal_chunked": equal("speed_per_frame", "speed"),
+        "hash_speed_per_frame_torch_equal_chunked": equal("hash_speed_per_frame",
+                                                          "hash_speed"),
+        "hash_gn_unroll_2_torch_equal_speed": equal("hash_speed_gn_unroll_2", "hash_speed"),
+        "pose_max_abs_diff_off_vs_fused": diff("sdf_fused_off", "chunk_phase"),
+        "pose_max_abs_diff_default_jax_vs_chunk_phase": diff("default_jax", "chunk_phase"),
+    }
+    line = {"phase": "modes", "frames": N_MAIN, "chunk": CHUNK, **rows, **checks,
+            "chunk_phase_ms_per_frame": chunk_ms_per_frame}
+    for label, row in rows.items():
+        if "ate_rmse_m" in row and not row["ate_rmse_m"] <= MAX_ATE:
+            fail(f"modes {label}: ATE {row['ate_rmse_m']:.4f} m > {MAX_ATE} m")
+        if row["exit_flags_read"] != 0:
+            fail(f"modes {label}: the host read {row['exit_flags_read']} exit flags")
+    for label in ("speed", "speed_per_frame", "hash_speed", "hash_speed_per_frame",
+                  "hash_speed_gn_unroll_2"):
+        if rows[label]["launches"].get("decode_grad_bf16", 0) == 0:
+            fail(f"modes {label}: decode_grad_bf16 was not launched")
+    for key in ("textures_torch_equal", "gn_unroll_2_torch_equal_chunk_phase",
+                "cache_torch_equal_off", "speed_per_frame_torch_equal_chunked",
+                "hash_speed_per_frame_torch_equal_chunked",
+                "hash_gn_unroll_2_torch_equal_speed"):
+        if not checks[key]:
+            emit(line)
+            fail(f"modes: {key} is false")
+    return line, speed_counts
+
+
+def xprof_check(slam_mod) -> dict:
+    """``python -m difusion_tpu_torch.slam ... --xprof DIR`` in-process on 4
+    frames of configs/fusion-synthetic.yaml (the in-repo prior, meshing
+    off): the Chrome trace must exist and name kernel 1."""
+    root = Path(__file__).resolve().parent
+    trace_dir = Path(tempfile.mkdtemp(prefix="xprof_"))
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            slam_mod.main([str(root / "configs/fusion-synthetic.yaml"),
+                           "--set", f"training_hypers={HYPER}", "--max-frames", "4",
+                           "--no-mesh", "--xprof", str(trace_dir),
+                           "--output", str(trace_dir / "out")])
+        trace = trace_dir / "trace.json"
+        if not trace.exists():
+            fail("--xprof wrote no trace")
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+        k1 = sum(1 for e in events if "decode_grad_kernel" in e.get("name", ""))
+        summary = json.loads(out.getvalue()[out.getvalue().rindex("{\n"):])
+        line = {"phase": "xprof", "frames": 4, "trace_bytes": trace.stat().st_size,
+                "events": len(events), "decode_grad_kernel_events": k1,
+                "ate_rmse_m": summary.get("ate_rmse")}
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    if k1 == 0:
+        fail("the --xprof trace names no decode_grad_kernel")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -716,16 +994,23 @@ def main() -> int:
     system = SLAMSystem(map_cfg, tcfg, dec, enc, calib, integrate_interval=20,
                         depth_cut=(0.5, 5.0), meshing=False, device=dev)
 
+    packed_bf16 = fused_mod.pack_fused_decoder(dec, torch.bfloat16)
     kernels = [check_decoder(system.tracker.packed, fused_mod, dev),
                check_stencil(frames[0], system.tracker.tcfg, calib, stencil_mod,
                              tracker_mod, imgproc, info, dev),
-               check_decode_fused(system.tracker.packed, fused_mod, dev)]
+               check_decode_fused(system.tracker.packed, fused_mod, dev),
+               check_decoder_bf16(packed_bf16, fused_mod, dev),
+               check_decode_fused_bf16(packed_bf16, fused_mod, dev)]
     emit({"phase": "kernels", "checked": [k["name"] for k in kernels]})
 
     # ---- main path: counts reset just before, read just after ----
     uploads = [torch.from_numpy(tracker_mod.pack_frame(
         f.rgb, f.depth, calib.dcam_scale)).pin_memory() for f in frames]
+    # the kernels phase's garbage and cached blocks (the N = 2^20 checks)
+    # must not land in the main path's timed frames
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     _build.reset_launch_counts()
     frame_ms = []
     for k in range(N_MAIN):
@@ -776,6 +1061,7 @@ def main() -> int:
     for k in kernels[:2]:
         k["launches"] = counts.get(k["name"], 0)
         k["path"] = "main"
+    kernels[4]["launches_main"] = counts.get("decode_fwd_bf16", 0)
 
     # ---- chunk phase: the normal entry point, the GN loops on the card ----
     class Rendered(RGBDSequence):
@@ -797,18 +1083,19 @@ def main() -> int:
 
     # configs/fusion-synthetic.yaml as a dictionary (no YAML read), with the
     # in-repo prior
+    tracking = {"iter_config": [{"n": 10, "type": [["rgb", 2]]},
+                                {"n": 10, "type": [["sdf"], ["rgb", 1]]},
+                                {"n": 50, "type": [["sdf"], ["rgb", 0]]}],
+                "sdf": {"robust_kernel": "huber", "robust_k": 5.0, "subsample": 0.5},
+                "rgb": {"weight": 500.0, "robust_kernel": None, "robust_k": 0.01,
+                        "min_grad_scale": 0.0, "max_depth_delta": 0.2}}
     args = dict_to_args({
         "training_hypers": str(HYPER), "using_epoch": 300, "resolution": 4,
         "depth_cut_min": 0.5, "depth_cut_max": 5.0, "integrate_interval": 20,
         "mapping": {"bound_min": [-3.5, -3.5, -0.5], "bound_max": [3.5, 3.5, 3.5],
                     "voxel_size": 0.1, "prune_min_vox_obs": 16,
                     "ignore_count_th": 16.0, "encoder_count_th": 600.0},
-        "tracking": {"iter_config": [{"n": 10, "type": [["rgb", 2]]},
-                                     {"n": 10, "type": [["sdf"], ["rgb", 1]]},
-                                     {"n": 50, "type": [["sdf"], ["rgb", 0]]}],
-                     "sdf": {"robust_kernel": "huber", "robust_k": 5.0, "subsample": 0.5},
-                     "rgb": {"weight": 500.0, "robust_kernel": None, "robust_k": 0.01,
-                             "min_grad_scale": 0.0, "max_depth_delta": 0.2}}})
+        "tracking": tracking})
     csys = SLAMSystem.from_config(args, calib, seq.first_iso, capacity=1 << 16,
                                   point_budget=8192, meshing=False)
     # (the yaml's rgb robust_k of 0.01 is inert: its robust_kernel is null)
@@ -882,7 +1169,7 @@ def main() -> int:
              f"times on the chunked path, expected >= {2 * n_tracked}")
     if csys.tracker.n_host_syncs != 0:
         fail(f"the host read {csys.tracker.n_host_syncs} exit flags on the chunked path")
-    for k in kernels[:2]:
+    for k in kernels:
         k["launches_chunk"] = ccounts.get(k["name"], 0)
 
     # ---- compensated / blocked: the order-robust normal equations ----
@@ -919,10 +1206,19 @@ def main() -> int:
             fail(f"{label} ATE {run['result']['ate_rmse']:.4f} m > 0.05 m")
     del comp
 
+    # ---- modes: the tracker's remaining modes on the chunk phase's frames ----
+    modes_line, speed_counts = modes_phase(args, tracking, calib, seq, Rendered, csys,
+                                           frames, uploads, dev, chunk_ms_per_frame)
+    emit(modes_line)
+    kernels[3]["launches"] = speed_counts.get("decode_grad_bf16", 0)
+    kernels[3]["path"] = "modes: speed (chunked; groups before the last)"
+    for k in kernels:
+        k["launches_modes"] = sum(row["launches"].get(k["name"], 0)
+                                  for row in modes_line.values()
+                                  if isinstance(row, dict) and "launches" in row)
+
     # ---- hash: the hash-indexed map through from_config, meshing on ----
-    hargs = dict_to_args({**vars(args), "mapping": {
-        "indexer": "hash", "voxel_size": 0.1, "prune_min_vox_obs": 16,
-        "ignore_count_th": 16.0, "encoder_count_th": 600.0}})
+    hargs = dict_to_args({**vars(args), "mapping": HASH_MAPPING})
     hsys = SLAMSystem.from_config(hargs, calib, seq.first_iso, capacity=1 << 16,
                                   point_budget=8192, meshing=True)
     fsys = SLAMSystem.from_config(hargs, calib, seq.first_iso, capacity=1 << 16,
@@ -983,9 +1279,9 @@ def main() -> int:
     if hres["alloc_overflow"] != 0:
         fail(f"hash alloc_overflow {hres['alloc_overflow']}")
     check_mesh("hash", htris, hmerr)
-    for k in kernels:
+    for i, k in enumerate(kernels):     # the bf16 instances run under speed (modes)
         k["launches_hash"] = hcounts.get(k["name"], 0)
-        if k["launches_hash"] < 1:
+        if i < 3 and k["launches_hash"] < 1:
             fail(f"{k['name']} was not launched on the hash path")
     del hsys, fsys
 
@@ -1058,9 +1354,9 @@ def main() -> int:
             fail(f"optimize ({label}): ATE {r['ate_rmse_m']:.4f} m > 0.05 m")
         if not r["optimize_ms"]:
             fail(f"optimize ({label}): the optimizer never ran")
-    for k in kernels[:2]:
+    for i, k in enumerate(kernels):
         k["launches_optimize"] = ref["launches"].get(k["name"], 0)
-        if k["launches_optimize"] < 1:
+        if i < 2 and k["launches_optimize"] < 1:
             fail(f"{k['name']} was not launched on the optimize path")
     # one optimize call's device time by op, on the last fused keyframe
     osys = per_frame["system"]
@@ -1123,6 +1419,7 @@ def main() -> int:
         fail(f"mesh phase ATE {mate:.4f} m > 0.05 m")
     kernels[2]["launches"] = counts.get("decode_fused", 0)
     kernels[2]["path"] = "mesh (online extracts on the fusion frames)"
+    kernels[4]["launches"] = counts.get("decode_fwd_bf16", 0)
 
     # ---- async: the mesh phase's run with the extracts in a worker ----
     asys = SLAMSystem(map_cfg, tcfg, dec, enc, calib, integrate_interval=20,
@@ -1159,9 +1456,9 @@ def main() -> int:
         fail(f"async: {len(atris)} triangles differ from the synchronous run's {len(tris)}")
     if not apose_equal:
         fail("async: poses differ from the synchronous run's")
-    for k in kernels:
+    for i, k in enumerate(kernels):
         k["launches_async"] = acounts.get(k["name"], 0)
-        if k["launches_async"] < 1:
+        if i < 3 and k["launches_async"] < 1:
             fail(f"{k['name']} was not launched on the async path")
     del asys
 
@@ -1194,7 +1491,8 @@ def main() -> int:
     if counts.get("decode_fused", 0) < 1:
         fail("the offline mesher launched no decode_fused")
     check_mesh("offline", tris, merr)
-    kernels[2]["launches_offline"] = counts.get("decode_fused", 0)
+    for k in (kernels[2], kernels[4]):
+        k["launches_offline"] = counts.get(k["name"], 0)
 
     # ---- mesh_fast: the mesh phase's map, coarse-to-fine against dense ----
     fast_rows = {}
@@ -1244,9 +1542,9 @@ def main() -> int:
                  f"> {MAX_MESH_ERR} m")
         if fast_row["triangles"] == 0:
             fail(f"mesh_fast {r}: no triangles")
-    kernels[2]["launches_fast"] = fast_rows["fast_r4"]["launches"].get("decode_fused", 0)
-    kernels[2]["launches_fast_offline"] = fast_rows["fast_r8_tool"]["launches"].get(
-        "decode_fused", 0)
+    for k in (kernels[2], kernels[4]):
+        k["launches_fast"] = fast_rows["fast_r4"]["launches"].get(k["name"], 0)
+        k["launches_fast_offline"] = fast_rows["fast_r8_tool"]["launches"].get(k["name"], 0)
 
     # ---- device time by kernel: 3 more main-path frames, one full extract.
     # Last, so that no phase above runs after the profiler has run.
@@ -1254,6 +1552,7 @@ def main() -> int:
         for k in range(N_MAIN, N_MAIN + N_PROFILE):
             system.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True),
                                  driver="host")
+    _build.reset_launch_counts()
     syncs_before = system.tracker.n_host_syncs
     k1_before = _build.launch_counts().get("decode_grad_fused", 0)
     frame_profile = profiled(profile_frames)
@@ -1292,8 +1591,21 @@ def main() -> int:
                                           no_cache=True)),
           **full.last_stats})
 
+    kernels[4]["launches_profile"] = _build.launch_counts().get("decode_fwd_bf16", 0)
+
     # ---- prior: generator -> trainer -> the trained prior in serving ----
     prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod, _build)
+
+    # ---- xprof: the CLI's profiler trace ----
+    _build.reset_launch_counts()
+    emit(xprof_check(slam_mod))
+    kernels[4]["launches_xprof"] = _build.launch_counts().get("decode_fwd_bf16", 0)
+
+    # kernel 3's bf16 mode is on no path: every phase's count must be 0
+    stray = {key: n for key, n in kernels[4].items() if key.startswith("launches") and n}
+    if stray:
+        emit({"kernels": kernels})
+        fail(f"decode_fwd_bf16 is on no path, yet launched: {stray}")
 
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -3,7 +3,8 @@ counterpart of tools/accuracy_study.py's ``run_slam``, ``run_scannet_long``
 and ``run_mapping_only``).
 
     python -m difusion_tpu_torch.accuracy [--frames 120] [--loop-frames 300]
-        [--scannet 300] [--variants default,compensated] [--only SUBSTR]
+        [--scannet 300] [--variants default,packed,parity,parity_strict,speed,compensated]
+        [--only SUBSTR]
         [--loop-variants compensated]
         [--perturb-variants perturbed_comp-7,perturbed_comp-23]
         [--mapping-only 120] [--out accuracy_out] [--workers 8] [--device cuda]
@@ -32,12 +33,21 @@ end for the mesh error against the analytic surface):
   latent optimization (sync, 20 Adam iterations a fusion), then a no-cache
   r = 4 extract at max_std 0.25: the optimizer's effect on the mesh error.
 
-Variants: ``default`` (the port's tracker defaults: the per-pixel warp),
-``compensated``, ``blocked``, and
+Variants, with the meanings of tools/accuracy_study.py's: ``default``
+(early exits, the block-tiled warp with the bf16 sensor-grid L0 texture:
+the JAX package's defaults), ``packed`` (the same with the per-pixel warp:
+the port's own tracker defaults), ``parity`` (every configured iteration,
+no early exit, the per-pixel warp), ``parity_strict`` (parity with the
+round-to-nearest warp and the full-resolution intrinsics at every level),
+``speed`` (the shipped speed preset: RGB strides 1, 2, 2 and the SDF term in
+bf16 but for the last group), ``compensated``, ``blocked``, and
 ``perturbed[_comp|_blk]-N`` (a fixed permutation of the SDF points drawn
-from N, plain / compensated / blocked).  Rows go to ``<out>/results.json``
-with the card's name and power limit, beside the matching rows of
-``--reference`` where they exist.
+from N, plain / compensated / blocked).  Every variant but ``packed``,
+``parity`` and ``parity_strict`` runs the tiled warp, as the JAX package's
+do.  Rows go to ``<out>/results.json`` with the card's name and power limit,
+beside the JAX row of the same sequence and variant in ``--reference``
+where it exists, marked by the checkpoint that row was taken with (only
+``default`` and ``compensated`` have rows on this prior).
 """
 from __future__ import annotations
 
@@ -75,7 +85,21 @@ def tracking_args(variant: str = "default"):
         "sdf": {"robust_kernel": "huber", "robust_k": 5.0, "subsample": 0.5},
         "rgb": {"weight": 500.0, "robust_kernel": None, "robust_k": 0.01,
                 "min_grad_scale": 0.0, "max_depth_delta": 0.2}})
-    if variant in ("compensated", "blocked"):
+    # the JAX package's TrackerConfig default, which the port's does not take
+    targs.warp_tiled = True
+    if variant in ("parity", "parity_strict"):
+        targs.xi_tol = 0.0
+        targs.energy_rel_tol = 0.0
+        targs.warp_tiled = False
+        if variant == "parity_strict":
+            targs.rgb_bilinear = False
+            targs.rgb_fullres_K = True
+    elif variant == "packed":
+        targs.warp_tiled = False
+    elif variant == "speed":
+        targs.rgb_stride = [1, 2, 2]
+        targs.sdf_compute_dtype = "bfloat16"
+    elif variant in ("compensated", "blocked"):
         targs.solve_dtype = variant
     elif variant.startswith("perturbed"):
         targs.perturb_points = int(variant.split("-")[1]) if "-" in variant else 7
@@ -206,7 +230,7 @@ def main(argv=None) -> dict:
     p.add_argument("--scannet", type=int, default=0)
     p.add_argument("--mapping-only", type=int, default=120,
                    help="frames of the mapping-only A/B (0 skips it)")
-    p.add_argument("--variants", default="default,compensated")
+    p.add_argument("--variants", default="default,packed,parity,parity_strict,speed,compensated")
     p.add_argument("--loop-variants", default="compensated")
     p.add_argument("--perturb-variants", default="perturbed_comp-7,perturbed_comp-23")
     p.add_argument("--only", default="", help="substring filter on dataset names")
@@ -242,10 +266,15 @@ def main(argv=None) -> dict:
         for variant in variants.split(","):
             r = run_slam(d, kw["n_frames"], variant, prior, device)
             r.update(seq=name, config=variant, write_s=write_s)
-            jr = ref.get((name, f"{variant}+self-prior-mixed")) or ref.get((name, variant))
+            jr = ref.get((name, f"{variant}+self-prior-mixed"))
+            checkpoint = "study_mixed (this run's prior)"
+            if jr is None:
+                jr = ref.get((name, variant))
+                checkpoint = "the reference checkpoint (not this run's prior)"
             if jr:
                 r["reference"] = {k: jr[k] for k in ("config", "ate_rmse", "mesh_err_p95")
                                   if k in jr}
+                r["reference"]["checkpoint"] = checkpoint
             rows.append(r)
             print(json.dumps(r), flush=True)
     if args.scannet > 0 and (not args.only or args.only in "scannet"):

@@ -270,10 +270,12 @@ def gather_latent_rel(cfg: HashMapConfig, state: HashMapState, xyz: torch.Tensor
 
 
 def query_sdf(cfg: HashMapConfig, decoder: Decoder, state: HashMapState,
-              xyz: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(sdf, std, valid) of world points through the decoder."""
+              xyz: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sdf, std, valid) of world points through the decoder (in
+    ``compute_dtype``)."""
     latent, rel, valid = gather_latent_rel(cfg, state, xyz, M.latent_count_table(state))
-    sdf, std = decoder.decode(latent, rel)
+    sdf, std = decoder.decode(latent, rel, compute_dtype=compute_dtype)
     return sdf, std, valid
 
 

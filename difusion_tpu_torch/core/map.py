@@ -43,6 +43,10 @@ class MapConfig(NamedTuple):
     def n_cells(self) -> int:
         return int(np.prod(self.n_xyz))
 
+    @property
+    def bound_max(self) -> Tuple[float, float, float]:
+        return tuple(b + n * self.voxel_size for b, n in zip(self.bound_min, self.n_xyz))
+
     @classmethod
     def from_args(cls, args, latent_dim: int = 29, capacity: int = 1 << 15) -> "MapConfig":
         """Build from a reference-style mapping config namespace
@@ -283,12 +287,14 @@ def gather_latent_rel(cfg: MapConfig, state: MapState, xyz: torch.Tensor,
     return latent, rel, valid
 
 
-def query_sdf(cfg: MapConfig, decoder: Decoder, state: MapState, xyz: torch.Tensor
+def query_sdf(cfg: MapConfig, decoder: Decoder, state: MapState, xyz: torch.Tensor,
+              compute_dtype: torch.dtype = torch.float32
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(sdf, std, valid) of world points through the decoder; an invalid
+    """(sdf, std, valid) of world points through the decoder (in
+    ``compute_dtype``, :meth:`~..models.decoder.Decoder.decode`); an invalid
     point decodes a zero latent and is masked downstream."""
     latent, rel, valid = gather_latent_rel(cfg, state, xyz, latent_count_table(state))
-    sdf, std = decoder.decode(latent, rel)
+    sdf, std = decoder.decode(latent, rel, compute_dtype=compute_dtype)
     return sdf, std, valid
 
 

@@ -258,6 +258,14 @@ def _jet_lut() -> np.ndarray:
 _JET = _jet_lut()
 
 
+def jet_rgb(t: np.ndarray) -> np.ndarray:
+    """Values in [0, 1] -> (N, 3) uint8 jet colours, as
+    ``(matplotlib.cm.jet(t)[:, :3] * 255).astype(np.uint8)`` gives them
+    (entry min(int(256 t), 255), ``256 t`` in ``t``'s own dtype)."""
+    idx = np.minimum((np.asarray(t) * 256).astype(np.int64), 255)
+    return (_JET[idx] * 255).astype(np.uint8)
+
+
 class _MeshExtractorBase:
     """The cache and the extract driver; a backend resolves cells and slots
     (:meth:`_mesh_prep`) and gives the marching-cubes grid (:meth:`_mc_grid`).
@@ -426,9 +434,7 @@ class _MeshExtractorBase:
         stds = self._std.reshape(-1)
         if len(stds):
             lo, hi = std_range if std_range is not None else (stds.min(), stds.max())
-            t = np.clip((stds - lo) / max(hi - lo, 1e-12), 0.0, 1.0)
-            idx = np.minimum((t * 256).astype(np.int64), 255)
-            colors = (_JET[idx] * 255).astype(np.uint8)
+            colors = jet_rgb(np.clip((stds - lo) / max(hi - lo, 1e-12), 0.0, 1.0))
         else:
             colors = np.zeros((0, 3), np.uint8)
         vrec = np.empty(len(verts), np.dtype([("xyz", "<f4", 3), ("rgb", "u1", 3)]))

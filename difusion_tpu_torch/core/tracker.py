@@ -7,10 +7,13 @@ pyramid, subsample and unproject the depth, reduce a (2w+1)^2 window per
 pixel for radius-outlier counts and PCA normals (kernel 2,
 ``ops/stencil.py``), voxel-filter the point cloud to the point budget, then
 run the grouped Gauss-Newton schedule over se(3): an SDF term (decoder
-forward + d sdf/d xyz in one kernel, kernel 1, ``ops/decoder_fused.py``)
-and a photometric term (per-pixel bilinear warp), a Jacobi-preconditioned
-6x6 solve and energy rejection.  ``solve_dtype`` ``compensated`` /
-``blocked`` accumulate each term's normal equations as one order-robust Gram
+forward + d sdf/d xyz in one kernel, kernel 1, ``ops/decoder_fused.py``, in
+f32 or, under ``sdf_compute_dtype="bfloat16"``, in its bf16 mode; or with
+``sdf_fused="off"`` autograd through ``Decoder.decode``) and a photometric
+term (the per-pixel bilinear warp, the block-tiled warp of
+``warp_tiled=True`` or the round-to-nearest warp of ``rgb_bilinear=False``),
+a Jacobi-preconditioned 6x6 solve and energy rejection.  ``solve_dtype``
+``compensated`` / ``blocked`` accumulate each term's normal equations as one order-robust Gram
 of ``[J | r]`` (``ops/compsum.py``), and ``compensated`` adds one
 iterative-refinement step to the solve; ``perturb_points`` permutes the SDF
 points by a fixed permutation (a test that the sums do not depend on order).
@@ -41,7 +44,7 @@ import torch
 
 from ..models.decoder import Decoder
 from ..ops import compsum, imgproc
-from ..ops.decoder_fused import decode_grad_fused, pack_fused_decoder
+from ..ops.decoder_fused import decode_grad_fused, pack_fused_decoder, supports_spec
 from ..ops.imgproc import Intrinsic, Pyramid
 from ..ops.pcproc import point_box_filter
 from ..ops.se3 import Pose, exp_twist
@@ -61,12 +64,19 @@ def _stride_tuple(v, n_levels: int = 3) -> Tuple[int, ...]:
 
 class TrackerConfig(NamedTuple):
     """Tracker configuration: the JAX package's fields and defaults, except
-    two routes the port takes by default and alone -- ``warp_tiled=False``
-    (the per-pixel bilinear warp; the JAX block-tiled warp is a TPU layout
-    device that is bit-exact per kept pixel, tracker.py:94-105) and
+    two routes the port takes by default -- ``warp_tiled=False`` (the
+    per-pixel bilinear warp; the JAX block-tiled warp is a TPU layout device
+    that is bit-exact per kept pixel, tracker.py:94-105) and
     ``sdf_fused="on"`` (the fused decoder-gradient kernel; the JAX default
-    XLA forward+vjp computes the same function).  Values the port does not
-    implement raise ``NotImplementedError`` in :class:`SDFTracker`."""
+    XLA forward+vjp computes the same function).  Keeping them keeps the
+    card's measurements of the earlier routes comparable; the JAX defaults
+    run as well (``warp_tiled=True``, ``sdf_fused="off"`` or ``"auto"``:
+    on for CUDA tensors).  ``sdf_gather_cache`` is accepted and gathers
+    every step: the JAX cache reuses the last step's rows only where no
+    point changed cell, so it gives the same values, and skipping the gather
+    needs a branch that a captured graph does not take (a select that
+    gathers anyway was slower on the card).  Values outside the JAX
+    package's raise ``NotImplementedError`` in :class:`SDFTracker`."""
     iter_config: Tuple[Tuple[int, Tuple[Tuple, ...]], ...] = (
         (10, (("rgb", 2),)),
         (10, (("sdf",), ("rgb", 1))),
@@ -160,21 +170,40 @@ class TrackerConfig(NamedTuple):
         )
 
 
-_SUPPORTED = {"warp_tiled": (False,), "sdf_fused": ("on",),
+_SUPPORTED = {"warp_tiled": (False, True), "warp_texture_bf16": (False, True),
+              "sdf_fused": ("on", "off", "auto"),
               "solve_dtype": ("f32", "compensated", "blocked"),
-              "sdf_compute_dtype": ("float32",),
-              "rgb_bilinear": (True,), "sdf_gather_cache": (False,),
-              "gn_unroll": (1,),
+              "sdf_compute_dtype": ("float32", "bfloat16"),
+              "rgb_bilinear": (True, False), "sdf_gather_cache": (False, True),
               "motion_prior": ("none", "constant_velocity")}
 
 
 def check_supported(tcfg: TrackerConfig) -> None:
-    """Raise NotImplementedError on a configuration value the port lacks."""
+    """Raise NotImplementedError on a configuration value the port lacks:
+    one outside the JAX package's documented values."""
     for field, ok in _SUPPORTED.items():
         if getattr(tcfg, field) not in ok:
             raise NotImplementedError(
                 f"TrackerConfig.{field}={getattr(tcfg, field)!r} is not "
                 f"implemented by the PyTorch port (supported: {ok})")
+    if not (isinstance(tcfg.gn_unroll, int) and tcfg.gn_unroll >= 1):
+        raise NotImplementedError(
+            f"TrackerConfig.gn_unroll={tcfg.gn_unroll!r} is not implemented by "
+            "the PyTorch port (supported: an int >= 1)")
+
+
+def resolve_sdf_fused(tcfg: TrackerConfig, spec, device) -> bool:
+    """Whether the SDF term runs the fused kernel: ``"on"`` (raises on a
+    decoder the kernel does not take), ``"off"``, or ``"auto"``: on for a
+    CUDA device when the kernel takes the decoder (the JAX package's rule
+    for its TPU, tracker.py:162-174)."""
+    if tcfg.sdf_fused == "off":
+        return False
+    if tcfg.sdf_fused == "on":
+        if not supports_spec(spec):
+            raise ValueError(f"sdf_fused='on' but {spec} is unsupported")
+        return True
+    return supports_spec(spec) and torch.device(device).type == "cuda"
 
 
 class ProcessedFrame(NamedTuple):
@@ -353,26 +382,44 @@ def _normal_equations(J: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     return H, g, torch.sum(w * r * r) * scale
 
 
-def _sdf_term(map_cfg: M.MapConfig, packed: torch.Tensor, state: M.MapState,
+def _sdf_term(map_cfg: M.MapConfig, packed: Optional[torch.Tensor], state: M.MapState,
               last: Pose, delta: Pose, pts: torch.Tensor, mask: torch.Tensor,
               robust_kernel: str, robust_k: float, aug_table: torch.Tensor,
-              gram_mode: str = "f32"):
-    """SDF residual r = sdf(last o delta y)/std with Jacobian [G | y x G],
-    through the fused decode + position-gradient kernel.  The chain factors
+              gram_mode: str = "f32", decoder: Optional[Decoder] = None,
+              compute_dtype: torch.dtype = torch.float32):
+    """SDF residual r = sdf(last o delta y)/std with Jacobian [G | y x G].
+
+    With a ``packed`` decoder, through the fused decode + position-gradient
+    kernel in the pack's mode (f32 or bf16): the chain factors
     ``d rel/d x = 1/voxel_size`` and ``d x/d y = R_last`` turn the kernel's
     d sdf/d rel into dr/dy (std is held constant, as the JAX vjp route
-    stop-gradients it)."""
+    stop-gradients it).  With ``packed=None`` (``sdf_fused`` off), the JAX
+    package's vjp route (tracker.py:209-235): autograd of
+    ``sdf / std.detach()`` with respect to the points through
+    ``decoder.decode(..., compute_dtype)``, the latent held constant."""
     y = delta.apply(pts)
-    x = last.apply(y)
-    latent, rel, valid = HM.map_module(map_cfg).gather_latent_rel(map_cfg, state, x,
-                                                                  aug_table)
-    sdf, std, grel = decode_grad_fused(packed, latent.contiguous(),
-                                       rel.contiguous())
-    zero = torch.zeros((), dtype=sdf.dtype, device=sdf.device)
+    if packed is not None:
+        x = last.apply(y)
+        latent, rel, valid = HM.map_module(map_cfg).gather_latent_rel(
+            map_cfg, state, x, aug_table)
+        sdf, std, grel = decode_grad_fused(packed, latent.contiguous(),
+                                           rel.contiguous())
+        r = sdf / std
+        G = (grel / (std[:, None] * map_cfg.voxel_size)) @ last.R
+    else:
+        with torch.enable_grad():
+            yg = y.detach().requires_grad_(True)
+            x = last.apply(yg)
+            latent, rel, valid = HM.map_module(map_cfg).gather_latent_rel(
+                map_cfg, state, x, aug_table)
+            sdf, std = decoder.decode(latent.detach(), rel, compute_dtype=compute_dtype)
+            r = sdf / std.detach()
+            G, = torch.autograd.grad(r, yg, grad_outputs=torch.ones_like(r))
+        r = r.detach()
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
     ok = mask & valid
-    r = torch.where(ok, sdf / std, zero)
-    G = torch.where(ok[:, None],
-                    (grel / (std[:, None] * map_cfg.voxel_size)) @ last.R, zero)
+    r = torch.where(ok, r, zero)
+    G = torch.where(ok[:, None], G, zero)
     J = torch.cat([G, torch.cross(y, G, dim=-1)], dim=-1)       # (N, 6)
     w = torch.where(ok, _robust_weight(r, robust_kernel, robust_k), zero)
     scale = 1.0 / torch.clamp(ok.sum(), min=1).to(r.dtype)
@@ -401,15 +448,41 @@ def level_camera(tcfg: TrackerConfig, calib: Intrinsic, level: int,
 
 def _rgb_term(tcfg: TrackerConfig, cam: LevelCamera, stride: int,
               prev_tex: torch.Tensor, cur_level, delta: Pose,
-              rgb_weight: torch.Tensor, gram_mode: str = "f32"):
+              rgb_weight: torch.Tensor, gram_mode: str = "f32",
+              kind: str = "packed", dcam_scale: float = 0.0):
     """Photometric residual over one pyramid level: the current level's
-    (strided) pixels warped into the previous frame's texture."""
+    (strided) pixels warped into the previous frame's texture.  ``kind``
+    names the texture (:func:`gn_prepare`): ``"packed"`` the per-pixel
+    bilinear warp, ``"nearest"`` the round-to-nearest one, ``"tiled"`` the
+    block-tiled warp over ``cur_level``'s parity planes, whose normal
+    equations reduce over the (7, 4, H2, W2) layout (JAX
+    tracker.py:316-352: ``blocked`` one partial per image row, combined by
+    :func:`~..ops.compsum.pairwise_compensated_sum`)."""
     krkinv = cam.K @ delta.R @ cam.Kinv
     kt = cam.K @ delta.t
+    if kind == "tiled":
+        f3, J3, ok3 = imgproc.rgb_odometry_tiled(
+            cur_level, prev_tex, cam.intr, krkinv, kt, tcfg.min_grad_scale,
+            tcfg.max_depth_delta, dcam_scale=dcam_scale)
+        zero = torch.zeros((), dtype=f3.dtype, device=f3.device)
+        w = torch.where(ok3, _robust_weight(f3, tcfg.rgb_robust_kernel,
+                                            tcfg.rgb_robust_k), zero)
+        scale = rgb_weight / torch.clamp(ok3.sum(), min=1).to(f3.dtype)
+        r7 = torch.cat([J3, f3[None]], dim=0)                  # (7, 4, H2, W2)
+        if gram_mode == "blocked":
+            partials = torch.einsum("aphw,bphw->hab", r7 * w[None], r7)
+            Mm = compsum.pairwise_compensated_sum(
+                partials.reshape(partials.shape[0], 49), dim=0).reshape(7, 7) * scale
+        elif gram_mode != "f32":
+            Mm = compsum.gram(r7.reshape(7, -1).T, w.reshape(-1), scale, gram_mode)
+        else:
+            Mm = torch.einsum("aphw,bphw->ab", r7 * w[None], r7) * scale
+        return Mm[:6, :6], Mm[:6, 6], Mm[6, 6]
     c_int, c_depth, c_ok, c_grad, c_gok = cur_level
     f, J, ok = imgproc.rgb_odometry(
         prev_tex, c_int, c_depth, c_ok, c_grad, c_gok, cam.intr, krkinv, kt,
-        tcfg.min_grad_scale, tcfg.max_depth_delta, coord_stride=stride)
+        tcfg.min_grad_scale, tcfg.max_depth_delta, coord_stride=stride,
+        bilinear=kind != "nearest")
     f, J, ok = f.reshape(-1), J.reshape(-1, 6), ok.reshape(-1)
     w = torch.where(ok, _robust_weight(f, tcfg.rgb_robust_kernel,
                                        tcfg.rgb_robust_k),
@@ -452,24 +525,29 @@ class GNResult(NamedTuple):
 
 class GNInputs(NamedTuple):
     """What the GN loop reads and no iteration changes, made once a frame."""
-    cur_levels: Dict[int, tuple]      # level -> strided (int, depth, ok, grad, gok)
-    prev_texs: Dict[int, torch.Tensor]
+    cur_levels: Dict[int, tuple]      # level -> strided (int, depth, ok, grad, gok),
+    prev_texs: Dict[int, torch.Tensor]  # or a tiled level's parity planes
     aug_table: torch.Tensor
     sdf_pts: torch.Tensor             # the SDF term's points and mask, in the
     sdf_mask: torch.Tensor            # order perturb_points gives them
+    tex_kinds: Optional[Dict[int, str]] = None   # level -> _rgb_term's kind
+    dcam_scale: float = 0.0           # the quantized tiled texture's taps
 
 
 class GNProblem(NamedTuple):
-    """One frame's tracking problem."""
+    """One frame's tracking problem.  ``packed`` is None where the SDF term
+    runs autograd through ``decoder`` (``sdf_fused`` off)."""
     tcfg: TrackerConfig
     map_cfg: M.MapConfig
-    packed: torch.Tensor              # the fused decoder's packed weights
+    packed: Optional[torch.Tensor]    # the fused decoder's packed weights
     cams: Dict[int, LevelCamera]
     state: M.MapState
     last: Pose
     cur: ProcessedFrame
     inputs: GNInputs
     rgb_weight: torch.Tensor
+    packed_bf16: Optional[torch.Tensor] = None   # the bf16 mode's pack
+    decoder: Optional[Decoder] = None
 
 
 class GNCarry(NamedTuple):
@@ -495,45 +573,89 @@ def point_permutation(seed: int, n: int, device) -> torch.Tensor:
     return torch.from_numpy(np.random.default_rng(seed).permutation(n)).to(device)
 
 
-def gn_prepare(tcfg: TrackerConfig, state, prev: Pyramid, cur: ProcessedFrame
-               ) -> GNInputs:
-    """The strided current-frame inputs and the previous frame's warp
-    texture per RGB level, the latent + count table, and the SDF points
-    (permuted by :func:`point_permutation` where ``perturb_points`` is
-    set)."""
+def _level_tiled(tcfg: TrackerConfig, level: int, shape) -> bool:
+    """Whether a pyramid level's photometric term runs the block-tiled warp:
+    opted in, bilinear, stride 1 and even dims (JAX tracker.py:261-269)."""
+    h, w = shape
+    return (tcfg.warp_tiled and tcfg.rgb_bilinear and _rgb_stride(tcfg, level) == 1
+            and h % 2 == 0 and w % 2 == 0)
+
+
+def gn_prepare(tcfg: TrackerConfig, state, prev: Pyramid, cur: ProcessedFrame,
+               dcam_scale: float = 0.0) -> GNInputs:
+    """Per RGB level the current-frame inputs (the strided subsample, or a
+    tiled level's parity planes) and the previous frame's warp texture with
+    its kind (JAX ``_rgb_level_inputs`` and ``_tex``, tracker.py:272-289,
+    :440-461: the bf16 sensor-grid texture only at L0 under
+    ``warp_texture_bf16`` and not ``lossless_packing``, which needs the
+    calibration's ``dcam_scale``), the latent + count table, and the SDF
+    points (permuted by :func:`point_permutation` where ``perturb_points``
+    is set)."""
     rgb_levels = sorted({int(term[1]) for _, terms in tcfg.iter_config
                          for term in terms if term[0] == "rgb"})
     p = cur.pyramid
-    cur_levels = {lvl: tuple(imgproc.subsample2d(a[lvl], _rgb_stride(tcfg, lvl))
-                             for a in (p.intensity, p.depth, p.depth_ok,
-                                       p.grad, p.grad_ok))
-                  for lvl in rgb_levels}
-    prev_texs = {lvl: imgproc.warp_texture(prev.intensity[lvl], prev.depth[lvl])
-                 for lvl in rgb_levels}
+    cur_levels, prev_texs, kinds = {}, {}, {}
+    for lvl in rgb_levels:
+        if _level_tiled(tcfg, lvl, p.intensity[lvl].shape):
+            cur_levels[lvl] = imgproc.make_tiled_frame_planes(
+                p.intensity[lvl], p.depth[lvl], p.depth_ok[lvl], p.grad[lvl],
+                p.grad_ok[lvl])
+            kinds[lvl] = "tiled"
+            if lvl == 0 and tcfg.warp_texture_bf16 and not tcfg.lossless_packing:
+                prev_texs[lvl] = imgproc.warp_texture_tiled_quantized(
+                    prev.intensity[lvl], prev.depth[lvl], dcam_scale)
+            else:
+                prev_texs[lvl] = imgproc.warp_texture_tiled(prev.intensity[lvl],
+                                                            prev.depth[lvl])
+            continue
+        cur_levels[lvl] = tuple(imgproc.subsample2d(a[lvl], _rgb_stride(tcfg, lvl))
+                                for a in (p.intensity, p.depth, p.depth_ok,
+                                          p.grad, p.grad_ok))
+        if tcfg.rgb_bilinear:
+            kinds[lvl] = "packed"
+            prev_texs[lvl] = imgproc.warp_texture(prev.intensity[lvl], prev.depth[lvl])
+        else:
+            kinds[lvl] = "nearest"
+            prev_texs[lvl] = torch.stack([prev.intensity[lvl], prev.depth[lvl]], dim=-1)
     pts, mask = cur.pts_cam, cur.pc_mask
     if tcfg.perturb_points:
         perm = point_permutation(tcfg.perturb_points, pts.shape[0], pts.device)
         pts, mask = pts[perm], mask[perm]
-    return GNInputs(cur_levels, prev_texs, M.latent_count_table(state), pts, mask)
+    return GNInputs(cur_levels, prev_texs, M.latent_count_table(state), pts, mask,
+                    kinds, dcam_scale)
 
 
-def _eval_Hg(p: GNProblem, delta: Pose, terms):
+def _eval_Hg(p: GNProblem, delta: Pose, terms, is_last_group: bool = False):
+    """H, g, E of a group's terms at ``delta``.  The SDF term runs in bf16
+    where ``sdf_compute_dtype`` asks for it, except in the last group under
+    ``sdf_f32_last_group``."""
     dev = delta.R.device
+    tcfg = p.tcfg
     H = torch.zeros(6, 6, device=dev)
     g = torch.zeros(6, device=dev)
     E = torch.zeros((), device=dev)
+    bf16 = (tcfg.sdf_compute_dtype == "bfloat16"
+            and not (is_last_group and tcfg.sdf_f32_last_group))
+    kinds = p.inputs.tex_kinds or {}
     for term in terms:
         if term[0] == "sdf":
-            tH, tg, tE = _sdf_term(p.map_cfg, p.packed, p.state, p.last, delta,
-                                   p.inputs.sdf_pts, p.inputs.sdf_mask,
-                                   p.tcfg.sdf_robust_kernel, p.tcfg.sdf_robust_k,
-                                   p.inputs.aug_table, p.tcfg.solve_dtype)
+            packed = p.packed
+            if bf16 and packed is not None:
+                packed = p.packed_bf16
+                if packed is None:
+                    raise ValueError("sdf_compute_dtype bfloat16 needs the bf16 pack")
+            tH, tg, tE = _sdf_term(p.map_cfg, packed, p.state, p.last, delta,
+                            p.inputs.sdf_pts, p.inputs.sdf_mask,
+                            tcfg.sdf_robust_kernel, tcfg.sdf_robust_k,
+                            p.inputs.aug_table, tcfg.solve_dtype, decoder=p.decoder,
+                            compute_dtype=torch.bfloat16 if bf16 else torch.float32)
         elif term[0] == "rgb":
             lvl = int(term[1])
-            tH, tg, tE = _rgb_term(p.tcfg, p.cams[lvl], _rgb_stride(p.tcfg, lvl),
+            tH, tg, tE = _rgb_term(tcfg, p.cams[lvl], _rgb_stride(tcfg, lvl),
                                    p.inputs.prev_texs[lvl],
                                    p.inputs.cur_levels[lvl], delta, p.rgb_weight,
-                                   p.tcfg.solve_dtype)
+                                   tcfg.solve_dtype, kinds.get(lvl, "packed"),
+                                   p.inputs.dcam_scale)
         else:
             raise ValueError(f"unknown GN term {term!r}")
         H, g, E = H + tH, g + tg, E + tE
@@ -548,15 +670,18 @@ def gn_group_init(delta: Pose) -> GNCarry:
                    done=torch.zeros((), dtype=torch.bool, device=dev))
 
 
-def gn_step(p: GNProblem, n: int, terms, c: GNCarry) -> GNCarry:
+def gn_step(p: GNProblem, n: int, terms, c: GNCarry,
+            is_last_group: bool = False) -> GNCarry:
     """One iteration of a group of ``n`` updates: evaluate the terms at the
     carry's delta, keep it if the energy did not rise, and step from it.  The
     (n+1)-th evaluation only judges the last step.  ``done`` is set by a
     rejected step, the last evaluation, a non-finite solve or convergence
     (``xi_tol`` / ``energy_rel_tol``); a step on a carry that is done returns
-    it unchanged, so a caller may run more steps than the group needs."""
+    it unchanged, so a caller may run more steps than the group needs (as
+    ``gn_unroll`` does).  ``is_last_group``: the schedule's last group, which
+    ``sdf_f32_last_group`` keeps in f32."""
     tcfg = p.tcfg
-    H, g, E = _eval_Hg(p, Pose(c.dR, c.dt), terms)
+    H, g, E = _eval_Hg(p, Pose(c.dR, c.dt), terms, is_last_group)
     worse = E > c.bE
     accept = ~worse
     stalled = (c.bE - E) < tcfg.energy_rel_tol * torch.abs(E)
@@ -590,22 +715,31 @@ def gn_finish(last: Pose, c: GNCarry, rgb_weight: torch.Tensor,
                     n_unstable=n_unstable, rgb_weight=rgb_weight)
 
 
-def gauss_newton(tcfg: TrackerConfig, map_cfg: M.MapConfig, packed: torch.Tensor,
+def gauss_newton(tcfg: TrackerConfig, map_cfg: M.MapConfig, packed: Optional[torch.Tensor],
                  cams: Dict[int, LevelCamera], state: M.MapState, last: Pose,
                  prev: Pyramid, cur: ProcessedFrame, rgb_weight: torch.Tensor,
-                 n_unstable: torch.Tensor, init: Pose) -> GNResult:
+                 n_unstable: torch.Tensor, init: Pose,
+                 packed_bf16: Optional[torch.Tensor] = None,
+                 decoder: Optional[Decoder] = None, dcam_scale: float = 0.0) -> GNResult:
     """Grouped GN schedule with the loop on the host: per group, up to ``n``
-    updates plus a final evaluation-only pass, :func:`gn_step` each, reading
-    ``done`` after every update (``host_syncs`` of them)."""
+    updates plus a final evaluation-only pass, :func:`gn_step` each,
+    ``gn_unroll`` steps a pass, reading ``done`` after every pass
+    (``host_syncs`` of them).  ``packed=None`` runs the SDF term by autograd
+    through ``decoder``."""
     p = GNProblem(tcfg, map_cfg, packed, cams, state, last, cur,
-                  gn_prepare(tcfg, state, prev, cur), rgb_weight)
+                  gn_prepare(tcfg, state, prev, cur, dcam_scale), rgb_weight,
+                  packed_bf16, decoder)
     c = gn_group_init(init)
     syncs = 0
-    for n, terms in tcfg.iter_config:
+    for gi, (n, terms) in enumerate(tcfg.iter_config):
         c = gn_group_init(Pose(c.bR, c.bt))
-        for i in range(n + 1):
-            c = gn_step(p, n, terms, c)
-            if i == n:
+        is_last = gi == len(tcfg.iter_config) - 1
+        i = 0
+        while True:
+            for _ in range(tcfg.gn_unroll):
+                c = gn_step(p, n, terms, c, is_last)
+            i += tcfg.gn_unroll
+            if i > n:
                 break
             syncs += 1
             if bool(c.done):
@@ -712,7 +846,8 @@ class TrackProgram:
         self.cur = preprocess_packed(tr.tcfg, tr.calib, self.packed, self.w)
         self._problem = GNProblem(
             tr.tcfg, tr.map_cfg, tr.packed, tr.cams, self.state, self.last, self.cur,
-            gn_prepare(tr.tcfg, self.state, self.prev, self.cur), self.rgb_weight)
+            gn_prepare(tr.tcfg, self.state, self.prev, self.cur, tr.calib.dcam_scale),
+            self.rgb_weight, tr.packed_bf16, tr.decoder)
         init = (self.delta if tr.tcfg.motion_prior == "constant_velocity"
                 else tr._identity)
         self._set_carry(gn_group_init(init))
@@ -720,8 +855,10 @@ class TrackProgram:
     def _next_group(self) -> None:
         self._set_carry(gn_group_init(Pose(self.carry.bR, self.carry.bt)))
 
-    def _step(self, n: int, terms) -> None:
-        self._set_carry(gn_step(self._problem, n, terms, self.carry))
+    def _step(self, n: int, terms, is_last_group: bool) -> None:
+        """One pass of a group's loop: ``gn_unroll`` masked steps."""
+        for _ in range(self.tr.tcfg.gn_unroll):
+            self._set_carry(gn_step(self._problem, n, terms, self.carry, is_last_group))
 
     def _finish(self) -> None:
         res = gn_finish(self.last, self.carry, self.rgb_weight, self.n_unstable)
@@ -738,9 +875,11 @@ class TrackProgram:
     def _build(self) -> None:
         prog = GraphProgram(self.tr.device)
         prog.add(self._pre)
-        for n, terms in self.tr.tcfg.iter_config:
+        groups = self.tr.tcfg.iter_config
+        for gi, (n, terms) in enumerate(groups):
             prog.add(self._next_group)
-            prog.add(partial(self._step, n, terms), done=self.carry.done)
+            prog.add(partial(self._step, n, terms, gi == len(groups) - 1),
+                     done=self.carry.done)
         prog.add(self._finish)
         prog.build(keep=_tensors((self.last, self.delta, self.prev))
                    + [self.rgb_weight, self.n_unstable])
@@ -777,7 +916,15 @@ class SDFTracker:
         self.tcfg = tcfg
         self.calib = calib
         self.device = device
-        self.packed = pack_fused_decoder(decoder)
+        self.decoder = decoder
+        # the SDF term's route: the fused kernel over the packed weights (in
+        # bf16 too where sdf_compute_dtype asks for it), or autograd
+        # through the decoder (packed None)
+        self.sdf_fused = resolve_sdf_fused(tcfg, decoder.spec, device)
+        self.packed = pack_fused_decoder(decoder) if self.sdf_fused else None
+        self.packed_bf16 = (pack_fused_decoder(decoder, torch.bfloat16)
+                            if self.sdf_fused and tcfg.sdf_compute_dtype == "bfloat16"
+                            else None)
         self.cams = {lvl: level_camera(tcfg, calib, lvl, device)
                      for lvl in range(tcfg.pyramid_levels)}
         self._pose_chunks: list = []      # device (Rs (K, 3, 3), ts (K, 3))
@@ -873,7 +1020,8 @@ class SDFTracker:
             res = gauss_newton(self.tcfg, self.map_cfg, self.packed, self.cams,
                                state, self.last_pose, self.last_pyramid,
                                processed, self.rgb_weight, self.n_unstable,
-                               self._gn_init())
+                               self._gn_init(), self.packed_bf16, self.decoder,
+                               self.calib.dcam_scale)
             pose = res.final
             self.last_delta = res.delta
             self.n_unstable = res.n_unstable

@@ -85,6 +85,13 @@ def fold_decoder_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return folded
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to bf16 (to nearest, ties to even) and widened back: the
+    JAX package's ``.astype(jnp.bfloat16)`` in an f32 tensor (differentiable:
+    autograd rounds the gradient at the same cast)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 class Decoder(nn.Module):
     """Folded decoder: ``layers[i]`` are dense linears, ``uncertainty`` the
     std head.  Weights are buffers-like parameters with gradients off."""
@@ -108,10 +115,38 @@ class Decoder(nn.Module):
                 torch.tensor(folded["uncertainty"]["b"]))
         self.requires_grad_(False)
 
-    def decode(self, latent: torch.Tensor, xyz: torch.Tensor
+    def decode(self, latent: torch.Tensor, xyz: torch.Tensor,
+               compute_dtype: torch.dtype = torch.float32
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(N, L), (N, 3) -> sdf (N,), std (N,), in f32."""
-        inp = torch.cat([latent, xyz], dim=1)
+        """(N, L), (N, 3) -> sdf (N,), std (N,), in f32.
+
+        ``compute_dtype=torch.bfloat16`` follows the JAX package's ``decode``
+        (difusion_tpu/models/decoder.py:118-145) cast for cast, each cast an
+        f32 tensor rounded to bf16: the input, every weight and bias, each
+        hidden activation after its relu; the std head ``x @ uw.T + ub``
+        rounded after the product and after the bias, before the f32
+        softplus; products of bf16 values are exact, so f32 matmuls give
+        the JAX package's f32-accumulated ones up to the order of the sums.
+        Autograd through it rounds the gradient at the same casts, as the
+        JAX package's vjp does."""
+        if compute_dtype == torch.float32:
+            inp = torch.cat([latent, xyz], dim=1)
+            x = inp
+            std = None
+            n_layers = len(self.layers)
+            for i, lin in enumerate(self.layers):
+                if i in self.spec.latent_in:
+                    x = torch.cat([x, inp], dim=1)
+                if i == n_layers - 1:
+                    std = 0.05 + 0.5 * F.softplus(self.uncertainty(x))
+                x = lin(x)
+                if i < n_layers - 1:
+                    x = torch.relu(x)
+            return torch.tanh(x)[:, 0], std[:, 0]
+        if compute_dtype != torch.bfloat16:
+            raise ValueError(f"decode computes in float32 or bfloat16, not {compute_dtype}")
+        r = bf16_round
+        inp = r(torch.cat([latent, xyz], dim=1))
         x = inp
         std = None
         n_layers = len(self.layers)
@@ -119,10 +154,11 @@ class Decoder(nn.Module):
             if i in self.spec.latent_in:
                 x = torch.cat([x, inp], dim=1)
             if i == n_layers - 1:
-                std = 0.05 + 0.5 * F.softplus(self.uncertainty(x))
-            x = lin(x)
+                u = self.uncertainty
+                std = 0.05 + 0.5 * F.softplus(r(r(x @ r(u.weight).T) + r(u.bias)))
+            x = x @ r(lin.weight).T + r(lin.bias)
             if i < n_layers - 1:
-                x = torch.relu(x)
+                x = r(torch.relu(x))
         return torch.tanh(x)[:, 0], std[:, 0]
 
     forward = decode

@@ -1,5 +1,5 @@
 """Depth/intensity image ops on tensors (counterpart of
-difusion_tpu/ops/imgproc.py:22-56, 136-175, 242-273, 559-749).
+difusion_tpu/ops/imgproc.py:22-93, 136-175, 242-273, 312-749).
 
 Layouts follow the JAX package: (H, W) images, (H, W, 3) point maps,
 (H, W, C) textures.  Invalidity is carried as explicit boolean masks.
@@ -41,6 +41,40 @@ def unproject_depth(depth: torch.Tensor, valid: torch.Tensor,
                                               device=depth.device))
     return torch.stack([(u - cx) * recip(fx) * d, (v - cy) * recip(fy) * d, d],
                        dim=-1)
+
+
+_MEAN_SIGMA_L = 1.2232
+
+
+def filter_depth(depth: torch.Tensor, valid: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """5x5 depth-adaptive bilateral filter: spatial weight
+    exp(-.5 (|i|+|j|) sigma_L^2), range weight exp(-.5 dz^2 sigma_z^2) with
+    the sensor-noise model sigma_z(z).  Border (2 px) and invalid pixels
+    pass through unchanged.  No path of either package calls it."""
+    zero = torch.zeros((), dtype=depth.dtype, device=depth.device)
+    z = torch.where(valid, depth, zero)
+    sigma_z = 1.0 / (0.0012 + 0.0019 * (z - 0.4) ** 2
+                     + 0.0001 / torch.sqrt(torch.clamp(z, min=1e-12)) * 0.25)
+    w_sum = torch.zeros_like(z)
+    d_sum = torch.zeros_like(z)
+    for i in range(-2, 3):
+        for j in range(-2, 3):
+            nn_z = torch.roll(z, (-i, -j), dims=(0, 1))
+            nn_ok = torch.roll(valid, (-i, -j), dims=(0, 1))
+            dz2 = (nn_z - z) ** 2
+            w = torch.exp(-0.5 * ((abs(i) + abs(j)) * _MEAN_SIGMA_L ** 2
+                                  + dz2 * sigma_z ** 2))
+            w = torch.where(nn_ok, w, zero)
+            w_sum = w_sum + w
+            d_sum = d_sum + w * nn_z
+    out = d_sum / torch.clamp(w_sum, min=1e-12)
+    h, w = depth.shape
+    u = torch.arange(w, device=depth.device)[None, :]
+    v = torch.arange(h, device=depth.device)[:, None]
+    interior = (v >= 2) & (v < h - 2) & (u >= 2) & (u < w - 2)
+    ok = valid & interior & (w_sum > 0)
+    return torch.where(ok, out, depth), valid
 
 
 def sym3eig_smallest_components(x11, x12, x13, x22, x23, x33):
@@ -122,7 +156,7 @@ def rgb_odometry(prev_tex: torch.Tensor,
                  cur_dIdxy: torch.Tensor, grad_ok: torch.Tensor,
                  intr, krkinv: torch.Tensor, kt: torch.Tensor,
                  min_grad_scale: float, max_depth_delta: float,
-                 coord_stride: int = 1
+                 coord_stride: int = 1, bilinear: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-pixel photometric residual + analytic 6-DoF Jacobian with bilinear
     intensity lookup through :func:`warp_texture` (difusion_tpu
@@ -131,7 +165,10 @@ def rgb_odometry(prev_tex: torch.Tensor,
     ``K R K^-1`` / ``K t``; depth gating and Jacobian geometry use the
     round-to-nearest pixel.  ``intr`` = (fx, fy, cx, cy).  Returns
     (f (H, W), J (H, W, 6), ok (H, W)); J is for ``+xi`` on the current pose.
-    ``coord_stride``: the current-frame inputs are a stride-s subsample."""
+    ``coord_stride``: the current-frame inputs are a stride-s subsample.
+    ``bilinear=False``: the reference's round-to-nearest warp, intensity and
+    depth read at the nearest pixel of ``prev_tex`` = the (H, W, 2) stack
+    ``[intensity, depth]`` of the previous frame."""
     h, w = prev_tex.shape[:2]
     hc, wc = cur_intensity.shape
     dt, dev = cur_depth.dtype, cur_depth.device
@@ -156,20 +193,25 @@ def rgb_odometry(prev_tex: torch.Tensor,
     u0c = torch.clamp(u0r, 0, w - 1)
     v0c = torch.clamp(v0r, 0, h - 1)
 
-    u0a = torch.clamp(u0f, 0.0, w - 1.0)
-    v0a = torch.clamp(v0f, 0.0, h - 1.0)
-    uf = torch.floor(u0a)
-    vf = torch.floor(v0a)
-    au = u0a - uf
-    av = v0a - vf
-    idx = (vf.long() * w + uf.long()).reshape(-1)
-    taps = prev_tex.reshape(h * w, 8)[idx].reshape(hc, wc, 8)
-    prev_val = ((1 - av) * ((1 - au) * taps[..., 0] + au * taps[..., 1])
-                + av * ((1 - au) * taps[..., 2] + au * taps[..., 3]))
-    su = au >= 0.5
-    sv = av >= 0.5
-    d0 = torch.where(sv, torch.where(su, taps[..., 7], taps[..., 6]),
-                     torch.where(su, taps[..., 5], taps[..., 4]))
+    if bilinear:
+        u0a = torch.clamp(u0f, 0.0, w - 1.0)
+        v0a = torch.clamp(v0f, 0.0, h - 1.0)
+        uf = torch.floor(u0a)
+        vf = torch.floor(v0a)
+        au = u0a - uf
+        av = v0a - vf
+        idx = (vf.long() * w + uf.long()).reshape(-1)
+        taps = prev_tex.reshape(h * w, 8)[idx].reshape(hc, wc, 8)
+        prev_val = ((1 - av) * ((1 - au) * taps[..., 0] + au * taps[..., 1])
+                    + av * ((1 - au) * taps[..., 2] + au * taps[..., 3]))
+        su = au >= 0.5
+        sv = av >= 0.5
+        d0 = torch.where(sv, torch.where(su, taps[..., 7], taps[..., 6]),
+                         torch.where(su, taps[..., 5], taps[..., 4]))
+    else:
+        idx = (v0c.long() * w + u0c.long()).reshape(-1)
+        tap = prev_tex.reshape(h * w, 2)[idx].reshape(hc, wc, 2)
+        prev_val, d0 = tap[..., 0], tap[..., 1]
     ok = ok & inside & (torch.abs(wz - d0) <= max_depth_delta) & (d0 > 0.0)
     f = torch.where(ok, cur_intensity - prev_val, zero)
 
@@ -185,6 +227,201 @@ def rgb_odometry(prev_tex: torch.Tensor,
                      gz * p0 - gx * p2,
                      -gy * p0 + gx * p1], dim=-1)
     J = torch.where(ok[..., None], -J, zero)   # tracker-side negation folded in
+    return f, J, ok
+
+
+def _patches(img: torch.Tensor, window: int = 5, stride: int = 2) -> torch.Tensor:
+    """(H/stride, W/stride, window*window*C) patches of an (H, W, C) image:
+    channel ``(r*window + c)*C + ch`` of entry (a, b) is pixel
+    ``(stride*a + r, stride*b + c)`` channel ``ch``, zero past the border.
+    The JAX package gathers them with a one-hot convolution, exact by
+    construction; here each is a strided slice, the same copies."""
+    h, w, n_ch = img.shape
+    pad = torch.zeros(h + window - stride, w + window - stride, n_ch,
+                      dtype=img.dtype, device=img.device)
+    pad[:h, :w] = img
+    taps = [pad[r:r + h:stride, c:c + w:stride] for r in range(window)
+            for c in range(window)]
+    return torch.stack(taps, dim=2).reshape(h // stride, w // stride, -1)
+
+
+def warp_texture_tiled(prev_intensity: torch.Tensor,
+                       prev_depth: torch.Tensor) -> torch.Tensor:
+    """(H/2 * W/2, 50) block-tiled warp texture: row ``a * W/2 + b`` is the
+    5x5x2 patch with top-left pixel ``(2a, 2b)``, channel ``(r*5 + c)*2 + ch``
+    image channel ``ch`` (0 intensity, 1 depth) at pixel ``(2a+r, 2b+c)``,
+    zeros past the border (difusion_tpu/ops/imgproc.py:312-339).  One row
+    covers the bilinear footprints of a whole 2x2 pixel block."""
+    h, w = prev_intensity.shape
+    if h % 2 or w % 2:
+        raise ValueError("the tiled warp texture needs even dims")
+    img2 = torch.stack([prev_intensity, prev_depth], dim=-1)
+    return _patches(img2).reshape((h // 2) * (w // 2), 50)
+
+
+def warp_texture_tiled_quantized(prev_intensity: torch.Tensor,
+                                 prev_depth: torch.Tensor,
+                                 dcam_scale: float) -> torch.Tensor:
+    """(H/2 * W/2, 75) bf16 block-tiled texture for sensor-grid frames:
+    channel ``r*5 + c`` is round(255 * intensity), ``25 + r*5 + c`` the high
+    and ``50 + r*5 + c`` the low byte of round(dcam_scale * depth) at pixel
+    ``(2a+r, 2b+c)`` (difusion_tpu/ops/imgproc.py:342-381).  Integers in
+    [0, 255] are exact in bf16; :func:`rgb_odometry_tiled` rebuilds each tap
+    with the unpacker's arithmetic."""
+    h, w = prev_intensity.shape
+    if h % 2 or w % 2:
+        raise ValueError("the tiled warp texture needs even dims")
+    i255 = torch.round(prev_intensity * 255.0)
+    d_units = torch.round(prev_depth * dcam_scale)
+    d_hi = torch.floor(d_units * (1.0 / 256.0))
+    d_lo = d_units - 256.0 * d_hi
+    pat = _patches(torch.stack([i255, d_hi, d_lo], dim=-1).to(torch.bfloat16))
+    # (r, c, plane) -> (plane, r, c): one contiguous block of 25 per plane
+    pat = pat.reshape(h // 2, w // 2, 25, 3).transpose(2, 3)
+    return pat.reshape((h // 2) * (w // 2), 75)
+
+
+class TiledFramePlanes(NamedTuple):
+    """2x2 parity-plane split of one pyramid level's current-frame inputs
+    for :func:`rgb_odometry_tiled`: entry ``[P, a, b]`` of each (4, H/2, W/2)
+    array is pixel ``(2a + p, 2b + q)``, P = 2p + q."""
+    intensity: torch.Tensor
+    depth: torch.Tensor
+    depth_ok: torch.Tensor
+    grad_x: torch.Tensor
+    grad_y: torch.Tensor
+    grad_ok: torch.Tensor
+
+
+def make_tiled_frame_planes(intensity: torch.Tensor, depth: torch.Tensor,
+                            depth_ok: torch.Tensor, grad: torch.Tensor,
+                            grad_ok: torch.Tensor) -> TiledFramePlanes:
+    """Split a level's current-frame inputs into the four parity planes
+    (difusion_tpu/ops/imgproc.py:396-425; strided slices, exact copies)."""
+    h, w = intensity.shape
+    if h % 2 or w % 2:
+        raise ValueError("the tiled parity planes need even dims")
+
+    def planes(x):
+        return torch.stack([x[p::2, q::2] for p in (0, 1) for q in (0, 1)])
+    return TiledFramePlanes(intensity=planes(intensity), depth=planes(depth),
+                            depth_ok=planes(depth_ok), grad_x=planes(grad[..., 0]),
+                            grad_y=planes(grad[..., 1]), grad_ok=planes(grad_ok))
+
+
+def rgb_odometry_tiled(planes: TiledFramePlanes, tex: torch.Tensor, intr,
+                       krkinv: torch.Tensor, kt: torch.Tensor,
+                       min_grad_scale: float, max_depth_delta: float,
+                       dcam_scale: float = 0.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Block-tiled :func:`rgb_odometry` (stride 1, bilinear;
+    difusion_tpu/ops/imgproc.py:428-556): the previous frame is read through
+    the (H2*W2, 50) f32 :func:`warp_texture_tiled` or the (H2*W2, 75) bf16
+    :func:`warp_texture_tiled_quantized` texture (``dcam_scale`` required
+    then), one row per 2x2 pixel block.  Returns ``f (4, H2, W2)``,
+    ``J (6, 4, H2, W2)``, ``ok (4, H2, W2)`` in the planes' order.  A kept
+    pixel's residual and Jacobian are the per-pixel warp's; a pixel whose
+    block's four footprints do not fit one even-aligned 5x5 window is
+    dropped."""
+    _, H2, W2 = planes.intensity.shape
+    h, w = 2 * H2, 2 * W2
+    dt, dev = planes.depth.dtype, planes.depth.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    plane = torch.arange(4, device=dev)
+    p_ = (plane // 2).to(dt)[:, None, None]
+    q_ = (plane % 2).to(dt)[:, None, None]
+    u = 2.0 * torch.arange(W2, dtype=dt, device=dev)[None, None, :] + q_
+    v = 2.0 * torch.arange(H2, dtype=dt, device=dev)[None, :, None] + p_
+
+    m2 = planes.grad_x ** 2 + planes.grad_y ** 2
+    ok = planes.grad_ok & (m2 >= min_grad_scale) & planes.depth_ok
+
+    d1 = torch.where(planes.depth_ok, planes.depth, zero)
+    wz = d1 * (krkinv[2, 0] * u + krkinv[2, 1] * v + krkinv[2, 2]) + kt[2]
+    wz_safe = torch.where(torch.abs(wz) > 1e-12, wz, torch.ones_like(wz))
+    u0f = (d1 * (krkinv[0, 0] * u + krkinv[0, 1] * v + krkinv[0, 2]) + kt[0]) / wz_safe
+    v0f = (d1 * (krkinv[1, 0] * u + krkinv[1, 1] * v + krkinv[1, 2]) + kt[1]) / wz_safe
+    u0r, v0r = torch.round(u0f), torch.round(v0f)
+    inside = (u0r >= 0) & (u0r < w) & (v0r >= 0) & (v0r < h)
+    u0c = torch.clamp(u0r, 0, w - 1)
+    v0c = torch.clamp(v0r, 0, h - 1)
+
+    u0a = torch.clamp(u0f, 0.0, w - 1.0)
+    v0a = torch.clamp(v0f, 0.0, h - 1.0)
+    uf = torch.floor(u0a)
+    vf = torch.floor(v0a)
+    au = u0a - uf
+    av = v0a - vf
+    ui = uf.to(torch.int32)
+    vi = vf.to(torch.int32)
+
+    # the block's window base: the masked least floor coordinate, rounded
+    # down to even so that it addresses a texture row
+    cand = ok & inside
+    big = torch.full((), 1 << 20, dtype=torch.int32, device=dev)
+    s_u = torch.clamp(torch.where(cand, ui, big).amin(dim=0), 0, w - 2) & ~1
+    s_v = torch.clamp(torch.where(cand, vi, big).amin(dim=0), 0, h - 2) & ~1
+
+    quantized = tex.shape[-1] == 75
+    if quantized and not dcam_scale > 0.0:
+        raise ValueError("the quantized (75-channel) texture needs dcam_scale")
+    row = (s_v >> 1) * W2 + (s_u >> 1)
+    tile = tex[row.reshape(-1).long()].reshape(H2, W2, -1)
+
+    ru = ui - s_u[None]
+    rv = vi - s_v[None]
+    fits = cand & (ru <= 3) & (rv <= 3)
+    ru = torch.clamp(ru, 0, 3)
+    rv = torch.clamp(rv, 0, 3)
+    iu = ru + (au >= 0.5).to(torch.int32)
+    iv = rv + (av >= 0.5).to(torch.int32)
+
+    if quantized:
+        inv_d = 1.0 / dcam_scale
+
+        def tap_i(r, c):
+            return tile[..., r * 5 + c].to(dt) * (1.0 / 255.0)
+
+        def tap_d(r, c):
+            return (tile[..., 50 + r * 5 + c].to(dt)
+                    + 256.0 * tile[..., 25 + r * 5 + c].to(dt)) * inv_d
+    else:
+        def tap_i(r, c):
+            return tile[..., (r * 5 + c) * 2]
+
+        def tap_d(r, c):
+            return tile[..., (r * 5 + c) * 2 + 1]
+
+    # weights are exactly (1 - a) at the floor tap, a at the next and 0.0
+    # elsewhere, so the sums are the per-pixel warp's (x + 0.0 == x)
+    prev_val = torch.zeros_like(au)
+    d0 = torch.zeros_like(d1)
+    for r in range(5):
+        wv_r = torch.where(rv == r, 1.0 - av, torch.where(rv + 1 == r, av, zero))
+        inner = torch.zeros_like(au)
+        for c in range(5):
+            wu_c = torch.where(ru == c, 1.0 - au, torch.where(ru + 1 == c, au, zero))
+            inner = inner + wu_c * tap_i(r, c)
+        prev_val = prev_val + wv_r * inner
+        for c in range(5):
+            d0 = d0 + torch.where((iv == r) & (iu == c), tap_d(r, c), zero)
+
+    ok = (ok & inside & fits & (torch.abs(wz - d0) <= max_depth_delta)
+          & (d0 > 0.0))
+    f = torch.where(ok, planes.intensity - prev_val, zero)
+
+    fx, fy, cx, cy = intr
+    gz = torch.where(d0 > 1e-12, d0, torch.ones_like(d0))
+    gx = d0 * (u0c - cx) / fx
+    gy = d0 * (v0c - cy) / fy
+    p0 = planes.grad_x * fx / gz
+    p1 = planes.grad_y * fy / gz
+    p2 = -(p0 * gx + p1 * gy) / gz
+    J = torch.stack([p0, p1, p2,
+                     -gz * p1 + gy * p2,
+                     gz * p0 - gx * p2,
+                     -gy * p0 + gx * p1], dim=0)
+    J = torch.where(ok[None], -J, zero)
     return f, J, ok
 
 

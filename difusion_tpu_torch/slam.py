@@ -1,7 +1,8 @@
 """Online SLAM: track + fuse + optimize + mesh, and the offline runner
 ``python -m difusion_tpu_torch.slam <fusion yaml>`` (counterpart of
-difusion_tpu/slam.py, without the interactive step-through and the
-profiler trace).
+difusion_tpu/slam.py): ``--interactive`` steps through the sequence from the
+terminal (:meth:`SLAMSystem.run_interactive`), ``--xprof DIR`` writes a
+``torch.profiler`` Chrome trace of the run into ``DIR``.
 
 The map is the dense one (``core/map.py``) when the mapping config gives
 bounds, else (or with ``indexer: hash``) the hash-indexed one
@@ -521,6 +522,106 @@ class SLAMSystem:
         """Write the map in the JAX package's npz format."""
         self._map_mod.save_map(path, self.map_cfg, self.state)
 
+    # -- interactive driver --------------------------------------------------
+
+    def run_interactive(self, sequence: RGBDSequence, max_frames: int = -1,
+                        out_dir: Optional[str] = None) -> Dict[str, Any]:
+        """Terminal step-through, the reference GUI's key-callback loop
+        (',' steps one frame, '.' free-runs) without the Open3D window:
+
+        =========  =========================================================
+        Enter / s  step one frame
+        r [N]      run to the end (or N more frames)
+        m          extract + report the mesh now
+        v          render the current mesh + trajectory to view_<i>.png
+        i          info: frame counter, pose, voxel count
+        q          stop (artifacts are still written by the caller)
+        =========  =========================================================
+
+        End of input free-runs to the end.  Frames go through
+        :meth:`process_frame`."""
+        n = len(sequence) if max_frames < 0 else min(max_frames, len(sequence))
+        self.first_iso = self.first_iso or sequence.first_iso
+        it = iter(sequence)
+        i = 0
+        free_run = 0
+        print(self.run_interactive.__doc__.split("\n", 1)[1].split("\n\n        End")[0])
+        while i < n:
+            if free_run <= 0:
+                try:
+                    cmd = input(f"[frame {i}/{n}] > ").strip().split()
+                except EOFError:
+                    cmd = ["r"]
+                op = cmd[0] if cmd else "s"
+                if op == "q":
+                    break
+                if op == "r":
+                    free_run = int(cmd[1]) if len(cmd) > 1 else n - i
+                    continue
+                if op == "m":
+                    if self.mesher is None:
+                        print("meshing disabled (--no-mesh)")
+                    else:
+                        self.finish_meshing()
+                        self.state = self.mesher.extract(self.state,
+                                                         max_std=self.mesh_max_std)
+                        tris, _ = self.mesher.triangles()
+                        print(f"mesh: {len(tris)} triangles, "
+                              f"{int(self.state.n_occupied)} voxels")
+                    continue
+                if op == "v":
+                    self._interactive_view(out_dir or ".", i)
+                    continue
+                if op == "i":
+                    if self.tracker.last_pose is not None:
+                        t = self.tracker.last_pose.t.cpu().numpy()
+                        print(f"frame {i}: t={np.round(t, 4)}  "
+                              f"voxels={int(self.state.n_occupied)}")
+                    else:
+                        print("no frames tracked yet")
+                    continue
+                # fall through: "s" / empty / anything else = step
+            else:
+                free_run -= 1
+            self.process_frame(next(it))
+            i += 1
+        self.finish_meshing()
+        trajectory = self.tracker.all_pd_pose
+        result: Dict[str, Any] = {"n_frames": i, "trajectory": trajectory,
+                                  "n_voxels": int(self.state.n_occupied),
+                                  "alloc_overflow": int(self.state.overflow),
+                                  "opt_overflow": int(self.state.opt_overflow)}
+        gt = sequence.gt_trajectory
+        if gt is not None and all(g is not None for g in gt[:i]):
+            result["ate_rmse"] = ate_rmse(gt[:i], trajectory)
+        return result
+
+    def _interactive_view(self, out_dir: str, i: int) -> None:
+        """Render the mesh (coloured by uncertainty) and the trajectory to
+        ``out_dir/view_<i>.png`` through :func:`.core.visuals.view_matplotlib`;
+        without matplotlib it says so and returns."""
+        if self.mesher is None:
+            print("meshing disabled (--no-mesh)")
+            return
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print("matplotlib is not installed: cannot render a view")
+            return
+        from .core.meshing import jet_rgb
+        from .core.visuals import view_matplotlib
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        png = str(Path(out_dir) / f"view_{i:04d}.png")
+        verts, faces = self.mesher.vertices_faces()
+        stds = self.mesher.triangles()[1].reshape(-1)
+        colors = None
+        if len(stds):
+            colors = jet_rgb(np.clip((stds - stds.min())
+                                     / max(stds.max() - stds.min(), 1e-12), 0.0, 1.0))
+        traj = (np.array([p.t for p in self.tracker.all_pd_pose])
+                if self.tracker.n_tracked else None)
+        view_matplotlib(verts, colors, faces, traj, None, save=png)
+
 
 def main(argv=None):
     import argparse
@@ -532,12 +633,16 @@ def main(argv=None):
     parser.add_argument("--profile", action="store_true",
                         help="per-stage device-synced timings")
     parser.add_argument("--xprof", type=str, default="",
-                        help="not ported: a profiler trace into this dir")
+                        help="write a torch.profiler Chrome trace (CPU and, on "
+                             "the card, CUDA activities) of run_sequence into "
+                             "this dir")
     parser.add_argument("--chunk", type=int, default=0,
                         help="stack N frames per upload and track each as one "
                              "graph launch (same poses as per-frame)")
     parser.add_argument("--interactive", action="store_true",
-                        help="not ported: terminal step-through")
+                        help="terminal step-through (the reference GUI's "
+                             "','/'.'-key loop): Enter steps, r runs, m "
+                             "meshes, v renders a view, i prints the pose, q quits")
     parser.add_argument("--gt-poses", action="store_true",
                         help="mapping-only: fuse under the ground-truth "
                              "trajectory, no tracking")
@@ -549,14 +654,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     cli = parser.parse_args(argv)
-    if cli.interactive:
-        raise NotImplementedError(
-            "--interactive is not ported yet (ROADMAP.md, 'Next, in order': "
-            "--interactive / --xprof / core/visuals.py)")
-    if cli.xprof:
-        raise NotImplementedError(
-            "--xprof is not ported yet (ROADMAP.md, 'Next, in order': "
-            "--interactive / --xprof / core/visuals.py)")
 
     logging.basicConfig(level=logging.INFO)
     args = load_yaml_args(cli.config)
@@ -567,7 +664,19 @@ def main(argv=None):
                                     meshing=not cli.no_mesh, device=cli.device)
     system.profile = cli.profile
     system.use_gt_poses = cli.gt_poses
-    result = system.run_sequence(seq, cli.max_frames, chunk=cli.chunk)
+    if cli.interactive:
+        result = system.run_interactive(seq, cli.max_frames, out_dir=cli.output)
+    elif cli.xprof:
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if system.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            result = system.run_sequence(seq, cli.max_frames, chunk=cli.chunk)
+        Path(cli.xprof).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(cli.xprof) / "trace.json"))
+    else:
+        result = system.run_sequence(seq, cli.max_frames, chunk=cli.chunk)
 
     out = Path(cli.output)
     out.mkdir(parents=True, exist_ok=True)

@@ -17,16 +17,18 @@ sys.path.insert(0, str(ROOT))
 from tools import accuracy_study  # noqa: E402
 
 
-@pytest.mark.parametrize("variant", ["default", "compensated", "blocked",
+@pytest.mark.parametrize("variant", ["default", "packed", "parity", "parity_strict",
+                                     "speed", "compensated", "blocked",
                                      "perturbed-7", "perturbed_comp-7",
                                      "perturbed_comp-23", "perturbed_blk-7"])
 def test_tracking_args_match_the_study(variant):
-    """The same TrackerConfig as the study's, but for the two routes the
-    port takes alone (the per-pixel warp, the fused SDF kernel)."""
+    """The same TrackerConfig as the study's (the tiled warp wherever the
+    study leaves the JAX default), but for the SDF term's route: the port's
+    fused kernel computes the function of the JAX package's XLA route."""
     got = TrackerConfig.from_args(accuracy.tracking_args(variant), point_budget=1 << 13)
     ref = JTrackerConfig.from_args(accuracy_study._tracking_args(variant),
                                    point_budget=1 << 13)
-    assert got == tuple(ref._replace(warp_tiled=False, sdf_fused="on"))
+    assert got == tuple(ref._replace(sdf_fused="on"))
     check_supported(got)
     with pytest.raises(ValueError):
         accuracy.tracking_args("spiral")
@@ -87,7 +89,7 @@ def test_mapping_only_arm_matches_the_study(monkeypatch, optimize):
                                   "cpu")
     (jargs, jkw), (targs, tkw) = ref[0], got[0]
     assert tuple(targs[0]) == tuple(jargs[0])                    # the map
-    assert targs[1] == tuple(jargs[1]._replace(warp_tiled=False, sdf_fused="on"))
+    assert targs[1] == tuple(jargs[1]._replace(sdf_fused="on"))
     assert tuple(targs[4]) == tuple(jargs[5])                    # the sequence's calib
     assert {k: v for k, v in tkw.items() if k != "device"} == jkw
     assert tkw["latent_optimize"] == optimize and tkw["latent_optimize_mode"] == "sync"

@@ -68,6 +68,52 @@ def test_decode_fused_kernel_matches_plain(dev, packed, n):
     torch.testing.assert_close(got[1], ref[1], atol=1e-5, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def packed_bf16(dev):
+    from difusion_tpu_torch.models.weights import load_prior
+    dec, _, _ = load_prior(HYPER, 300, device=dev)
+    return fused.pack_fused_decoder(dec, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 64, 65, 777, 8192, 8193])
+def test_decode_grad_bf16_kernel_matches_plain(dev, packed_bf16, n):
+    """Kernel 1's bf16 mode against its plain bf16 version: sdf/std atol
+    2e-3 (chip_smoke.py's BF16_ATOL: an activation whose f32 sum ran in
+    another order may round to the neighbouring bf16 value); gradient rows
+    within 1e-3 + 1e-3 |ref| but for at most max(2, N / 1000) rows, all
+    within atol 0.15 + rtol 0.05; one launch counted as decode_grad_bf16."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    lat = torch.randn(n, 29, generator=gen, device=dev) * 0.3
+    rel = torch.rand(n, 3, generator=gen, device=dev) - 0.5
+    before = _build.launch_counts().get("decode_grad_bf16", 0)
+    got = fused.decode_grad_fused(packed_bf16, lat, rel)
+    ref = fused.decode_grad_plain(packed_bf16, lat, rel)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["decode_grad_bf16"] == before + 1
+    torch.testing.assert_close(got[0], ref[0], atol=2e-3, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=2e-3, rtol=0)
+    torch.testing.assert_close(got[2], ref[2], atol=0.15, rtol=0.05)
+    beyond = ((got[2] - ref[2]).abs() > 1e-3 + 1e-3 * ref[2].abs()).any(dim=1)
+    assert int(beyond.sum()) <= max(2, n // 1000)
+
+
+@pytest.mark.parametrize("n", [0, 1, 17, 96, 97, 4097, (1 << 20) + 3])
+def test_decode_fwd_bf16_kernel_matches_plain(dev, packed_bf16, n):
+    """Kernel 3's bf16 mode against its plain bf16 version over the
+    mesher's lattice range: sdf/std atol 2e-3; one launch counted as
+    decode_fwd_bf16, none for N = 0."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    lat = torch.randn(n, 29, generator=gen, device=dev) * 0.3
+    rel = torch.rand(n, 3, generator=gen, device=dev) * 1.75 - 1.0
+    before = _build.launch_counts().get("decode_fwd_bf16", 0)
+    got = fused.decode_fused(packed_bf16, lat, rel)
+    ref = fused.decode_fused_plain(packed_bf16, lat, rel)
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get("decode_fwd_bf16", 0) == before + (n > 0)
+    torch.testing.assert_close(got[0], ref[0], atol=2e-3, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=2e-3, rtol=0)
+
+
 def _stencil_inputs(dev, shape, seed):
     """A (H, W, 3) point map with negative coordinates too, its bool validity
     map, and the four masked planes of the other entry."""

@@ -154,11 +154,25 @@ def test_cli_writes_trajectory_and_map(tmp_path, capsys):
         np.testing.assert_allclose(back.matrix, pose.matrix, atol=1e-12)
 
 
-def test_cli_defaults_to_cuda_and_rejects_unported_flags(tmp_path):
+def test_cli_defaults_to_cuda_and_rejects_unported_flags(tmp_path, capsys, monkeypatch):
+    """``--interactive`` (with input at its end: free-runs) and ``--xprof``
+    run on the CPU and print the summary; ``--xprof`` writes a Chrome trace.
+    The CLI defaults to the card, and without one raises.  (``mesh_tool
+    --shard``, still unported, raises in tests/test_torch_meshing.py.)"""
     import torch
+
+    def eof(_=""):
+        raise EOFError
+    monkeypatch.setattr("builtins.input", eof)
     for flag in (["--interactive"], ["--xprof", str(tmp_path / "trace")]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            slam.main(_cli(tmp_path, "--device", "cpu", *flag))
+        result = slam.main(_cli(tmp_path, "--device", "cpu", "--max-frames", "3",
+                                "--no-mesh", *flag))
+        out = capsys.readouterr().out
+        summary = json.loads(out[out.rindex("{\n"):])     # the summary comes last
+        assert summary["n_frames"] == 3 == len(result["trajectory"])
+        assert summary["ate_rmse"] < 0.02
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert any(e.get("name", "").startswith("aten::") for e in trace["traceEvents"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             slam.main(_cli(tmp_path, "--max-frames", "2", "--no-mesh"))

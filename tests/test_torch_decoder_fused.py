@@ -116,7 +116,7 @@ def test_grad_rows_off_takes_the_other_side_only_at_a_kink(prior):
     lat, rel = (torch.from_numpy(a) for a in _inputs(4096, 5))
     packed = fused.pack_fused_decoder(t_dec)
     p = fused.unpack(packed)
-    _, zs, sdf, _ = fused._forward(p, lat, rel)
+    _, zs, _, sdf, _ = fused._forward(p, lat, rel)
     ref = fused._grad(p, [z > 0 for z in zs], sdf)
     assert not bool(fused.grad_rows_off(ref, packed, lat, rel).any())
     z = torch.cat(zs, dim=1)

@@ -417,7 +417,9 @@ def test_hash_chunk_matches_per_frame(port, hash_chunked):
 
 def test_unported_options_raise(port):
     """What the chunked path still refuses: ``with_merge`` without a result
-    to merge, the tracker's unported modes, and a chunk before frame 0."""
+    to merge, tracker values outside the JAX package's, and a chunk before
+    frame 0.  The tracker's modes run (``gn_unroll=2`` builds with the
+    optimizer on)."""
     frames, make = port
     system = make()
     system.process_frame(frames[0])
@@ -426,8 +428,11 @@ def test_unported_options_raise(port):
         track_fuse_scan(system.tracker, system.encoder, system.state, packed,
                         [False], W, with_merge=True)
     dec, enc, _ = load_prior(HYPER, 300, device="cpu")
+    assert SLAMSystem(M.MapConfig(**MAP), T.TrackerConfig(gn_unroll=2), dec, enc,
+                      Intrinsic(*CALIB), latent_optimize=True,
+                      device="cpu").tracker.tcfg.gn_unroll == 2
     with pytest.raises(NotImplementedError, match="not implemented by the PyTorch port"):
-        SLAMSystem(M.MapConfig(**MAP), T.TrackerConfig(gn_unroll=2), dec, enc,
+        SLAMSystem(M.MapConfig(**MAP), T.TrackerConfig(gn_unroll=0), dec, enc,
                    Intrinsic(*CALIB), latent_optimize=True, device="cpu")
     with pytest.raises(RuntimeError):
         make().process_chunk(packed, W)          # frame 0 must come first

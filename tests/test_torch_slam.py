@@ -121,8 +121,9 @@ def test_slice_meshes_like_jax(runs):
 
 
 def test_slam_rejects_unported_options():
-    """The mesher's fast mode and the optimizer are ported (they build); an
-    unknown optimizer mode and the tracker's unported modes raise."""
+    """The mesher's fast mode, the optimizer and the tracker's modes are
+    ported (they build); an unknown optimizer mode and a tracker value
+    outside the JAX package's raise."""
     t_dec, t_enc, _ = load_prior(HYPER, 300, device="cpu")
     args = (M.MapConfig(**MAP), T.TrackerConfig(), t_dec, t_enc, Intrinsic(*CALIB))
     assert SLAMSystem(*args, mesh_fast=True, device="cpu").mesher.fast
@@ -130,6 +131,8 @@ def test_slam_rejects_unported_options():
     with pytest.raises(ValueError):
         SLAMSystem(*args, latent_optimize=True, latent_optimize_mode="async",
                    device="cpu")
+    assert SLAMSystem(*args[:1], T.TrackerConfig(warp_tiled=True), *args[2:],
+                      device="cpu").tracker.tcfg.warp_tiled
     with pytest.raises(NotImplementedError):
-        SLAMSystem(*args[:1], T.TrackerConfig(warp_tiled=True), *args[2:],
+        SLAMSystem(*args[:1], T.TrackerConfig(sdf_compute_dtype="float16"), *args[2:],
                    device="cpu")

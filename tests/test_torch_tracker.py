@@ -405,7 +405,8 @@ def test_solve_precond_and_exp_twist_match_jax():
 
 def test_config_fields_and_unsupported_values():
     """TrackerConfig keeps the JAX fields, defaults (except the two routes
-    the port takes) and from_args; unsupported values raise."""
+    the port takes) and from_args; every value the JAX package documents
+    for the tracker's modes is accepted, and values outside them raise."""
     j, t = JT.TrackerConfig(), T.TrackerConfig()
     assert j._fields == t._fields
     diff = {f for f in j._fields if getattr(j, f) != getattr(t, f)}
@@ -419,9 +420,13 @@ def test_config_fields_and_unsupported_values():
     jf, tf = JT.TrackerConfig.from_args(args, 4096), T.TrackerConfig.from_args(args, 4096)
     assert jf._replace(warp_tiled=False, sdf_fused="on") == tuple(tf)
     T.check_supported(tf)
-    for field, value in (("warp_tiled", True), ("solve_dtype", "f64"),
+    for field, value in (("warp_tiled", True), ("warp_texture_bf16", False),
                          ("sdf_compute_dtype", "bfloat16"), ("sdf_fused", "off"),
-                         ("rgb_bilinear", False), ("gn_unroll", 2)):
+                         ("sdf_fused", "auto"), ("rgb_bilinear", False),
+                         ("sdf_gather_cache", True), ("gn_unroll", 2)):
+        T.check_supported(tf._replace(**{field: value}))
+    for field, value in (("solve_dtype", "f64"), ("sdf_compute_dtype", "float16"),
+                         ("sdf_fused", "maybe"), ("gn_unroll", 0)):
         with pytest.raises(NotImplementedError):
             T.check_supported(tf._replace(**{field: value}))
 
