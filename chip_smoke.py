@@ -109,6 +109,29 @@ Phases, each printing one JSON line:
               plain versions on the trained weights, and a few frames of
               SLAMSystem (meshing on) on the trained prior, whose kernel
               launches the kernels line gives as launches_prior.
+    multi -- the several-process paths (train/distributed.py) on the prior
+              phase's corpus at the same widths: (a) `python -m
+              torch.distributed.run --standalone --nproc-per-node 1 -m
+              difusion_tpu_torch.train.trainer` (NCCL, a world of one) for
+              one epoch, whose files must equal the plain trainer's bit for
+              bit; (b) distributed.launch on 2 ranks over gloo, both on this
+              card: data-parallel train_step, 1 and MULTI_STEPS steps against
+              the single-process steps on the same global batch and dropout
+              draws (one step: losses at 1e-4; parameters within 2e-5 but
+              for at most 1e-4 of the entries, each with a single-process
+              gradient g so small that lr * eps / (|g| + eps) > 2e-5: Adam's
+              step lr * g / (|g| + eps) moves such an entry past the
+              tolerance on a gradient error no larger than |g| + eps; those
+              within 2 lr; the 5-step difference reported), ms/step by CUDA
+              events beside the
+              single process's; (c) the same on make_mesh(2, tp=2), one step
+              within 3e-5 so; (d) the offline phase's map at r = 8 through `mesh_tool
+              --shard` (every visible card) and through a MeshExtractor split
+              over cuda:0 twice (core/meshing._shard_devices patched):
+              triangles torch.equal to the offline
+              extract's, kernel 3 launched twice a split chunk, ms (cold,
+              then warm in turns with the unsharded extract).  One card
+              says nothing of several cards' scaling.
 
 11. xprof -- `python -m difusion_tpu_torch.slam ... --xprof DIR` in-process
               on 4 frames: the Chrome trace must exist and name kernel 1.
@@ -175,6 +198,10 @@ PRIOR_STEPS = 40
 PRIOR_LOG_EVERY = 5
 PRIOR_FRAMES = 3
 PRIOR_DIR = Path(__file__).resolve().parent / "build" / "prior_smoke"
+# the multi phase: steps of the data-parallel runs, and its files
+MULTI_STEPS = 5
+MULTI_DIR = Path(__file__).resolve().parent / "build" / "multi_smoke"
+OFFLINE_MAP = Path(__file__).resolve().parent / "build" / "offline_map.npz"
 # the configs the prior phase runs: each data config cut to PRIOR_SHAPES
 # shapes and written under PRIOR_DIR; the train config on that corpus
 DATA_CONFIGS = {"simple": Path(__file__).resolve().parent / "configs/data-simple.yaml",
@@ -633,9 +660,10 @@ def event_ms(sink: list) -> list:
 
 
 def prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod,
-                _build) -> None:
-    """The prior phase (see the module docstring): emits one line and adds
-    the trained prior's checks and launches to ``kernels``."""
+                _build) -> dict:
+    """The prior phase (see the module docstring): emits one line, adds the
+    trained prior's checks and launches to ``kernels``, and returns the
+    train hyper on the generated corpus."""
     from difusion_tpu_torch.config import args_to_dict, dict_to_args, load_yaml_args
     from difusion_tpu_torch.models.weights import load_prior
     from difusion_tpu_torch.ops.decoder_fused import pack_fused_decoder
@@ -802,6 +830,7 @@ def prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod,
         k["launches_prior"] = counts.get(k["name"], 0)
     kernels[0]["max_abs_err_prior"] = k1["max_abs_err"]
     kernels[2]["max_abs_err_prior"] = k3["max_abs_err"]
+    return hyper
 
 
 MODES = {
@@ -936,6 +965,281 @@ def xprof_check(slam_mod) -> dict:
     if k1 == 0:
         fail("the --xprof trace names no decode_grad_kernel")
     return line
+
+
+# ---------------------------------------------------------------------------
+# multi: the several-process paths (train/distributed.py, mesh_tool --shard)
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, prefix=""):
+    """(name, array) of every leaf of a parameter tree, in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [x for i, t in enumerate(tree) for x in _leaves(t, f"{prefix}{i}.")]
+    return [(prefix[:-1], np.asarray(tree))]
+
+
+def _tree_diff(a, b, grads=None, tol=0.0) -> dict:
+    """How far parameter tree ``b`` is from ``a``: the largest difference,
+    and, given the gradients of ``a``'s step (the same layout), the number
+    of entries, those beyond ``tol`` and the largest of their gradients'
+    sizes.  Adam's first step moves an entry by lr * g / (|g| + eps), whose
+    change under a gradient error d is up to lr * eps * d / (|g| + eps)^2:
+    where |g| is a few tens of eps or less, the sums' rounding moves the
+    entry by a good part of lr, either way."""
+    diffs = {n: np.abs(x - y) for (n, x), (_, y) in zip(_leaves(a), _leaves(b))}
+    out = {"max_abs_diff": max(float(d.max()) for d in diffs.values())}
+    if grads is not None:
+        off, worst = 0, 0.0
+        for name, g in _leaves(grads):
+            beyond = diffs[name] > tol
+            if beyond.any():
+                off += int(beyond.sum())
+                # the BatchNorm statistics have no gradient: never exempt
+                worst = max(worst, float("inf") if name.endswith(("bn_mean", "bn_var"))
+                            else float(np.abs(g[beyond]).max()))
+        out.update(entries=sum(d.size for d in diffs.values()), entries_beyond_tol=off,
+                   max_abs_grad_beyond_tol=worst)
+    return out
+
+
+def _grad_tree(grads, params):
+    """Gradients by name (``dec.layers.0.v``) in the JAX layout of
+    ``params`` (zeros for the BatchNorm buffers)."""
+    def layers(prefix, tree):
+        return [{k: (grads[f"{prefix}.layers.{i}.{k}"].cpu().numpy()
+                     if f"{prefix}.layers.{i}.{k}" in grads else np.zeros_like(v))
+                 for k, v in layer.items()} for i, layer in enumerate(tree["layers"])]
+    dec = {"layers": layers("dec", params["dec"]),
+           "uncertainty": {k: grads[f"dec.uncertainty.{k}"].cpu().numpy()
+                           for k in params["dec"]["uncertainty"]}}
+    return {"dec": dec, "enc": {"layers": layers("enc", params["enc"])}}
+
+
+def multi_rank_train(hyper, sdf, surf, n, tp, steps, seed):
+    """On each launched rank (gloo, every rank on cuda:0): ``steps`` train
+    steps on a make_mesh(n, tp) mesh from the fresh seeded state and the
+    global batch ``sdf``, ``surf`` (numpy), dropout drawn for the global
+    batch from a card generator seeded ``seed``.  Rank 0 returns after the
+    first step and after the last the global losses and the gathered
+    parameters, and every step's ms by CUDA events."""
+    from difusion_tpu_torch.models.decoder import DecoderSpec
+    from difusion_tpu_torch.models.encoder import EncoderSpec
+    from difusion_tpu_torch.train import distributed as D
+    from difusion_tpu_torch.train import trainer as TR
+    from difusion_tpu_torch.train.losses import LossConfig
+
+    dev = torch.device("cuda", 0)
+    mesh = D.make_mesh(n, tp)
+    state = TR.create_train_state(DecoderSpec.from_hyper(hyper), EncoderSpec.from_hyper(hyper),
+                                  0, dev)
+    state = D.shard_state_tp(D.replicate(mesh, state), mesh)
+    sdf_r, surf_r = (torch.from_numpy(a).to(dev) for a in D.shard_batch(mesh, sdf, surf))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    loss_cfg = LossConfig.from_hyper(hyper)
+    out, events = {}, []
+    for k in range(1, steps + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, losses = TR.train_step(loss_cfg, state, sdf_r, surf_r, 1e-3, 1e-3, 1,
+                                      generator=gen, mesh=mesh)
+        end.record()
+        events.append((start, end))
+        if k in (1, steps):
+            losses = {key: float(v) for key, v in D.mean_over_data(mesh, losses).items()}
+            full = D.gather_state(state, mesh)
+            out[k] = {"losses": losses, "dec": full.dec.to_params(),
+                      "enc": full.enc.to_params()}
+    torch.cuda.synchronize()
+    if mesh.rank != 0:
+        return None
+    return {"steps": out, "step_ms": [a.elapsed_time(b) for a, b in events],
+            "mesh": [mesh.dp, mesh.tp]}
+
+
+def multi_phase(dev, kernels, hyper, offline, smi, _build) -> None:
+    """The multi phase (see the module docstring)."""
+    from difusion_tpu_torch import mesh_tool
+    from difusion_tpu_torch.core import map as M
+    from difusion_tpu_torch.core import meshing
+    from difusion_tpu_torch.core.meshing import MeshExtractor
+    from difusion_tpu_torch.models.decoder import DecoderSpec
+    from difusion_tpu_torch.models.encoder import EncoderSpec
+    from difusion_tpu_torch.models.weights import load_prior
+    from difusion_tpu_torch.train import distributed as D
+    from difusion_tpu_torch.train import lif_dataset as ldata
+    from difusion_tpu_torch.train import trainer as TR
+    from difusion_tpu_torch.train.losses import LossConfig
+    from difusion_tpu_torch.utils.adam import EPS as ADAM_EPS
+
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    MULTI_DIR.mkdir(parents=True)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    row = {"phase": "multi", "gpu": smi}
+
+    # ---- (a) torchrun with a world of one against the plain trainer ----
+    run_s = {}
+    for name, launcher in (("plain", []), ("torchrun", [
+            "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1"])):
+        cfg = MULTI_DIR / f"{name}.json"
+        cfg.write_text(json.dumps(dict(hyper, save_dir=str(MULTI_DIR / name), num_epochs=1,
+                                       snapshot_frequency=1, additional_snapshots=[])))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *launcher, "-m",
+                               "difusion_tpu_torch.train.trainer", str(cfg)],
+                              capture_output=True, text=True, timeout=600)
+        run_s[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"multi (a): the {name} trainer exited {proc.returncode}:\n"
+                 f"{proc.stderr[-3000:]}")
+    files = sorted(p.name for p in (MULTI_DIR / "plain").iterdir())
+    same = {}
+    for f in files:
+        a, b = MULTI_DIR / "plain" / f, MULTI_DIR / "torchrun" / f
+        if f.endswith(".npz"):
+            with np.load(a) as x, np.load(b) as y:
+                same[f] = set(x.files) == set(y.files) and all(
+                    np.array_equal(x[k], y[k]) for k in x.files)
+        elif f == "metrics.jsonl":
+            rows = [[{k: v for k, v in json.loads(line).items() if k != "t"}
+                     for line in p.read_text().splitlines()] for p in (a, b)]
+            same[f] = rows[0] == rows[1]
+        elif f.endswith(".pth.tar"):
+            x, y = (torch.load(p, map_location="cpu", weights_only=False) for p in (a, b))
+            same[f] = x["epoch"] == y["epoch"] and x["model_state"].keys() == \
+                y["model_state"].keys() and all(torch.equal(v, y["model_state"][k])
+                                                for k, v in x["model_state"].items())
+    row["a_torchrun_world_1"] = {"seconds": run_s, "files": files, "equal": same,
+                                 "steps": int(np.load(MULTI_DIR / "plain" / "training_1.npz")
+                                              ["step"])}
+    if sorted(p.name for p in (MULTI_DIR / "torchrun").iterdir()) != files \
+            or not all(same.values()) or "prior_1.npz" not in same:
+        emit(row)
+        fail(f"multi (a): the torchrun snapshot differs from the plain trainer's: {same}")
+
+    # ---- (b), (c): data and tensor parallel ranks sharing the card (gloo) ----
+    packed = ldata.pack_dataset(ldata.LifCombinedDataset(*[
+        ldata.LifDataset(**t, num_sample=hyper["samples_per_lif"]) for t in hyper["train_set"]]))
+    sdf, surf, _ = next(iter(ldata.iterate_batches_packed(packed, hyper["batch_size"],
+                                                          np.random.default_rng(7))))
+    sdf, surf = sdf.astype(np.float32), surf.astype(np.float32)
+    spec_d, spec_e = DecoderSpec.from_hyper(hyper), EncoderSpec.from_hyper(hyper)
+    loss_cfg = LossConfig.from_hyper(hyper)
+    seed, lr = 11, 1e-3
+    probe = TR.create_train_state(spec_d, spec_e, 0, dev)
+    _, grads = TR.loss_and_grads(loss_cfg, probe, torch.from_numpy(sdf).to(dev),
+                                 torch.from_numpy(surf).to(dev), 1,
+                                 generator=torch.Generator(device=dev).manual_seed(seed))
+    del probe
+    state = TR.create_train_state(spec_d, spec_e, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    single, single_ms = {}, []
+    for k in range(1, MULTI_STEPS + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, losses = TR.train_step(loss_cfg, state, torch.from_numpy(sdf).to(dev),
+                                      torch.from_numpy(surf).to(dev), lr, lr, 1, generator=gen)
+        end.record()
+        single_ms.append((start, end))
+        if k in (1, MULTI_STEPS):
+            single[k] = {"losses": {key: float(v) for key, v in losses.items()},
+                         "params": {"dec": state.dec.to_params(), "enc": state.enc.to_params()}}
+    single_ms = event_ms(single_ms)
+    grad_tree = _grad_tree(grads, single[1]["params"])
+    for label, n, tp, steps, tol in (("b_dp2", 2, 1, MULTI_STEPS, 2e-5),
+                                     ("c_dp1_tp2", 2, 2, 1, 3e-5)):
+        t0 = time.perf_counter()
+        (r0, _) = D.launch(multi_rank_train, n, hyper, sdf, surf, n, tp, steps, seed,
+                           timeout=600.0)
+        launch_s = time.perf_counter() - t0
+        got = r0["steps"][1]
+        diff = _tree_diff(single[1]["params"], {"dec": got["dec"], "enc": got["enc"]},
+                          grad_tree, tol)
+        loss_rel = max(abs(got["losses"][k] - v) / max(abs(v), 1e-2)
+                       for k, v in single[1]["losses"].items())
+        row[label] = {"mesh": r0["mesh"], "launch_s": launch_s,
+                      "ms_per_step": r0["step_ms"],
+                      "ms_per_step_after_1": statistics.median(r0["step_ms"][1:])
+                      if len(r0["step_ms"]) > 1 else None,
+                      "single_process_ms_per_step": single_ms,
+                      "losses": got["losses"], "single_losses": single[1]["losses"],
+                      "loss_max_rel_diff": loss_rel, "tolerance": tol,
+                      **{f"params_1_step_{k}": v for k, v in diff.items()}}
+        if steps > 1:
+            row[label][f"params_{steps}_steps_max_abs_diff"] = _tree_diff(
+                single[steps]["params"], {"dec": r0["steps"][steps]["dec"],
+                                          "enc": r0["steps"][steps]["enc"]})["max_abs_diff"]
+        # an entry beyond the tolerance passes only where a gradient error
+        # no larger than |g| + eps could move Adam's first step past it
+        # (lr * eps / (|g| + eps) > tol), and then within 2 lr; at most 1e-4
+        # of the entries may
+        exempt_below = lr * ADAM_EPS / tol - ADAM_EPS
+        if loss_rel > 1e-4 or diff["max_abs_grad_beyond_tol"] >= exempt_below \
+                or diff["entries_beyond_tol"] > 1e-4 * diff["entries"] \
+                or diff["max_abs_diff"] > 2 * lr:
+            emit(row)
+            fail(f"multi ({label}): one step off the single-process step: losses "
+                 f"{loss_rel:.3g} rel, {diff}")
+
+    # ---- (d): the offline map, sharded over every card and over cuda:0 twice ----
+    t0 = time.perf_counter()
+    tool = mesh_tool.main([offline["map"], str(MULTI_DIR / "shard.ply"), "--hyper", str(HYPER),
+                           "--epoch", "300", "--resolution", "8", "--max-std",
+                           str(MESH_MAX_STD), "--shard"])
+    torch.cuda.synchronize()
+    tool_ms = (time.perf_counter() - t0) * 1e3
+    dec, _, _ = load_prior(HYPER, 300, device=dev)
+    cfg, state_m = M.load_map(offline["map"], device=dev)
+    two = MeshExtractor(cfg, dec, voxel_resolution=8, max_triangles=int(1e7), shard=True)
+    one = MeshExtractor(cfg, dec, voxel_resolution=8, max_triangles=int(1e7))
+
+    def timed_extract(mesher):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesher.extract(state_m, max_std=MESH_MAX_STD, no_cache=True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    # the sharded extractor splits over cuda:0 twice: the meshing module's
+    # device list, patched for these extracts
+    visible = meshing._shard_devices
+    meshing._shard_devices = lambda d: [torch.device("cuda", 0)] * 2
+    try:
+        counts_before = _build.launch_counts().get("decode_fused", 0)
+        two_ms = [timed_extract(two)]
+        two_launches = _build.launch_counts().get("decode_fused", 0) - counts_before
+        # then warm, in turns with the unsharded extract
+        one_ms = []
+        for _ in range(2):
+            one_ms.append(timed_extract(one))
+            two_ms.append(timed_extract(two))
+    finally:
+        meshing._shard_devices = visible
+    counts = _build.launch_counts()
+    equal = {name: all(torch.equal(torch.from_numpy(x), torch.from_numpy(y))
+                       for x, y in zip(m.triangles(), offline["triangles"]))
+             for name, m in (("mesh_tool_shard", tool), ("cuda0_twice", two),
+                             ("unsharded", one))}
+    row["d_shard"] = {"mesh_tool_shard_ms": tool_ms, "two_slices_extract_ms": two_ms,
+                      "unsharded_extract_ms": one_ms, "offline_tool_ms": offline["tool_ms"],
+                      "offline_warm_extract_ms": offline["warm_ms"],
+                      "devices": {"mesh_tool_shard": tool.last_stats["decode_devices"],
+                                  "cuda0_twice": two.last_stats["decode_devices"]},
+                      "decode_dispatches": two.last_stats["decode_dispatches"],
+                      "decode_fused_launches_two_slices": two_launches,
+                      "triangles": len(two.triangles()[0]), "equal_to_offline": equal}
+    row["launches"] = counts
+    emit(row)
+    if not all(equal.values()):
+        fail(f"multi (d): a sharded extract differs from the offline one: {equal}")
+    if two.last_stats["decode_devices"] != 2 \
+            or two_launches != 2 * two.last_stats["decode_dispatches"]:
+        fail(f"multi (d): {two_launches} kernel 3 launches for "
+             f"{two.last_stats['decode_dispatches']} chunks split in two")
+    for k in kernels:
+        k["launches_multi"] = counts.get(k["name"], 0)
 
 
 def main() -> int:
@@ -1466,6 +1770,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         map_path, ply_path = f"{tmp}/map.npz", f"{tmp}/mesh.ply"
         msys.save_map(map_path)
+        OFFLINE_MAP.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(map_path, OFFLINE_MAP)
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1485,6 +1791,8 @@ def main() -> int:
         torch.cuda.synchronize()
         warm_ms = (time.perf_counter() - t0) * 1e3
     merr = mesh_error_stats(tris)
+    offline = {"map": str(OFFLINE_MAP), "triangles": tool.triangles(), "tool_ms": tool_ms,
+               "warm_ms": warm_ms}
     emit({"phase": "offline", "resolution": 8, "max_std": MESH_MAX_STD,
           "tool_ms": tool_ms, "warm_extract_ms": warm_ms, "launches": counts,
           "triangles": len(tris), "ply_bytes": ply_bytes, **stats, **merr})
@@ -1594,7 +1902,10 @@ def main() -> int:
     kernels[4]["launches_profile"] = _build.launch_counts().get("decode_fwd_bf16", 0)
 
     # ---- prior: generator -> trainer -> the trained prior in serving ----
-    prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod, _build)
+    hyper = prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod, _build)
+
+    # ---- multi: torchrun, data- and tensor-parallel ranks, sharded meshing ----
+    multi_phase(dev, kernels, hyper, offline, smi, _build)
 
     # ---- xprof: the CLI's profiler trace ----
     _build.reset_launch_counts()

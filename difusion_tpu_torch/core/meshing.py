@@ -31,11 +31,19 @@ Per extract:
 4. The triangles splice into a host-side cache keyed by latent slot: a
    re-meshed slot's old triangles are replaced.
 
-Sharded decoding (the JAX package's ``shard``, several devices) has no
-counterpart on one card.
+With ``shard`` (the JAX package's ``shard``, ``mesh_tool --shard``) each
+decode chunk whose block count divides by the number of devices splits into
+contiguous block slices, one a device (every visible card by default, as
+``jax.devices()``): each slice decodes on its device (kernel 3 for the
+production decoder; blocks are independent, so the values are the
+unsharded decode's) against that device's copy of the packed weights and
+the latent table, made once an extract, and the slices come back to the
+map's device before marching cubes.  With one device the extract is the
+unsharded one.
 """
 from __future__ import annotations
 
+import copy
 import logging
 from functools import lru_cache
 from typing import Optional, Tuple
@@ -266,6 +274,17 @@ def jet_rgb(t: np.ndarray) -> np.ndarray:
     return (_JET[idx] * 255).astype(np.uint8)
 
 
+def _shard_devices(dev: torch.device) -> list:
+    """The devices a sharded decode chunk of a map on ``dev`` splits over:
+    every visible card for a map on the card, as ``jax.devices()``, else
+    ``dev`` alone.  The list may name a device more than once; the tests
+    and ``chip_smoke.py`` patch this function to split a chunk on one
+    device."""
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
 class _MeshExtractorBase:
     """The cache and the extract driver; a backend resolves cells and slots
     (:meth:`_mesh_prep`) and gives the marching-cubes grid (:meth:`_mc_grid`).
@@ -274,12 +293,15 @@ class _MeshExtractorBase:
     4) the candidate cubes a marching-cubes chunk, so a full ``no_cache``
     extract of a large map runs in bounded memory.  ``fast`` decodes
     coarse-to-fine (:func:`_eval_and_negate_fast`) with ``refine_k =
-    max(int(refine_fraction * (2r)^3), 8)`` exact sites a block."""
+    max(int(refine_fraction * (2r)^3), 8)`` exact sites a block.
+
+    ``shard`` spreads each decode chunk over the devices
+    :func:`_shard_devices` names: see the module docstring."""
 
     def __init__(self, decoder: Decoder, voxel_resolution: int = 4,
                  max_triangles: int = 1 << 20, interpolate: bool = True,
                  fast: bool = False, refine_fraction: float = 0.2,
-                 max_eval_points: int = 1 << 20):
+                 max_eval_points: int = 1 << 20, shard: bool = False):
         self.decoder = decoder
         self.packed = (_fused.pack_fused_decoder(decoder)
                        if _fused.supports_spec(decoder.spec) else None)
@@ -289,6 +311,7 @@ class _MeshExtractorBase:
         self.fast = fast
         self.refine_k = max(int(refine_fraction * (2 * self.r) ** 3), 8)
         self.max_eval_points = int(max_eval_points)
+        self.shard = bool(shard)
         # host<->device traffic of the last extract, excluding the triangle
         # output itself; and its sizes (blocks, bucket, dispatches)
         self.last_transfer_bytes = 0
@@ -354,19 +377,35 @@ class _MeshExtractorBase:
         valid_blocks = np.full(B, -1, np.int32)
         valid_blocks[:n] = lin_local
 
-        # decoder evaluation in chunks of <= max_eval_points lattice sites
+        # decoder evaluation in chunks of <= max_eval_points lattice sites;
+        # with shard, each chunk in contiguous block slices over the devices
+        # (as the JAX package, only when they divide the chunk), which get
+        # their copies of the weights and the latent table once an extract
         per_block = (2 * self.r) ** 3
         C = min(_next_bucket(max(self.max_eval_points // per_block, 1)), B)
-        if self.fast:
-            parts = [_eval_and_negate_fast(self.decoder, self.packed, state.latents,
-                                           slot_pad_d[s0:s0 + C], self.r, self.refine_k)
-                     for s0 in range(0, B, C)]
-            evals_per_block = self.r ** 3 + self.refine_k
-        else:
-            parts = [_eval_and_negate(self.decoder, self.packed, state.latents,
-                                      slot_pad_d[s0:s0 + C], self.r)
-                     for s0 in range(0, B, C)]
-            evals_per_block = per_block
+        shards = _shard_devices(dev) if self.shard else []
+        if len(shards) < 2 or C % len(shards):
+            shards = []
+        copies = {d: (self.decoder if d == dev else copy.deepcopy(self.decoder).to(d),
+                      None if self.packed is None else self.packed.to(d),
+                      state.latents.to(d)) for d in set(shards)}
+
+        def decode(decoder, packed, table, chunk):
+            if self.fast:
+                return _eval_and_negate_fast(decoder, packed, table, chunk, self.r,
+                                             self.refine_k)
+            return _eval_and_negate(decoder, packed, table, chunk, self.r)
+        parts = []
+        for s0 in range(0, B, C):
+            chunk = slot_pad_d[s0:s0 + C]
+            if not shards:
+                parts.append(decode(self.decoder, self.packed, state.latents, chunk))
+                continue
+            k = C // len(shards)
+            pieces = [decode(*copies[d], chunk[j * k:(j + 1) * k].to(d))
+                      for j, d in enumerate(shards)]
+            parts.append(tuple(torch.cat([q[i].to(dev) for q in pieces]) for i in (0, 1)))
+        evals_per_block = self.r ** 3 + self.refine_k if self.fast else per_block
         cube_sdf = torch.cat([p[0] for p in parts])
         cube_std = torch.cat([p[1] for p in parts])
 
@@ -375,7 +414,8 @@ class _MeshExtractorBase:
         n_sub = self.r ** 3
         C_mc = min(_next_bucket(max(self.max_eval_points // (4 * n_sub), 64)), B)
         self.last_stats.update(bucket=B, sites_per_dispatch=C * per_block,
-                               decode_dispatches=B // C, mc_chunks=B // C_mc,
+                               decode_dispatches=B // C, decode_devices=max(len(shards), 1),
+                               mc_chunks=B // C_mc,
                                decoder_evals=B * evals_per_block)
         tri_parts, std_parts, blk_parts = [], [], []
         emitted = 0

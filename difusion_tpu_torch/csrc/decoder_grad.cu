@@ -600,16 +600,23 @@ decode_fwd_bf16_kernel(const float* __restrict__ latent, const float* __restrict
                                                       nullptr, n);
 }
 
-// one instance's launch: its shared-memory size set once per process, then
-// ceil(n / rows) blocks on `stream`.  Returns cudaGetLastError().
+// the devices whose shared-memory attribute an instance remembers having set
+constexpr int MAX_DEVICES = 64;
+
+// one instance's launch on the current device: its shared-memory size set
+// once per device (the attribute belongs to the device's context; past
+// MAX_DEVICES on every launch), then ceil(n / rows) blocks on `stream`.
+// Returns cudaGetLastError().
 template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), bool& attr_set, int smem, int warps, int rows, int n,
-           void* stream, Args... args) {
-  if (!attr_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch(void (*kernel)(Params...), bool (&attr_set)[MAX_DEVICES], int smem, int warps,
+           int rows, int n, void* stream, Args... args) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= MAX_DEVICES || !attr_set[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    if (device < MAX_DEVICES) attr_set[device] = true;
   }
   kernel<<<(n + rows - 1) / rows, warps * 32, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
@@ -626,7 +633,7 @@ extern "C" int decode_grad_packed_size_bf16() { return PACKED_SIZE_BF16; }
 extern "C" int decode_grad_launch(const float* latent, const float* rel,
                                   const float* packed, float* sdf, float* std_,
                                   float* grad, int n, void* stream) {
-  static bool attr_set = false;
+  static bool attr_set[MAX_DEVICES] = {};
   return launch(decode_grad_kernel, attr_set,
                 smem_bytes<K1_WARPS, K1_MT, true, K1_RING, false>(), K1_WARPS,
                 block_rows<K1_WARPS, K1_MT>(), n, stream, latent, rel, packed, sdf, std_,
@@ -636,7 +643,7 @@ extern "C" int decode_grad_launch(const float* latent, const float* rel,
 extern "C" int decode_grad_bf16_launch(const float* latent, const float* rel,
                                        const float* packed, float* sdf, float* std_,
                                        float* grad, int n, void* stream) {
-  static bool attr_set = false;
+  static bool attr_set[MAX_DEVICES] = {};
   return launch(decode_grad_bf16_kernel, attr_set,
                 smem_bytes<K1_WARPS, K1_MT, true, K1_RING, true>(), K1_WARPS,
                 block_rows<K1_WARPS, K1_MT>(), n, stream, latent, rel, packed, sdf, std_,
@@ -649,7 +656,7 @@ extern "C" int decode_grad_bf16_launch(const float* latent, const float* rel,
 extern "C" int decode_fwd_launch(const float* latent, const float* rel,
                                  const float* packed, float* sdf, float* std_,
                                  int n, void* stream) {
-  static bool attr_set = false;
+  static bool attr_set[MAX_DEVICES] = {};
   return launch(decode_fwd_kernel, attr_set,
                 smem_bytes<K3_WARPS, K3_MT, false, K3_RING, false>(), K3_WARPS,
                 block_rows<K3_WARPS, K3_MT>(), n, stream, latent, rel, packed, sdf, std_, n);
@@ -658,7 +665,7 @@ extern "C" int decode_fwd_launch(const float* latent, const float* rel,
 extern "C" int decode_fwd_bf16_launch(const float* latent, const float* rel,
                                       const float* packed, float* sdf, float* std_,
                                       int n, void* stream) {
-  static bool attr_set = false;
+  static bool attr_set[MAX_DEVICES] = {};
   return launch(decode_fwd_bf16_kernel, attr_set,
                 smem_bytes<K3_WARPS, K3_MT, false, K3_RING, true>(), K3_WARPS,
                 block_rows<K3_WARPS, K3_MT>(), n, stream, latent, rel, packed, sdf, std_, n);

@@ -1,6 +1,7 @@
 """ctypes binding of the native PNG decoder (native/frameio.cpp), the port's
-own copy of the part of difusion_tpu/data/native_io.py that the sequence
-loaders use (``read_png``; the threaded prefetcher is not bound).
+own copy of difusion_tpu/data/native_io.py: ``read_png``, which the sequence
+loaders use, and :class:`PngPrefetcher`, the library's threaded
+decode-ahead.
 
 The shared library is built on first use with the system toolchain
 (g++ -lz) into ``build/difusion_tpu_torch/`` at the repo root, keyed by a
@@ -18,7 +19,7 @@ import logging
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -49,6 +50,16 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_char_p, ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        lib.frameio_prefetcher_create.restype = ctypes.c_void_p
+        lib.frameio_prefetcher_create.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.frameio_prefetcher_next.restype = ctypes.c_int
+        lib.frameio_prefetcher_next.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        lib.frameio_prefetcher_destroy.restype = None
+        lib.frameio_prefetcher_destroy.argtypes = [ctypes.c_void_p]
         _lib = lib
     except (subprocess.CalledProcessError, OSError) as e:
         logging.warning("native frameio unavailable (%s); decoding with cv2", e)
@@ -75,6 +86,70 @@ def read_png(path: str) -> np.ndarray:
                                w, h, c, d)
     if err != 0:
         raise ValueError(f"frameio_read_png({path}) failed: {err}")
-    img = buf.view(">u2").astype(np.uint16) if d.value == 16 else buf
-    img = img.reshape(h.value, w.value, c.value)
-    return img[:, :, 0] if c.value == 1 else img
+    return _unpack(buf, w.value, h.value, c.value, d.value)
+
+
+def _unpack(buf: np.ndarray, w: int, h: int, channels: int, bitdepth: int) -> np.ndarray:
+    img = buf.view(">u2").astype(np.uint16) if bitdepth == 16 else buf
+    img = img.reshape(h, w, channels)
+    return img[:, :, 0] if channels == 1 else img
+
+
+def _png_header(path) -> bytes:
+    """Width, height, bit depth and colour type from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if len(head) < 26 or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG")
+    return head[16:26]
+
+
+class PngPrefetcher:
+    """Sequential decode-ahead over a list of PNG paths of one size and
+    format: the library's worker threads keep ``ring_size`` frames decoded
+    in front of the consumer.  :meth:`next` returns the frames in order, as
+    :func:`read_png` decodes them, and raises ValueError past the last;
+    :meth:`close` (idempotent) stops the threads.  The library copies each
+    frame into a buffer sized by the first, so every file's PNG header must
+    match the first's (ValueError otherwise)."""
+
+    def __init__(self, paths: List[str], ring_size: int = 8, n_threads: int = 2):
+        self._handle = None
+        headers = {_png_header(p) for p in paths}
+        if len(headers) != 1:
+            raise ValueError(f"PngPrefetcher: the PNGs differ in size or format: {headers}")
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native frameio unavailable")
+        self._lib = lib
+        # the library reads these strings while its threads run: keep them
+        self._paths = [str(p).encode() for p in paths]
+        arr = (ctypes.c_char_p * len(self._paths))(*self._paths)
+        w, h, c, d = (ctypes.c_int() for _ in range(4))
+        err = lib.frameio_read_png(self._paths[0], None, w, h, c, d)
+        if err != 0:
+            raise ValueError(f"cannot probe {paths[0]}: {err}")
+        self._shape = (w.value, h.value, c.value, d.value)
+        self._handle = lib.frameio_prefetcher_create(arr, len(self._paths), ring_size,
+                                                     n_threads)
+
+    def __len__(self) -> int:
+        return len(self._paths)
+
+    def next(self) -> np.ndarray:
+        w0, h0, c0, d0 = self._shape
+        buf = np.empty(w0 * h0 * c0 * (d0 // 8), np.uint8)
+        w, h, c, d = (ctypes.c_int() for _ in range(4))
+        err = self._lib.frameio_prefetcher_next(
+            self._handle, buf.ctypes.data_as(ctypes.c_void_p), w, h, c, d)
+        if err != 0:
+            raise ValueError(f"prefetcher_next failed: {err}")
+        return _unpack(buf, w.value, h.value, c.value, d.value)
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.frameio_prefetcher_destroy(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        self.close()

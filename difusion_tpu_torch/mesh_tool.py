@@ -7,11 +7,12 @@ Usage:
     python -m difusion_tpu_torch.mesh_tool map.npz out.ply \\
         --hyper di-checkpoints/study_mixed/hyper.json --epoch 300 \\
         --resolution 8 [--max-std 0.15] [--max-triangles 10000000] \\
-        [--no-interpolate] [--fast [--refine-fraction 0.2]] [--device cpu]
+        [--no-interpolate] [--fast [--refine-fraction 0.2]] [--shard] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given.  ``--fast`` decodes
 coarse-to-fine (~3x fewer decoder evaluations at r = 8).  ``--shard``
-raises ``NotImplementedError``: the port meshes on one card.
+spreads each decode chunk over every visible card (one card, or the CPU:
+the unsharded extract, as the JAX tool on one device).
 """
 from __future__ import annotations
 
@@ -41,12 +42,10 @@ def main(argv=None):
                         help="--fast: the fraction of a block's (2r)^3 sites "
                              "decoded exactly")
     parser.add_argument("--shard", action="store_true",
-                        help="multi-device decoding (not ported: one card)")
+                        help="shard the decoder lattice evaluation over all "
+                             "visible cards (multi-card offline meshing)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.shard:
-        raise NotImplementedError("--shard spreads the decode over several JAX "
-                                  "devices; the port meshes on one card")
 
     logging.basicConfig(level=logging.INFO)
     dec, _, _ = load_prior(args.hyper, args.epoch, device=args.device)
@@ -55,7 +54,7 @@ def main(argv=None):
     mesher = mesher_cls(cfg, dec, voxel_resolution=args.resolution,
                         max_triangles=args.max_triangles,
                         interpolate=not args.no_interpolate, fast=args.fast,
-                        refine_fraction=args.refine_fraction)
+                        refine_fraction=args.refine_fraction, shard=args.shard)
     mesher.extract(state, max_std=args.max_std, no_cache=True)
     tris, _ = mesher.triangles()
     logging.info("extracted %d triangles at resolution %d", len(tris), args.resolution)

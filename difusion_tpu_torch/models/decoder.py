@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import parallel as P
+
 
 class DecoderSpec(NamedTuple):
     latent_size: int = 29
@@ -214,10 +216,19 @@ class DecoderTrain(nn.Module):
 
     def forward(self, net_input: torch.Tensor,
                 masks: Optional[Dict[int, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, L+3) -> sdf (N, 1), std (N, 1).  Dropout: ``masks[i]`` (N,
-        out_i) bool keeps, or draws from ``generator``; neither, none."""
+        out_i) bool keeps, or draws from ``generator``; neither, none.
+
+        ``mesh`` (``parallel.Mesh``) of more than one rank: the N
+        rows are this rank's slice of the global batch's ``N * dp``; dropout
+        keeps are those of the global batch (``masks`` are given for it, a
+        ``generator`` draws its shape on every rank alike), sliced to these
+        rows, so a data-parallel step equals one process's.  A layer whose
+        weight holds a slice of the output rows (``shard_state_tp``)
+        computes that slice and gathers the full activation over the model
+        group; weight norm's row norms are per row, so they stay local."""
         spec = self.spec
         n_layers = len(self.layers)
         x = inp = net_input
@@ -225,24 +236,42 @@ class DecoderTrain(nn.Module):
         dropout = spec.dropout_prob > 0 and (masks is not None or generator is not None)
         keep = 1.0 - spec.dropout_prob
         inv_keep = float(np.float32(1) / np.float32(keep))
+        multi = mesh is not None and mesh.size > 1
+        rows = P.row_slice(mesh, x.shape[0]) if multi else slice(None)
+        _, outs = spec.layer_dims()
         for i, layer in enumerate(self.layers):
             if i in spec.latent_in:
                 x = torch.cat([x, inp], dim=1)
             if i == n_layers - 1:
                 u = self.uncertainty
                 std = 0.05 + 0.5 * F.softplus(x @ u["w"].T + u["b"])
+            wkey = "v" if "g" in layer else "w"
+            sharded = multi and layer[wkey].shape[0] < outs[i]
+
+            def local(t):
+                # a per-output vector: this rank's slice where the layer is
+                # sharded and the vector is not (rows <= 4)
+                return P.slice_cols(t, mesh) if sharded and t.shape[0] == outs[i] else t
             if "g" in layer:
                 v = layer["v"]
-                w = layer["g"][:, None] * v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+                w = local(layer["g"])[:, None] * v / torch.linalg.vector_norm(
+                    v, dim=1, keepdim=True)
             else:
                 w = layer["w"]
-            x = x @ w.T + layer["b"]
+            x = (P.copy_to_model(x, mesh) if sharded else x) @ w.T + local(layer["b"])
+            if sharded:
+                x = P.gather_cols(x, mesh)
             if i < n_layers - 1:
                 x = torch.relu(x)
                 if dropout and i in spec.dropout:
-                    m = (masks[i] if masks is not None else
-                         torch.rand(x.shape, generator=generator, device=x.device) < keep)
+                    if masks is not None:
+                        m = masks[i][rows]
+                    elif multi:
+                        n_global = x.shape[0] * mesh.dp
+                        m = torch.rand((n_global,) + x.shape[1:], generator=generator,
+                                       device=x.device)[rows] < keep
+                    else:
+                        m = torch.rand(x.shape, generator=generator, device=x.device) < keep
                     # XLA turns the JAX package's x / keep into x * (1 / keep)
                     x = torch.where(m, x * inv_keep, 0.0)
         return torch.tanh(x), std
-

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import parallel as P
+
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.1
 
@@ -143,26 +145,52 @@ class EncoderTrain(nn.Module):
         return {"layers": [{k: getattr(layer, k).detach().cpu().numpy().copy()
                             for k in layer.keys()} for layer in self.layers]}
 
-    def forward(self, surface: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+    def forward(self, surface: torch.Tensor, update_stats: bool = True,
+                mesh=None) -> torch.Tensor:
         """(B, N, 6) -> codes (B, L).  With ``update_stats`` the running
-        statistics move (in place, outside autograd)."""
+        statistics move (in place, outside autograd).  ``mesh``
+        (``parallel.Mesh``) of more than one rank: ``surface`` is
+        this rank's rows of the global batch; BatchNorm takes its statistics
+        over the global batch x points (all-reduced over the data group,
+        the same two passes), and a layer whose weight holds a slice of the
+        output rows (``shard_state_tp``) computes that slice and gathers the
+        full activation over the model group."""
+        multi = mesh is not None and mesh.size > 1
+        dims = self.spec.all_dims
         x = surface
-        for layer in self.layers:
-            x = x @ layer.w.T
+        for i, layer in enumerate(self.layers):
+            sharded = multi and layer.w.shape[0] < dims[i + 1]
+
+            def local(t):
+                # a per-output vector: this rank's slice where the layer is
+                # sharded and the vector is not (rows <= 4)
+                return P.slice_cols(t, mesh) if sharded and t.shape[0] == dims[i + 1] else t
+            x = (P.copy_to_model(x, mesh) if sharded else x) @ layer.w.T
             if hasattr(layer, "bn_mean"):
-                mean = torch.mean(x, dim=(0, 1))
-                var = torch.mean((x - mean) ** 2, dim=(0, 1))
-                x = (x - mean) / torch.sqrt(var + _BN_EPS) * layer.bn_scale + layer.bn_bias
-                if update_stats:
+                if multi and mesh.dp > 1:
+                    n = x.shape[0] * x.shape[1] * mesh.dp
+                    n_t = torch.full((), float(n), device=x.device)
+                    mean = P.all_reduce_sum(x.sum(dim=(0, 1)), mesh.data_group) / n_t
+                    var = P.all_reduce_sum(((x - mean) ** 2).sum(dim=(0, 1)),
+                                           mesh.data_group) / n_t
+                else:
                     n = x.shape[0] * x.shape[1]
+                    mean = torch.mean(x, dim=(0, 1))
+                    var = torch.mean((x - mean) ** 2, dim=(0, 1))
+                x = ((x - mean) / torch.sqrt(var + _BN_EPS) * local(layer.bn_scale)
+                     + local(layer.bn_bias))
+                if update_stats:
                     with torch.no_grad():
                         unbiased = var * n / max(n - 1, 1)
+                        if sharded and layer.bn_mean.shape[0] == dims[i + 1]:
+                            mean, unbiased = (P.gather_cols(t, mesh) for t in (mean, unbiased))
                         layer.bn_mean.copy_((1 - _BN_MOMENTUM) * layer.bn_mean
                                             + _BN_MOMENTUM * mean)
                         layer.bn_var.copy_((1 - _BN_MOMENTUM) * layer.bn_var
                                            + _BN_MOMENTUM * unbiased)
                 x = torch.relu(x)
             else:
-                x = x + layer.b
+                x = x + local(layer.b)
+            if sharded:
+                x = P.gather_cols(x, mesh)
         return torch.mean(x, dim=1)
-

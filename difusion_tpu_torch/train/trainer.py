@@ -4,6 +4,7 @@ pytorch/network_trainer.py, config surface = ckpt/default/hyper.json).
 
     python -m difusion_tpu_torch.train.trainer configs/train-study-mixed.yaml \
         [--set k=v] [--device cpu]
+    torchrun --standalone --nproc-per-node N -m difusion_tpu_torch.train.trainer ...
 
 * One train step: the encoder in 'train' mode over (B, N, 6) surface samples,
   the codes tiled to (B*S, L), the decoder's NLL and the latent regularizer
@@ -13,8 +14,13 @@ pytorch/network_trainer.py, config surface = ckpt/default/hyper.json).
   1 the encoder).  BatchNorm running statistics move with the forward pass.
   The reference's ``batch_split`` is accepted and ignored, as in the JAX
   package: the whole batch is one step.
-* One process on one card.  The JAX package's data parallelism over a device
-  mesh is not ported.
+* Data parallelism, as the JAX package's ``train`` meshes its devices: under
+  ``torchrun`` (or in a process group the caller formed) the step runs over
+  ``gcd(batch_size, world)`` ranks, NCCL on ``cuda:LOCAL_RANK`` (gloo with
+  ``--device cpu``); see :func:`train`.  Without a launcher, one process on
+  one card.  Tensor parallelism is reached through ``distributed.py``'s
+  helpers (``make_mesh(n, tp)``, ``shard_state_tp``), as in the JAX
+  package, not through ``train``.
 * The host reads the losses every ``log_every`` steps only.
 * Outputs, as the JAX package writes them: ``metrics.jsonl`` (one row per log
   interval), ``hyper.json``, ``prior_{E}.npz`` (read by
@@ -24,14 +30,19 @@ pytorch/network_trainer.py, config surface = ckpt/default/hyper.json).
 """
 from __future__ import annotations
 
+import contextlib
+import datetime
 import json
 import logging
+import math
+import os
 import time
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models import weights
@@ -39,9 +50,13 @@ from ..models.decoder import DecoderSpec, DecoderTrain, init_decoder_params
 from ..models.encoder import EncoderSpec, EncoderTrain, init_encoder_params
 from ..utils.adam import adam_step, bias_corrections
 from ..utils.meters import LossMeter
+from . import distributed as D
 from . import lif_dataset as ldata
 from .losses import LossConfig, l1_loss, neg_log_likelihood, reg_loss, siren_loss
 from .lr_schedule import get_learning_rate_schedules
+
+# the longest a rank waits in a collective or to form the group under torchrun
+PG_TIMEOUT = datetime.timedelta(seconds=600)
 
 
 class TrainState(NamedTuple):
@@ -81,7 +96,8 @@ def create_train_state(spec_d: DecoderSpec, spec_e: EncoderSpec, seed: int = 0,
 def forward_losses(loss_cfg: LossConfig, state: TrainState, sdf_data: torch.Tensor,
                    surface: torch.Tensor, epoch,
                    masks: Optional[Dict[int, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   mesh: Optional[D.Mesh] = None
                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """The training forward pass, its autograd graph kept: the losses (0-d
     device tensors, ``total`` last) and the decoded sdf (B*S, 1).  It moves
@@ -89,7 +105,11 @@ def forward_losses(loss_cfg: LossConfig, state: TrainState, sdf_data: torch.Tens
     (xyz+normal for ``siren_loss``) in voxel-local coordinates, surface (B,
     N, 6) xyz+normal; either may arrive as float16 (the ``upload_dtype``
     option) and is computed in f32.  Dropout draws from ``generator``, or
-    takes ``masks`` (the decoder's per-layer keeps, for tests)."""
+    takes ``masks`` (the decoder's per-layer keeps, for tests).  With a
+    ``mesh`` (``distributed.make_mesh``) the batch is this rank's rows of
+    the global batch (``distributed.shard_batch``), the masks the global
+    batch's, and the losses are means over this rank's rows: their mean
+    over the data group is the global batch's."""
     sdf_data = sdf_data.float()
     surface = surface.float()
     B, S, _ = sdf_data.shape
@@ -101,12 +121,12 @@ def forward_losses(loss_cfg: LossConfig, state: TrainState, sdf_data: torch.Tens
     need_grad = "siren_loss" in loss_cfg.types
 
     with torch.enable_grad():
-        codes = state.enc(surface)                                   # (B, L)
+        codes = state.enc(surface, mesh=mesh)                        # (B, L)
         lat = torch.repeat_interleave(codes, S, dim=0)               # (B*S, L)
         if need_grad:
             xyz = xyz.detach().requires_grad_(True)
         pd_sdf, pd_std = state.dec(torch.cat([lat, xyz], dim=1), masks=masks,
-                                   generator=generator)
+                                   generator=generator, mesh=mesh)
         # d sdf / d xyz inside the loss: the parameter gradient runs through it
         pd_grad = (torch.autograd.grad(pd_sdf.sum(), xyz, create_graph=True)[0]
                    if need_grad else None)
@@ -130,14 +150,18 @@ def forward_losses(loss_cfg: LossConfig, state: TrainState, sdf_data: torch.Tens
 def loss_and_grads(loss_cfg: LossConfig, state: TrainState, sdf_data: torch.Tensor,
                    surface: torch.Tensor, epoch,
                    masks: Optional[Dict[int, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   mesh: Optional[D.Mesh] = None
                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """:func:`forward_losses` (same arguments), then the gradient of
     ``total`` by parameter name; the losses come back detached, with the
-    surface-SDF validation probe (network_trainer.py:174-181)."""
+    surface-SDF validation probe (network_trainer.py:174-181).  With a
+    ``mesh`` the gradients are averaged over the data group (the global
+    batch's); the losses stay this rank's (``distributed.mean_over_data``
+    gives the global batch's)."""
     params = _named_params(state.dec, state.enc)
     losses, pd_sdf = forward_losses(loss_cfg, state, sdf_data, surface, epoch,
-                                    masks=masks, generator=generator)
+                                    masks=masks, generator=generator, mesh=mesh)
     grads = torch.autograd.grad(losses["total"], [p for _, p in params], allow_unused=True)
     total = losses.pop("total").detach()
     # detached, so that the step's graph goes with this call
@@ -145,20 +169,25 @@ def loss_and_grads(loss_cfg: LossConfig, state: TrainState, sdf_data: torch.Tens
     losses["surface_abs_sdf"] = torch.mean(torch.abs(pd_sdf.detach()))
     losses["total"] = total
     # a parameter no loss reads has a zero gradient, as under jax.grad
-    return losses, {name: (g if g is not None else torch.zeros_like(p))
-                    for (name, p), g in zip(params, grads)}
+    grads = {name: (g if g is not None else torch.zeros_like(p))
+             for (name, p), g in zip(params, grads)}
+    if mesh is not None:
+        grads = D.average_grads(mesh, grads)
+    return losses, grads
 
 
 def train_step(loss_cfg: LossConfig, state: TrainState, sdf_data: torch.Tensor,
                surface: torch.Tensor, lr_dec: float, lr_enc: float, epoch,
                masks: Optional[Dict[int, torch.Tensor]] = None,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               mesh: Optional[D.Mesh] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step (:func:`loss_and_grads`, then Adam), in place on
     the state's modules and moments.  Returns the state with ``step + 1``
-    and the losses as 0-d device tensors: nothing is read on the host."""
+    and the losses as 0-d device tensors: nothing is read on the host.
+    Adam runs on replicated and sharded tensors alike."""
     losses, grads = loss_and_grads(loss_cfg, state, sdf_data, surface, epoch,
-                                   masks=masks, generator=generator)
+                                   masks=masks, generator=generator, mesh=mesh)
     step = state.step + 1
     dev = sdf_data.device
     bc1, bc2 = (torch.full((), float(b), device=dev) for b in bias_corrections(step))
@@ -225,11 +254,59 @@ def load_checkpoint(save_dir: Path, epoch: int, spec_d: DecoderSpec, spec_e: Enc
 # ---------------------------------------------------------------------------
 
 
-def train(args, max_steps: int = -1, log_every: int = 10, device="cuda") -> TrainState:
+def _torchrun_group(dev: torch.device) -> torch.device:
+    """Form the process group ``torchrun`` describes (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``): NCCL
+    on ``cuda:LOCAL_RANK``, gloo for ``device="cpu"``.  Returns this rank's
+    device; a group that does not form raises."""
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", device_id=dev, timeout=PG_TIMEOUT)
+    else:
+        dist.init_process_group("gloo", timeout=PG_TIMEOUT)
+    return dev
+
+
+def train(args, max_steps: int = -1, log_every: int = 10,
+          device="cuda") -> Optional[TrainState]:
     """Run the training loop from a reference-style hyper namespace or dict
-    on ``device`` (the card unless the caller asks for the CPU)."""
+    on ``device`` (the card unless the caller asks for the CPU).
+
+    In a process group (formed by the caller, or from ``torchrun``'s
+    environment, which :func:`_torchrun_group` reads) the step is data
+    parallel over the first ``gcd(batch_size, world)`` ranks, as the JAX
+    package's ``train`` meshes ``gcd(batch_size, len(jax.devices()))``
+    devices: every rank builds the same global batch and uploads its rows,
+    the state is replicated from the first rank, the gradients and the
+    logged losses are the global batch's, and rank 0 writes the files while
+    the others wait.  The ranks past the mesh sit out, as the devices past
+    the JAX mesh do: they return None.  With no process group it is one
+    process, as before."""
     dev = resolve_device(device)
+    formed = False
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        dev = _torchrun_group(dev)
+        formed = True
+    try:
+        return _train(args, max_steps, log_every, dev)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _train(args, max_steps: int, log_every: int, dev: torch.device) -> Optional[TrainState]:
     hyper = vars(args) if not isinstance(args, dict) else args
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = D.make_mesh(math.gcd(int(hyper["batch_size"]), world))
+    if not mesh.member:
+        logging.info("rank %d sits out: the data mesh holds %d of %d ranks",
+                     dist.get_rank(), mesh.size, world)
+        return None
+    multi = mesh.size > 1
+    lead = mesh.rank == 0
+    if multi:
+        logging.info("data-parallel over %d ranks", mesh.size)
     spec_d = DecoderSpec.from_hyper(hyper)
     spec_e = EncoderSpec.from_hyper(hyper)
     loss_cfg = LossConfig.from_hyper(hyper)
@@ -258,12 +335,14 @@ def train(args, max_steps: int = -1, log_every: int = 10, device="cuda") -> Trai
         logging.info("resumed from epoch %d", start_epoch)
     else:
         state = create_train_state(spec_d, spec_e, 0, dev)
+    state = D.replicate(mesh, state)
     checkpoints = sorted(set(
         list(range(hyper["snapshot_frequency"], hyper["num_epochs"] + 1,
                    hyper["snapshot_frequency"]))
         + list(hyper.get("additional_snapshots", []))))
 
-    save_dir.mkdir(parents=True, exist_ok=True)
+    if lead:
+        save_dir.mkdir(parents=True, exist_ok=True)
     upload = (np.float16 if str(hyper.get("upload_dtype", "float32")) == "float16"
               else np.float32)
     rng = np.random.default_rng(start_epoch)
@@ -272,7 +351,8 @@ def train(args, max_steps: int = -1, log_every: int = 10, device="cuda") -> Trai
     # on resume the logged iteration axis continues from the snapshot's step,
     # while `it` counts this call's steps (max_steps)
     it_base = state.step if start_epoch > 0 else 0
-    with open(save_dir / "metrics.jsonl", "a") as metrics_f:
+    with (open(save_dir / "metrics.jsonl", "a") if lead else contextlib.nullcontext()) \
+            as metrics_f:
         for epoch in range(start_epoch + 1, hyper["num_epochs"] + 1):
             lr_dec = schedules[0](epoch)
             lr_enc = schedules[1](epoch)
@@ -283,20 +363,27 @@ def train(args, max_steps: int = -1, log_every: int = 10, device="cuda") -> Trai
                        if packed is not None else
                        ldata.iterate_batches(dataset, hyper["batch_size"], rng,
                                              n_workers=int(hyper.get("loader_workers", 4))))
+            if multi:
+                # every rank assembles the global batch and uploads its rows
+                batches = (D.shard_batch(mesh, sdf, surf) + (ids,)
+                           for sdf, surf, ids in batches)
             for sdf_data, surface, _ in ldata.prefetch_device(batches, dev, upload):
                 state, losses = train_step(loss_cfg, state, sdf_data, surface, lr_dec,
-                                           lr_enc, epoch, generator=dropout_gen)
+                                           lr_enc, epoch, generator=dropout_gen,
+                                           mesh=mesh if multi else None)
                 it += 1
                 n_batches += 1
                 if it % log_every == 0:
+                    losses = D.mean_over_data(mesh, losses)
                     vals = dict(zip(losses, torch.stack(list(losses.values())).tolist()))
                     meter.update(vals)
                     logging.info("epoch %d it %d: %s", epoch, it,
                                  {k: round(v, 5) for k, v in vals.items()})
-                    metrics_f.write(json.dumps(
-                        {"epoch": epoch, "it": it_base + it, "lr_dec": float(lr_dec),
-                         "lr_enc": float(lr_enc), "t": time.time(), **vals}) + "\n")
-                    metrics_f.flush()
+                    if lead:
+                        metrics_f.write(json.dumps(
+                            {"epoch": epoch, "it": it_base + it, "lr_dec": float(lr_dec),
+                             "lr_enc": float(lr_enc), "t": time.time(), **vals}) + "\n")
+                        metrics_f.flush()
                 if 0 < max_steps <= it:
                     break
             dt = time.perf_counter() - t_epoch
@@ -304,7 +391,10 @@ def train(args, max_steps: int = -1, log_every: int = 10, device="cuda") -> Trai
                 logging.info("epoch %d done: %.2f it/s  %s", epoch, n_batches / dt,
                              meter.summary())
             if epoch in checkpoints:
-                save_checkpoint(save_dir, epoch, state, hyper)
+                full = D.gather_state(state, mesh)
+                if lead:
+                    save_checkpoint(save_dir, epoch, full, hyper)
+                D.barrier(mesh)
             if 0 < max_steps <= it:
                 break
     return state

@@ -11,6 +11,7 @@ import conftest  # noqa: F401  (JAX on the CPU)
 
 cv2 = pytest.importorskip("cv2")
 
+from difusion_tpu.data import native_io as jax_native_io
 from difusion_tpu.data import open_sequence as jax_open_sequence
 from difusion_tpu.utils.motion import Isometry as JIsometry
 from difusion_tpu.utils.motion import Quaternion as JQuaternion
@@ -128,6 +129,37 @@ def test_native_png_decoder_matches_cv2(tmp_path):
     (tmp_path / "bad.png").write_bytes(b"not a png")
     with pytest.raises(ValueError):
         native_io.read_png(str(tmp_path / "bad.png"))
+
+
+@pytest.mark.parametrize("kind", ["rgb", "depth"])
+def test_png_prefetcher_matches_read_png_and_jax(tmp_path, kind):
+    """PngPrefetcher gives the frames in order, each equal to read_png's and
+    to the JAX package's prefetcher's; len is the path count; past the last
+    frame it raises; close twice is harmless; PNGs of another size are
+    refused before the library sees them."""
+    rng = np.random.default_rng(5)
+    paths = []
+    for i in range(7):
+        img = (rng.integers(0, 255, (29, 41, 3), dtype=np.uint8) if kind == "rgb"
+               else rng.integers(0, 65535, (29, 41), dtype=np.uint16))
+        paths.append(str(tmp_path / f"{kind}_{i}.png"))
+        cv2.imwrite(paths[-1], img)
+    ours = native_io.PngPrefetcher(paths, ring_size=3, n_threads=2)
+    ref = jax_native_io.PngPrefetcher(paths, ring_size=3, n_threads=2)
+    assert len(ours) == len(ref) == 7
+    for p in paths:
+        got = ours.next()
+        np.testing.assert_array_equal(got, native_io.read_png(p))
+        np.testing.assert_array_equal(got, ref.next())
+        assert got.dtype == (np.uint8 if kind == "rgb" else np.uint16)
+    with pytest.raises(ValueError):
+        ours.next()
+    ours.close()
+    ours.close()
+    ref.close()
+    cv2.imwrite(str(tmp_path / "small.png"), np.zeros((3, 4), np.uint8))
+    with pytest.raises(ValueError, match="differ"):
+        native_io.PngPrefetcher(paths + [str(tmp_path / "small.png")])
 
 
 def _cli(tmp_path, *extra):

@@ -21,11 +21,13 @@ from difusion_tpu.core.meshing import MeshExtractor as JMeshExtractor
 from difusion_tpu.models.decoder import DecoderSpec as JDecoderSpec
 from difusion_tpu.models.decoder import decode as jax_decode
 from difusion_tpu.models.decoder import fold_decoder_params, init_decoder_params
+from difusion_tpu.models import encoder as JE
 from difusion_tpu.ops import decoder_fused as jax_fused
 from difusion_tpu.slam import load_prior as jax_load_prior
 from difusion_tpu_torch import mesh_tool
 from difusion_tpu_torch.core import map as M
 from difusion_tpu_torch.core import hash_map as HM
+from difusion_tpu_torch.core import meshing
 from difusion_tpu_torch.core.meshing import HashMeshExtractor, MeshExtractor
 from difusion_tpu_torch.models.decoder import Decoder, DecoderSpec
 from difusion_tpu_torch.models.weights import from_jax_params, load_prior
@@ -291,12 +293,13 @@ def test_hash_mesh_extract_matches_jax(hash_meshes, step):
     assert np.percentile(np.abs(v[:, 2] - z), 95) < 0.05
 
 
-def test_unported_mesher_options_raise(prior, hash_meshes, tmp_path):
+def test_mesh_tool_hash_fast_and_shard(prior, hash_meshes, tmp_path):
     """``mesh_tool`` meshes a hash snapshot (the JAX package's, through
     ``HashMeshExtractor``) as the JAX tool does; --fast meshes a hash
     snapshot coarse-to-fine (tests/test_torch_mesh_fast.py holds it against
-    the JAX package); --shard still names what is missing."""
-    dec, _, spec, _ = prior
+    the JAX package); --shard meshes a dense snapshot as the JAX tool's
+    sharded extract does (on the CPU one device: the unsharded extract)."""
+    dec, enc, spec, _ = prior
     snap = hash_meshes[1] / "map1.npz"
     base = [str(tmp_path / "out.ply"), "--hyper", str(HYPER), "--device", "cpu"]
     tool = mesh_tool.main([str(snap), *base, "--resolution", "3", "--max-std", str(MAX_STD)])
@@ -308,10 +311,103 @@ def test_unported_mesher_options_raise(prior, hash_meshes, tmp_path):
     np.testing.assert_allclose(tool.triangles()[0], ref.triangles()[0], atol=1e-5)
     assert (tmp_path / "out.ply").stat().st_size > 0
     jcfg = JM.MapConfig(**CFG)
-    JM.save_map(str(tmp_path / "dense.npz"), jcfg, JM.create_map_state(jcfg))
+    js = JM.integrate_keyframe(jcfg, enc, JM.create_map_state(jcfg), *_surface(6, 0.0))
+    JM.save_map(str(tmp_path / "dense.npz"), jcfg, js)
     fast = mesh_tool.main([str(snap), *base, "--resolution", "3", "--max-std",
                            str(MAX_STD), "--fast", "--refine-fraction", "0.3"])
     assert fast.fast and fast.refine_k == int(0.3 * 6 ** 3)
     assert len(fast.triangles()[0]) > 500
-    with pytest.raises(NotImplementedError, match="shard"):
-        mesh_tool.main([str(tmp_path / "dense.npz"), *base, "--shard"])
+    sharded = mesh_tool.main([str(tmp_path / "dense.npz"), *base, "--resolution", "3",
+                              "--max-std", str(MAX_STD), "--shard"])
+    assert isinstance(sharded, MeshExtractor) and sharded.shard
+    assert sharded.last_stats["decode_devices"] == 1
+    jref = JMeshExtractor(jcfg, dec, spec, voxel_resolution=3, max_triangles=int(1e7),
+                          shard=True)
+    assert jref._row_sharding is not None            # the JAX tool's 8-device mesh
+    jref.extract(js, max_std=MAX_STD, no_cache=True)
+    assert len(sharded.triangles()[0]) == len(jref.triangles()[0]) > 500
+    for x, y in zip(sharded.triangles(), jref.triangles()):
+        np.testing.assert_allclose(x, y, atol=1e-5)
+
+
+# tests/test_meshing.py's sharded setup: a plane through a 20^3 map, latents
+# drawn at random so that many blocks emit, r = 2, chunks of 256 blocks
+TINY = JDecoderSpec(latent_size=8, dims=(16, 16, 16, 16))
+PLANE_CFG = dict(bound_min=(-1.0, -1.0, -1.0), n_xyz=(20, 20, 20), voxel_size=0.1,
+                 capacity=4096, prune_min_vox_obs=2, ignore_count_th=1.0,
+                 encoder_count_th=600.0)
+PLANE_HCFG = dict(voxel_size=0.1, capacity=4096, table_size=1 << 14, prune_min_vox_obs=2,
+                  ignore_count_th=1.0, encoder_count_th=600.0)
+SHARD_KW = dict(voxel_resolution=2, max_triangles=1 << 16, max_eval_points=1 << 14)
+
+
+def _plane_state(mod, cfg, enc, latent_dim):
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(-0.8, 0.8, size=(6000, 2))
+    pts = np.stack([xy[:, 0], xy[:, 1], 0.05 + 0.05 * np.sin(3 * xy[:, 0])], 1)
+    nrm = np.tile(np.array([[0, 0, 1]], np.float32), (6000, 1))
+    create = mod.create_map_state if mod is JM else mod.create_hash_map_state
+    state = mod.integrate_keyframe(cfg, enc, create(cfg), jnp.asarray(pts.astype(np.float32)),
+                                   jnp.asarray(nrm), jnp.ones(6000, bool))
+    return state._replace(latents=jax.random.normal(jax.random.key(9),
+                                                    state.latents.shape) * 0.8)
+
+
+@pytest.fixture(scope="module")
+def sharded_refs(prior, tmp_path_factory):
+    """For each decoder (the prior, which kernel 3 takes; the JAX tests'
+    tiny one, which goes through Decoder.decode) and each map (dense,
+    hash): the JAX package's sharded extract on its 8 devices, the port's
+    snapshot of the same state and its unsharded extract."""
+    dec, enc, spec, t_dec = prior
+    tmp = tmp_path_factory.mktemp("sharded")
+    tiny = fold_decoder_params(init_decoder_params(TINY, jax.random.key(0)))
+    tiny_enc = JE.fold_encoder_params(JE.init_encoder_params(JE.EncoderSpec(latent_size=8),
+                                                             jax.random.key(1)))
+    nets = {"prior": (dec, enc, spec, t_dec),
+            "tiny": (tiny, tiny_enc, TINY,
+                     Decoder(DecoderSpec(*TINY), jax.tree.map(np.asarray, tiny)))}
+    out = {}
+    for name, (jdec, jenc, jspec, tdec) in nets.items():
+        for kind, mod, cfg_kw, jcls, tcls in (
+                ("dense", JM, PLANE_CFG, JMeshExtractor, MeshExtractor),
+                ("hash", JHM, PLANE_HCFG, JHashMeshExtractor, HashMeshExtractor)):
+            cfg_cls = JM.MapConfig if mod is JM else JHM.HashMapConfig
+            jcfg = cfg_cls(latent_dim=jspec.latent_size, **cfg_kw)
+            js = _plane_state(mod, jcfg, jenc, jspec.latent_size)
+            ref = jcls(jcfg, jdec, jspec, shard=True, **SHARD_KW)
+            assert ref._row_sharding is not None
+            ref.extract(js, max_std=100.0)
+            path = tmp / f"{name}_{kind}.npz"
+            mod.save_map(str(path), jcfg, js)
+            tcfg, ts = M.load_map(path, device="cpu")
+            single = tcls(tcfg, tdec, **SHARD_KW)
+            single.extract(ts, max_std=100.0)
+            out[name, kind] = (ref, path, tdec, tcls, single)
+    return out
+
+
+@pytest.mark.parametrize("n_dev", [4, 8])
+@pytest.mark.parametrize("kind", ["dense", "hash"])
+@pytest.mark.parametrize("net", ["prior", "tiny"])
+def test_sharded_extract_matches_jax_and_unsharded(sharded_refs, net, kind, n_dev,
+                                                   monkeypatch):
+    """shard=True over a device list naming the CPU 4 or 8 times (the
+    module's device list patched) splits
+    each decode chunk into as many slices (kernel 3's plain version for the
+    prior, Decoder.decode for the tiny decoder) and meshes as the JAX
+    package's sharded extract on 8 devices (tests/test_meshing.py's setup;
+    count exact, triangles and stds atol 1e-6 in the JAX package's order),
+    and exactly as the port's unsharded extract."""
+    ref, path, tdec, tcls, single = sharded_refs[net, kind]
+    tcfg, ts = M.load_map(path, device="cpu")
+    monkeypatch.setattr(meshing, "_shard_devices", lambda dev: [dev] * n_dev)
+    sharded = tcls(tcfg, tdec, shard=True, **SHARD_KW)
+    sharded.extract(ts, max_std=100.0)
+    assert sharded.last_stats["decode_devices"] == n_dev
+    assert single.last_stats["decode_devices"] == 1
+    assert len(sharded.triangles()[0]) == len(ref.triangles()[0]) > 100
+    for x, y in zip(sharded.triangles(), ref.triangles()):
+        np.testing.assert_allclose(x, y, atol=1e-6)
+    for x, y in zip(sharded.triangles(), single.triangles()):
+        assert torch.equal(torch.from_numpy(x), torch.from_numpy(y))
