@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
               anew on every run.
 3. kernels -- each kernel on the card against its plain PyTorch version on
               the same inputs, at its path's shapes (kernel 2 bit for bit,
-              also at the edges of its tiling and through both its entries;
+              also at the edges of its tiling and through both its entries,
+              and at window 20 on the rendered frame, a tile above 48 KB of
+              shared memory, at both rows values, from a context that set
+              the card current;
               kernels 1 and 3 in their f32 and their bf16 mode, five
               instances); its device time (CUDA-graph replay of
               back-to-back launches), the wrapper's host time per call, and
@@ -160,6 +163,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from difusion_tpu_torch.data.production import RGBDSequence
 from difusion_tpu_torch.ops._timing import graph_ms, host_us, time_ms
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): TF32 on the tensor
@@ -444,6 +448,9 @@ def check_decode_fused(packed, fused_mod, dev):
 # at 237 x 315, where the plan picks it), one row, one column, one pixel, an
 # image smaller than the window; then other windows through the run-time
 # body, down to the 1 x 1 window, and a tile above 48 KB.
+# kernel 2's window past 48 KB of shared memory a tile at either rows value
+# (((32 + 2w) * (4R + 2w) + 1) * 16 bytes)
+WIDE_WINDOW = 20
 STENCIL_EDGES = [(12, 32, 6), (13, 33, 6), (21, 31, 6), (61, 97, 6), (237, 315, 6), (1, 40, 6),
                  (40, 1, 6), (1, 1, 6), (5, 7, 6), (37, 53, 0), (37, 53, 1),
                  (37, 53, 3), (50, 70, 7), (45, 64, 20)]
@@ -498,6 +505,20 @@ def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, build_i
         compare(epc, eok, ewin, (0.01, 0.04), f"{eh}x{ew}, w={ewin}")
         edges_equal += 1
     h, w = ok_sub.shape
+    # the frame at window 20, a tile above 48 KB of shared memory at either
+    # rows value (the launcher's grant), from a context that set the card
+    # current explicitly
+    ref_wide = torch.stack(stencil_mod.window_stat_sums_plain(*planes, WIDE_WINDOW, *r2))
+    wide_equal = {}
+    with torch.cuda.device(0):
+        for rows in stencil_mod.ROWS:
+            got_wide = stencil_mod._launch_cuda("window_stats_map_launch", (pc, ok_sub), h, w,
+                                                WIDE_WINDOW, *r2, rows=rows)
+            torch.cuda.synchronize()
+            wide_equal[rows] = torch.equal(got_wide, ref_wide)
+    if not all(wide_equal.values()):
+        fail(f"window_stat_sums at window {WIDE_WINDOW} on the rendered frame differs from "
+             f"the plain version: {wide_equal}")
     taps = (2 * window + 1) ** 2
     # what the function needs: per tap and pixel the differences, |d|^2, the
     # tests and the sums; per pixel the nine products of the moments' terms,
@@ -534,6 +555,7 @@ def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, build_i
             "replaces": "difusion_tpu/ops/stencil_pallas.py:49",
             "max_abs_err": worst, "planes_equal": planes_equal,
             "edge_shapes_equal": edges_equal,
+            f"window_{WIDE_WINDOW}_equal_by_rows": wide_equal,
             "ms": graph_ms(call, 50), "eager_ms": time_ms(call, 20),
             "host_us": host_us(call),
             "planes_entry_ms": graph_ms(call_planes, 50),
@@ -585,20 +607,39 @@ def check_mesh(phase: str, tris, merr) -> None:
         fail(f"{phase}: mesh error p95 {merr['mesh_err_p95']:.4f} m > {MAX_MESH_ERR} m")
 
 
+class Replay(RGBDSequence):
+    """Frames rendered once (from ``seq``, the sequence that rendered them),
+    as a sequence of their own."""
+
+    def __init__(self, seq, frames):
+        super().__init__()
+        self.calib, self.first_iso, self.frames = seq.calib, seq.first_iso, frames
+        self.gt_trajectory = seq.gt_trajectory[:len(frames)]
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __next__(self):
+        if self.frame_id >= len(self.frames):
+            raise StopIteration
+        self.frame_id += 1
+        return self.frames[self.frame_id - 1]
+
+
 def run_chunked(system, sequence, n: int) -> dict:
     """run_sequence(chunk=CHUNK) over n frames, each chunk timed to the
     card's end: ms/frame over the chunks after the first (which captures).
     ``chunk_ms``: per chunk its frames, its host ms (from the previous
     chunk's end, or the start, to its last launch) and its wait ms (from
     there to the card's end); ``gc_ms``: each run of Python's garbage
-    collector during the call."""
+    collector during the call.  Waits on the system's own card."""
     done, gc_ms, gc_start = [], [], []
     process_chunk = system.process_chunk
 
     def timed_chunk(packed, w):
         out = process_chunk(packed, w)
         enqueued = time.perf_counter()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(system.device)
         done.append((int(packed.shape[0]), enqueued, time.perf_counter()))
         return out
 
@@ -608,11 +649,11 @@ def run_chunked(system, sequence, n: int) -> dict:
         elif gc_start:
             gc_ms.append((time.perf_counter() - gc_start.pop()) * 1e3)
     system.process_chunk = timed_chunk
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(system.device)
     gc.callbacks.append(on_gc)
     t0 = time.perf_counter()
     result = system.run_sequence(sequence, max_frames=n, chunk=CHUNK)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(system.device)
     gc.callbacks.remove(on_gc)
     system.process_chunk = process_chunk
     steady = sum(k for k, _, _ in done[1:])
@@ -1019,19 +1060,20 @@ def _grad_tree(grads, params):
 
 
 def multi_rank_train(hyper, sdf, surf, n, tp, steps, seed):
-    """On each launched rank (gloo, every rank on cuda:0): ``steps`` train
-    steps on a make_mesh(n, tp) mesh from the fresh seeded state and the
-    global batch ``sdf``, ``surf`` (numpy), dropout drawn for the global
-    batch from a card generator seeded ``seed``.  Rank 0 returns after the
-    first step and after the last the global losses and the gathered
-    parameters, and every step's ms by CUDA events."""
+    """On each launched rank (on its current card: cuda:0 on gloo ranks,
+    cuda:r on NCCL rank r): ``steps`` train steps on a make_mesh(n, tp)
+    mesh from the fresh seeded state and the global batch ``sdf``, ``surf``
+    (numpy), dropout drawn for the global batch from a card generator
+    seeded ``seed``.  Rank 0 returns after the first step and after the
+    last the global losses and the gathered parameters, every step's ms by
+    CUDA events, and every rank's card."""
     from difusion_tpu_torch.models.decoder import DecoderSpec
     from difusion_tpu_torch.models.encoder import EncoderSpec
     from difusion_tpu_torch.train import distributed as D
     from difusion_tpu_torch.train import trainer as TR
     from difusion_tpu_torch.train.losses import LossConfig
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", torch.cuda.current_device())
     mesh = D.make_mesh(n, tp)
     state = TR.create_train_state(DecoderSpec.from_hyper(hyper), EncoderSpec.from_hyper(hyper),
                                   0, dev)
@@ -1052,11 +1094,105 @@ def multi_rank_train(hyper, sdf, surf, n, tp, steps, seed):
             full = D.gather_state(state, mesh)
             out[k] = {"losses": losses, "dec": full.dec.to_params(),
                       "enc": full.enc.to_params()}
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
+    devices = [None] * mesh.size
+    torch.distributed.all_gather_object(devices, str(dev))
     if mesh.rank != 0:
         return None
     return {"steps": out, "step_ms": [a.elapsed_time(b) for a, b in events],
-            "mesh": [mesh.dp, mesh.tp]}
+            "mesh": [mesh.dp, mesh.tp], "devices": devices}
+
+
+def first_batch(hyper):
+    """The first global batch (``sdf``, ``surf``, f32 numpy) of ``hyper``'s
+    train_set, drawn as the trainer draws batches, from a generator seeded 7."""
+    from difusion_tpu_torch.train import lif_dataset as ldata
+    packed = ldata.pack_dataset(ldata.LifCombinedDataset(*[
+        ldata.LifDataset(**t, num_sample=hyper["samples_per_lif"]) for t in hyper["train_set"]]))
+    sdf, surf, _ = next(iter(ldata.iterate_batches_packed(packed, hyper["batch_size"],
+                                                          np.random.default_rng(7))))
+    return sdf.astype(np.float32), surf.astype(np.float32)
+
+
+def parallel_steps(hyper, sdf, surf, dev, cases, what: str, backend: str = "gloo") -> dict:
+    """Train steps on launched ranks against the same steps in this process
+    on ``dev``, from the same seeded state, global batch (``sdf``, ``surf``,
+    numpy) and dropout draws.  ``cases``: (label, ranks, tp, steps, tol) --
+    ``ranks`` processes over ``backend`` on a make_mesh(ranks, tp) mesh (gloo:
+    all on cuda:0; NCCL: rank r on cuda:r).  One step: losses at 1e-4,
+    parameters within ``tol`` but for at most 1e-4 of the entries, each
+    with a single-process gradient g so small that lr * eps / (|g| + eps) >
+    tol (Adam's step lr * g / (|g| + eps) moves such an entry past the
+    tolerance on a gradient error no larger than |g| + eps), those within 2
+    lr; after ``steps`` > 1 the difference is reported.  ms/step by CUDA
+    events beside the single process's.  Returns a row per label; fails
+    (naming ``what``) on a case off the gates."""
+    from difusion_tpu_torch.models.decoder import DecoderSpec
+    from difusion_tpu_torch.models.encoder import EncoderSpec
+    from difusion_tpu_torch.train import distributed as D
+    from difusion_tpu_torch.train import trainer as TR
+    from difusion_tpu_torch.train.losses import LossConfig
+    from difusion_tpu_torch.utils.adam import EPS as ADAM_EPS
+
+    spec_d, spec_e = DecoderSpec.from_hyper(hyper), EncoderSpec.from_hyper(hyper)
+    loss_cfg = LossConfig.from_hyper(hyper)
+    seed, lr = 11, 1e-3
+    probe = TR.create_train_state(spec_d, spec_e, 0, dev)
+    _, grads = TR.loss_and_grads(loss_cfg, probe, torch.from_numpy(sdf).to(dev),
+                                 torch.from_numpy(surf).to(dev), 1,
+                                 generator=torch.Generator(device=dev).manual_seed(seed))
+    del probe
+    state = TR.create_train_state(spec_d, spec_e, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    keep = {1} | {steps for _, _, _, steps, _ in cases}
+    single, single_ms = {}, []
+    for k in range(1, max(keep) + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, losses = TR.train_step(loss_cfg, state, torch.from_numpy(sdf).to(dev),
+                                      torch.from_numpy(surf).to(dev), lr, lr, 1, generator=gen)
+        end.record()
+        single_ms.append((start, end))
+        if k in keep:
+            single[k] = {"losses": {key: float(v) for key, v in losses.items()},
+                         "params": {"dec": state.dec.to_params(), "enc": state.enc.to_params()}}
+    single_ms = event_ms(single_ms)
+    grad_tree = _grad_tree(grads, single[1]["params"])
+    rows = {}
+    for label, n, tp, steps, tol in cases:
+        t0 = time.perf_counter()
+        (r0, *_) = D.launch(multi_rank_train, n, hyper, sdf, surf, n, tp, steps, seed,
+                            backend=backend, timeout=600.0)
+        launch_s = time.perf_counter() - t0
+        got = r0["steps"][1]
+        diff = _tree_diff(single[1]["params"], {"dec": got["dec"], "enc": got["enc"]},
+                          grad_tree, tol)
+        loss_rel = max(abs(got["losses"][k] - v) / max(abs(v), 1e-2)
+                       for k, v in single[1]["losses"].items())
+        row = rows[label] = {"mesh": r0["mesh"], "backend": backend, "devices": r0["devices"],
+                             "launch_s": launch_s, "ms_per_step": r0["step_ms"],
+                             "ms_per_step_after_1": statistics.median(r0["step_ms"][1:])
+                             if len(r0["step_ms"]) > 1 else None,
+                             "single_process_ms_per_step": single_ms,
+                             "losses": got["losses"], "single_losses": single[1]["losses"],
+                             "loss_max_rel_diff": loss_rel, "tolerance": tol,
+                             **{f"params_1_step_{k}": v for k, v in diff.items()}}
+        if steps > 1:
+            row[f"params_{steps}_steps_max_abs_diff"] = _tree_diff(
+                single[steps]["params"], {"dec": r0["steps"][steps]["dec"],
+                                          "enc": r0["steps"][steps]["enc"]})["max_abs_diff"]
+        # an entry beyond the tolerance passes only where a gradient error
+        # no larger than |g| + eps could move Adam's first step past it
+        # (lr * eps / (|g| + eps) > tol), and then within 2 lr; at most 1e-4
+        # of the entries may
+        exempt_below = lr * ADAM_EPS / tol - ADAM_EPS
+        if loss_rel > 1e-4 or diff["max_abs_grad_beyond_tol"] >= exempt_below \
+                or diff["entries_beyond_tol"] > 1e-4 * diff["entries"] \
+                or diff["max_abs_diff"] > 2 * lr:
+            emit({what: rows})
+            fail(f"{what} ({label}): one step off the single-process step: losses "
+                 f"{loss_rel:.3g} rel, {diff}")
+    return rows
 
 
 def multi_phase(dev, kernels, hyper, offline, smi, _build) -> None:
@@ -1065,14 +1201,7 @@ def multi_phase(dev, kernels, hyper, offline, smi, _build) -> None:
     from difusion_tpu_torch.core import map as M
     from difusion_tpu_torch.core import meshing
     from difusion_tpu_torch.core.meshing import MeshExtractor
-    from difusion_tpu_torch.models.decoder import DecoderSpec
-    from difusion_tpu_torch.models.encoder import EncoderSpec
     from difusion_tpu_torch.models.weights import load_prior
-    from difusion_tpu_torch.train import distributed as D
-    from difusion_tpu_torch.train import lif_dataset as ldata
-    from difusion_tpu_torch.train import trainer as TR
-    from difusion_tpu_torch.train.losses import LossConfig
-    from difusion_tpu_torch.utils.adam import EPS as ADAM_EPS
 
     shutil.rmtree(MULTI_DIR, ignore_errors=True)
     MULTI_DIR.mkdir(parents=True)
@@ -1121,68 +1250,10 @@ def multi_phase(dev, kernels, hyper, offline, smi, _build) -> None:
         fail(f"multi (a): the torchrun snapshot differs from the plain trainer's: {same}")
 
     # ---- (b), (c): data and tensor parallel ranks sharing the card (gloo) ----
-    packed = ldata.pack_dataset(ldata.LifCombinedDataset(*[
-        ldata.LifDataset(**t, num_sample=hyper["samples_per_lif"]) for t in hyper["train_set"]]))
-    sdf, surf, _ = next(iter(ldata.iterate_batches_packed(packed, hyper["batch_size"],
-                                                          np.random.default_rng(7))))
-    sdf, surf = sdf.astype(np.float32), surf.astype(np.float32)
-    spec_d, spec_e = DecoderSpec.from_hyper(hyper), EncoderSpec.from_hyper(hyper)
-    loss_cfg = LossConfig.from_hyper(hyper)
-    seed, lr = 11, 1e-3
-    probe = TR.create_train_state(spec_d, spec_e, 0, dev)
-    _, grads = TR.loss_and_grads(loss_cfg, probe, torch.from_numpy(sdf).to(dev),
-                                 torch.from_numpy(surf).to(dev), 1,
-                                 generator=torch.Generator(device=dev).manual_seed(seed))
-    del probe
-    state = TR.create_train_state(spec_d, spec_e, 0, dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    single, single_ms = {}, []
-    for k in range(1, MULTI_STEPS + 1):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, losses = TR.train_step(loss_cfg, state, torch.from_numpy(sdf).to(dev),
-                                      torch.from_numpy(surf).to(dev), lr, lr, 1, generator=gen)
-        end.record()
-        single_ms.append((start, end))
-        if k in (1, MULTI_STEPS):
-            single[k] = {"losses": {key: float(v) for key, v in losses.items()},
-                         "params": {"dec": state.dec.to_params(), "enc": state.enc.to_params()}}
-    single_ms = event_ms(single_ms)
-    grad_tree = _grad_tree(grads, single[1]["params"])
-    for label, n, tp, steps, tol in (("b_dp2", 2, 1, MULTI_STEPS, 2e-5),
-                                     ("c_dp1_tp2", 2, 2, 1, 3e-5)):
-        t0 = time.perf_counter()
-        (r0, _) = D.launch(multi_rank_train, n, hyper, sdf, surf, n, tp, steps, seed,
-                           timeout=600.0)
-        launch_s = time.perf_counter() - t0
-        got = r0["steps"][1]
-        diff = _tree_diff(single[1]["params"], {"dec": got["dec"], "enc": got["enc"]},
-                          grad_tree, tol)
-        loss_rel = max(abs(got["losses"][k] - v) / max(abs(v), 1e-2)
-                       for k, v in single[1]["losses"].items())
-        row[label] = {"mesh": r0["mesh"], "launch_s": launch_s,
-                      "ms_per_step": r0["step_ms"],
-                      "ms_per_step_after_1": statistics.median(r0["step_ms"][1:])
-                      if len(r0["step_ms"]) > 1 else None,
-                      "single_process_ms_per_step": single_ms,
-                      "losses": got["losses"], "single_losses": single[1]["losses"],
-                      "loss_max_rel_diff": loss_rel, "tolerance": tol,
-                      **{f"params_1_step_{k}": v for k, v in diff.items()}}
-        if steps > 1:
-            row[label][f"params_{steps}_steps_max_abs_diff"] = _tree_diff(
-                single[steps]["params"], {"dec": r0["steps"][steps]["dec"],
-                                          "enc": r0["steps"][steps]["enc"]})["max_abs_diff"]
-        # an entry beyond the tolerance passes only where a gradient error
-        # no larger than |g| + eps could move Adam's first step past it
-        # (lr * eps / (|g| + eps) > tol), and then within 2 lr; at most 1e-4
-        # of the entries may
-        exempt_below = lr * ADAM_EPS / tol - ADAM_EPS
-        if loss_rel > 1e-4 or diff["max_abs_grad_beyond_tol"] >= exempt_below \
-                or diff["entries_beyond_tol"] > 1e-4 * diff["entries"] \
-                or diff["max_abs_diff"] > 2 * lr:
-            emit(row)
-            fail(f"multi ({label}): one step off the single-process step: losses "
-                 f"{loss_rel:.3g} rel, {diff}")
+    sdf, surf = first_batch(hyper)
+    row.update(parallel_steps(hyper, sdf, surf, dev,
+                              (("b_dp2", 2, 1, MULTI_STEPS, 2e-5),
+                               ("c_dp1_tp2", 2, 2, 1, 3e-5)), "multi"))
 
     # ---- (d): the offline map, sharded over every card and over cuda:0 twice ----
     t0 = time.perf_counter()
@@ -1254,8 +1325,7 @@ def main() -> int:
     from difusion_tpu_torch.core import tracker as tracker_mod
     from difusion_tpu_torch.core.meshing import MeshExtractor
     from difusion_tpu_torch.core.tracker import TrackerConfig
-    from difusion_tpu_torch.data.production import (RGBDSequence, SyntheticSequence,
-                                                    mesh_error_stats)
+    from difusion_tpu_torch.data.production import SyntheticSequence, mesh_error_stats
     from difusion_tpu_torch.ops import _build, imgproc
     from difusion_tpu_torch.ops import decoder_fused as fused_mod
     from difusion_tpu_torch.ops import stencil as stencil_mod
@@ -1368,22 +1438,9 @@ def main() -> int:
     kernels[4]["launches_main"] = counts.get("decode_fwd_bf16", 0)
 
     # ---- chunk phase: the normal entry point, the GN loops on the card ----
-    class Rendered(RGBDSequence):
-        """The frames rendered above, as a sequence (no second rendering)."""
-
-        def __init__(self, n):
-            super().__init__()
-            self.calib, self.first_iso = calib, seq.first_iso
-            self.gt_trajectory = seq.gt_trajectory[:n]
-
-        def __len__(self):
-            return len(self.gt_trajectory)
-
-        def __next__(self):
-            if self.frame_id >= len(self):
-                raise StopIteration
-            self.frame_id += 1
-            return frames[self.frame_id - 1]
+    def Rendered(n):
+        """The first n frames rendered above (no second rendering)."""
+        return Replay(seq, frames[:n])
 
     # configs/fusion-synthetic.yaml as a dictionary (no YAML read), with the
     # in-repo prior

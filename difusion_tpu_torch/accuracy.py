@@ -202,9 +202,9 @@ def run_mapping_only(frames: int, latent_optimize: bool, prior, device) -> dict:
     return out
 
 
-def _card() -> str:
+def _card(index: int = 0) -> str:
     try:
-        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+        return subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()[0]
     except (OSError, subprocess.CalledProcessError):
@@ -304,7 +304,7 @@ def main(argv=None) -> dict:
                                                         "n_voxels") if k in jr[0]}
             mapping_only.append(r)
             print(json.dumps(r), flush=True)
-    payload = {"card": _card() if device.type == "cuda" else "cpu",
+    payload = {"card": _card(device.index) if device.type == "cuda" else "cpu",
                "torch": torch.__version__, "hyper": args.hyper, "epoch": args.epoch,
                "rows": rows, "mapping_only_ab": mapping_only}
     out.mkdir(parents=True, exist_ok=True)

@@ -80,6 +80,8 @@ namespace {
 constexpr int TW = 32;     // tile width: a warp's lanes on adjacent columns
 constexpr int NWARP = 4;   // warps of a block, stacked vertically
 constexpr int FIXED_WIN = 6;
+// the devices whose shared-memory grant a launcher instance remembers
+constexpr int MAX_DEVICES = 64;
 
 // Loads the compiler may neither sink into a branch nor make conditional:
 // the tile's loads must all be in flight together, not one round trip each.
@@ -314,13 +316,18 @@ int launch_rows(const float* a, const float* b, const float* c, const void* v, i
     auto kern = window_stats_kernel<-1, R>;
     const int smem =
         ((TW + 2 * win) * (NWARP * R + 2 * win) + 1) * (int)sizeof(float4);
-    // dynamic shared memory above 48 KB is asked for once per process and size
-    static int granted = 48 * 1024;
-    if (smem > granted) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // dynamic shared memory above 48 KB is asked for once per device and
+    // size (the attribute belongs to the device's context; past MAX_DEVICES
+    // on every launch that needs it): the largest size granted so far
+    static int granted[MAX_DEVICES];
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    int* have = device < MAX_DEVICES ? &granted[device] : nullptr;
+    if (smem > 48 * 1024 && (have == nullptr || smem > *have)) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return (int)err;
-      granted = smem;
+      if (have != nullptr) *have = smem;
     }
     kern<<<grid, block, smem, stream>>>(a, b, c, v, pointmap, out, H, W, win, r2o, r2n);
   }

@@ -2,7 +2,8 @@
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"``.  When
 CUDA is absent they raise instead of running on the CPU; the CPU runs only
-when the caller asks for it (the tests do).  Resolving a CUDA device also
+when the caller asks for it (the tests do).  A CUDA device without an index
+resolves to the current card, by its index.  Resolving a CUDA device also
 turns TF32 off for matmuls and convolutions, so the f32 path is real f32 as
 in the JAX reference.
 """
@@ -31,6 +32,10 @@ def resolve_device(device="cuda") -> torch.device:
                 "pass device='cpu' to run the plain PyTorch path on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        if dev.index is None:
+            # the card current now, named: tensors, streams and the caches
+            # keyed by device stay on it when the current card changes
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     return dev

@@ -24,7 +24,8 @@ weight matrix's output rows over the model coordinates (column-parallel).
 
 An all-gather is written as an all-reduce of a zero-filled full buffer:
 exact (it adds zeros), and carried by NCCL and by gloo alike, also for
-CUDA tensors (gloo: ranks that share one card).
+CUDA tensors (gloo: ranks that share one card).  Every tensor a collective
+gets is contiguous (NCCL refuses others; a gradient may arrive strided).
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.clone()
+        out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
         return out
 
@@ -130,7 +131,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.clone()
+        out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
         return out
 

@@ -121,6 +121,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
+def launch_on(index: int, fn, *args) -> int:
+    """``fn(*args, stream)`` with card ``index``'s current stream, while that
+    card is current (entered only when another one is): a C launcher
+    launches on the current card.  The raw getter skips building a Stream
+    object on every call."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    stream = raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+    if index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
+
+
 def _recordings() -> List[Dict[str, int]]:
     if not hasattr(_local, "stack"):
         _local.stack = []

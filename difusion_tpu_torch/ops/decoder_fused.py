@@ -278,10 +278,8 @@ def _launch(name, entry, packed, latent, rel, outs):
     """Launch ``entry`` of csrc/decoder_grad.cu on (latent, rel, packed) ->
     ``outs`` on the current stream, check it and count it."""
     fn = getattr(_load(), entry)
-    with torch.cuda.device(latent.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(latent.data_ptr(), rel.data_ptr(), packed.data_ptr(),
-                 *(o.data_ptr() for o in outs), latent.shape[0], stream)
+    err = _build.launch_on(latent.device.index, fn, latent.data_ptr(), rel.data_ptr(),
+                           packed.data_ptr(), *(o.data_ptr() for o in outs), latent.shape[0])
     _build.check(err, name)
     _build.count_launch(name)
 

@@ -125,13 +125,6 @@ def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _current_stream(index: int) -> int:
-    """The current stream's handle; the raw getter skips building a Stream
-    object on every call."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
-
-
 def _launch_cuda(entry: str, inputs, h: int, w: int, window: int, outlier_r2: float,
                  normal_r2: float, rows=None) -> torch.Tensor:
     """Launch ``entry`` of csrc/window_stats.cu on ``inputs`` (validated by
@@ -154,12 +147,7 @@ def _launch_cuda(entry: str, inputs, h: int, w: int, window: int, outlier_r2: fl
     fn = getattr(_load(), entry)
     args = (*(t.data_ptr() for t in inputs), out.data_ptr(), h, w, int(window),
             float(outlier_r2), float(normal_r2), int(rows))
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args, _current_stream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, _current_stream(dev.index))
-    _build.check(err, "window_stat_sums")
+    _build.check(_build.launch_on(dev.index, fn, *args), "window_stat_sums")
     _build.count_launch("window_stat_sums")
     return out
 

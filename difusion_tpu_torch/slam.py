@@ -270,7 +270,7 @@ class SLAMSystem:
             ready = None
             if self._mesh_stream is not None:
                 ready = torch.cuda.Event()
-                ready.record()
+                ready.record(torch.cuda.current_stream(self.device))
             self._mesh_future = self._mesh_executor.submit(self._extract_snapshot,
                                                            snapshot, ready)
         self._stage_done("mesh", t0)
@@ -478,8 +478,9 @@ class SLAMSystem:
                 raise item
             kind, frame, (packed, uploaded), w = item
             if uploaded is not None:
-                torch.cuda.current_stream().wait_event(uploaded)
-                packed.record_stream(torch.cuda.current_stream())
+                current = torch.cuda.current_stream(self.device)
+                current.wait_event(uploaded)
+                packed.record_stream(current)
             if kind == "chunk":
                 self.process_chunk(packed, w)
                 i += int(packed.shape[0])

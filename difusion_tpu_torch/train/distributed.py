@@ -228,8 +228,15 @@ def _rank_main(rank: int, world: int, tmp: str, backend: str, timeout: float) ->
         with open(os.path.join(tmp, "call.pkl"), "rb") as f:
             fn, args, kwargs = pickle.load(f)
         store = dist.FileStore(os.path.join(tmp, "store"), world)
+        device = None
+        if backend == "nccl":
+            # one rank a card: NCCL's communicators and the rank's work on
+            # card ``rank`` (mod the cards there are)
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
         dist.init_process_group(backend, store=store, rank=rank, world_size=world,
-                                timeout=datetime.timedelta(seconds=timeout))
+                                timeout=datetime.timedelta(seconds=timeout),
+                                device_id=device)
         try:
             result = fn(*args, **kwargs)
         finally:
@@ -246,7 +253,8 @@ def launch(fn: Callable, world: int, *args, backend: str = "gloo", timeout: floa
     initialised process group (``backend``; each rank's collectives time out
     after ``timeout`` s): the list of the ranks' results, by rank.  ``fn``,
     its arguments and its results must pickle (a module-level function).
-    Each rank runs torch on one thread.  The parent waits at most
+    Each rank runs torch on one thread; under NCCL rank r's current card
+    is ``cuda:r`` (mod the cards there are).  The parent waits at most
     ``timeout`` s for all of them, kills those that remain, and raises
     RuntimeError, with the ranks' tracebacks, if any rank failed or
     hung."""

@@ -29,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..ops import _build
 
 # eager passes over the segments before the capture; they launch the
@@ -59,7 +60,7 @@ class GraphProgram:
     card), ``capture_s`` (seconds :meth:`build` took, warm-up included)."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._segments: List[Tuple[Callable[[], None], Optional[torch.Tensor]]] = []
         self._exec: Optional[ctypes.c_void_p] = None
         self._graphs: list = []                   # own the segments' memory
@@ -78,27 +79,39 @@ class GraphProgram:
 
     def build(self, keep: Sequence[torch.Tensor] = ()) -> None:
         """Capture the segments (CUDA only).  ``keep``: the tensors that the
-        segments update in place; they hold the same values afterwards."""
+        segments update in place; they hold the same values afterwards.
+        Everything runs on the program's card, whichever card is current."""
         if self.device.type != "cuda":
             return
         t0 = time.perf_counter()
         lib = _load()
+        with torch.cuda.device(self.device):
+            self._capture(lib, keep)
+        _build.add_flusher(self._count_launches)
+        self.capture_s = time.perf_counter() - t0
+
+    def _capture(self, lib, keep: Sequence[torch.Tensor]) -> None:
         saved = [t.clone() for t in keep]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
         with torch.cuda.stream(side):
             for _ in range(WARM_UP_PASSES):
                 for fn, _done in self._segments:
                     fn()
-        torch.cuda.current_stream().wait_stream(side)
+        main.wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
         for fn, _done in self._segments:
             graph = torch.cuda.CUDAGraph(keep_graph=True)
+            # a capture stream of the program's card: torch.cuda.graph's
+            # default one is made once, on the card current at the first
+            # capture of the process
             with _build.recording() as rec, torch.cuda.graph(
-                    graph, pool=pool, capture_error_mode="thread_local"):
+                    graph, pool=pool, stream=side, capture_error_mode="thread_local"):
                 fn()
             self._graphs.append(graph)
             self._recorded.append(rec)
+        main.wait_stream(side)
         n = len(self._segments)
         self._runs = torch.zeros(n, dtype=torch.int64, device=self.device)
         self._counted = [0] * n
@@ -112,17 +125,14 @@ class GraphProgram:
         self._exec = out
         for t, s in zip(keep, saved):
             t.copy_(s)
-        _build.add_flusher(self._count_launches)
-        torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
+        torch.cuda.synchronize(self.device)
 
     def run(self) -> None:
         if self.device.type == "cuda":
             if self._exec is None:
                 raise RuntimeError("GraphProgram.run before build")
-            _build.check(_lib.graph_program_launch(
-                self._exec, torch.cuda.current_stream().cuda_stream),
-                "graph_program_launch")
+            _build.check(_build.launch_on(self.device.index, _lib.graph_program_launch,
+                                          self._exec), "graph_program_launch")
             self.n_replays += 1
             return
         for fn, done in self._segments:

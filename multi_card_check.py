@@ -23,11 +23,30 @@
 3. sit_out -- the same on N - 1 ranks (3 of 4: gcd(64, 3) = 1): rank 0
    trains alone, the other ranks leave at once; the files must equal the
    plain trainer's bit for bit.
+4. second_card -- in this process, whose current card stays cuda:0:
+   ``SLAMSystem.from_config`` on configs/fusion-synthetic.yaml (``--set
+   training_hypers=`` the in-repo prior) at bench.py's configuration (a
+   640x480 SyntheticSequence, a dense 70x70x40 map of 0.1 m voxels, point
+   budget 8192, fusion every 20 frames, meshing off) + ``run_sequence(chunk
+   =12)`` over 41 frames, on cuda:0 and then on cuda:1; then the same with
+   ``stencil_window`` 20 (kernel 2's run-time window, a tile above 48 KB of
+   shared memory) on cuda:0 and then cuda:1; then an r = 4 extract of each
+   card's window-6 map.  Each card's poses must be ``torch.equal`` to the
+   other's at each window and the triangles too; on every run kernel 2
+   launches 41 + the warm-up passes' times, kernel 1 at least twice a
+   tracked frame, the host reads no exit flag, ATE <= 0.05 m; kernel 3
+   once a decode dispatch of each extract.  ms/frame of each run.
+5. tp2, tp4 -- train_step on make_mesh(N, tp=2) and make_mesh(N, tp=4)
+   (distributed.launch over NCCL, rank r on cuda:r) from the seeded state
+   on one global batch of the dp part's corpus at its widths, 1 and 5
+   steps, against the same steps in this process (chip_smoke.py's
+   ``parallel_steps``: one step within 3e-5 under the eps rule above, the
+   5-step difference reported); ms/step by CUDA events.
 
 Each part prints one JSON line; then the card line (name and power limit
 from nvidia-smi) and ``{"ok": true, "cards": N}`` last.  Exits nonzero when
-a part fails or fewer than two cards are visible.  It writes under
-build/multi_card/.
+a part fails or fewer than two cards are visible (the tp parts need four).
+It writes under build/multi_card/.
 """
 from __future__ import annotations
 
@@ -47,6 +66,9 @@ HYPER = ROOT / "di-checkpoints/study_mixed/hyper.json"
 WORK = ROOT / "build" / "multi_card"
 BATCH, STEPS = 64, 3
 LR = 1e-3  # train-study-mixed.yaml's at epoch 1
+FRAMES = 41                # chip_smoke.py's chunk phase (chunks of its CHUNK)
+WINDOWS = (6, 20)          # kernel 2's templated window and a tile above 48 KB
+TP_STEPS, TP_TOL = 5, 3e-5
 
 
 def emit(obj) -> None:
@@ -251,6 +273,128 @@ def train_parts(n_cards: int) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# second_card
+# ---------------------------------------------------------------------------
+
+
+def second_card_part() -> dict:
+    """The tracker on cuda:1 after cuda:0 from one process whose current
+    card is cuda:0 (module docstring, part 4)."""
+    from chip_smoke import CHUNK, Replay, check_mesh, run_chunked
+    from difusion_tpu_torch.config import apply_override, load_yaml_args
+    from difusion_tpu_torch.core.meshing import MeshExtractor
+    from difusion_tpu_torch.data.production import mesh_error_stats, open_sequence
+    from difusion_tpu_torch.ops import _build
+    from difusion_tpu_torch.slam import SLAMSystem
+    from difusion_tpu_torch.utils.cudagraph import WARM_UP_PASSES
+
+    torch.cuda.set_device(0)
+    args = load_yaml_args(str(ROOT / "configs/fusion-synthetic.yaml"))
+    apply_override(args, f"training_hypers={HYPER}")
+    seq = open_sequence(args.sequence_type, **dict(args.sequence_kwargs, n_frames=FRAMES))
+    frames = list(seq)
+
+    def system(device, window):
+        built = SLAMSystem.from_config(args, seq.calib, seq.first_iso, capacity=1 << 16,
+                                       point_budget=8192, meshing=False, device=device)
+        if window == built.tracker.tcfg.stencil_window:
+            return built
+        # the window is no key of the fusion config (neither package reads
+        # one): the same system with the tracker's window replaced
+        return SLAMSystem(built.map_cfg, built.tracker.tcfg._replace(stencil_window=window),
+                          built.decoder, built.encoder, seq.calib,
+                          integrate_interval=built.integrate_interval,
+                          depth_cut=(built.tracker.tcfg.depth_cut_min,
+                                     built.tracker.tcfg.depth_cut_max),
+                          meshing=False, device=device)
+
+    row = {"part": "second_card", "frames": FRAMES, "chunk": CHUNK, "runs": []}
+    kept, problems = {}, []
+    for window in WINDOWS:
+        for card in (0, 1):
+            device = torch.device("cuda", card)
+            sys_ = system(device, window)
+            _build.reset_launch_counts()
+            run = run_chunked(sys_, Replay(seq, frames), FRAMES)
+            counts = _build.launch_counts()
+            result = run["result"]
+            poses = [t.cpu() for t in sys_.tracker.pose_history()]
+            kept[window, card] = (sys_, poses)
+            r = {"window": window, "device": str(sys_.device),
+                 "current_device": torch.cuda.current_device(),
+                 "ms_per_frame": run["ms_per_frame"], "run_s": run["run_s"],
+                 "launches": counts, "exit_flags_read": sys_.tracker.n_host_syncs,
+                 "ate_rmse_m": result["ate_rmse"], "n_occupied": result["n_voxels"]}
+            row["runs"].append(r)
+            want2 = FRAMES + WARM_UP_PASSES
+            if counts.get("window_stat_sums", 0) != want2:
+                problems.append(f"{r['device']} w={window}: kernel 2 launched "
+                                f"{counts.get('window_stat_sums', 0)} times, not {want2}")
+            if counts.get("decode_grad_fused", 0) < 2 * (FRAMES - 1):
+                problems.append(f"{r['device']} w={window}: kernel 1 launched "
+                                f"{counts.get('decode_grad_fused', 0)} times")
+            if sys_.tracker.n_host_syncs or not result["ate_rmse"] <= 0.05:
+                problems.append(f"{r['device']} w={window}: {r['exit_flags_read']} exit "
+                                f"flags read, ATE {result['ate_rmse']}")
+        equal = all(torch.equal(a, b) for a, b in zip(kept[window, 0][1], kept[window, 1][1]))
+        row[f"poses_equal_w{window}"] = equal
+        if not equal:
+            problems.append(f"w={window}: the cards' poses differ")
+    meshes = {}
+    for card in (0, 1):
+        sys_ = kept[WINDOWS[0], card][0]
+        mesher = MeshExtractor(sys_.map_cfg, sys_.decoder, voxel_resolution=4,
+                               max_triangles=int(4e6))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        mesher.extract(sys_.state, max_std=0.15)
+        torch.cuda.synchronize(sys_.device)
+        tris = mesher.triangles()
+        merr = mesh_error_stats(tris[0])
+        meshes[card] = {"device": str(sys_.device), "ms": (time.perf_counter() - t0) * 1e3,
+                        "triangles": len(tris[0]),
+                        "kernel3_launches": _build.launch_counts().get("decode_fused", 0),
+                        "decode_dispatches": mesher.last_stats["decode_dispatches"],
+                        "mesh_err_p95": merr["mesh_err_p95"], "tris": tris}
+        check_mesh(f"second_card extract on {sys_.device}", tris[0], merr)
+        m = meshes[card]
+        if m["kernel3_launches"] < 1 or m["kernel3_launches"] != m["decode_dispatches"]:
+            problems.append(f"extract on {m['device']}: kernel 3 launched "
+                            f"{m['kernel3_launches']} times for {m['decode_dispatches']} "
+                            "decode dispatches")
+    row["triangles_equal"] = all(
+        np.array_equal(a, b) for a, b in zip(meshes[0]["tris"], meshes[1]["tris"]))
+    row["extracts"] = [{k: v for k, v in m.items() if k != "tris"} for m in meshes.values()]
+    if not row["triangles_equal"]:
+        problems.append("the cards' extracts differ")
+    emit(row)
+    if problems:
+        fail("second_card: " + "; ".join(problems))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# tp2, tp4
+# ---------------------------------------------------------------------------
+
+
+def tp_parts(n_cards: int) -> dict:
+    """train_step on make_mesh(N, tp) over NCCL against this process (module
+    docstring, part 5)."""
+    from chip_smoke import first_batch, parallel_steps
+
+    hyper = train_hyper(WORK / "corpus")
+    sdf, surf = first_batch(hyper)
+    cases = tuple((f"tp{tp}", n_cards, tp, TP_STEPS, TP_TOL) for tp in (2, 4)
+                  if n_cards % tp == 0)
+    rows = parallel_steps(hyper, sdf, surf, torch.device("cuda", 0), cases, "tp",
+                          backend="nccl")
+    for label, r in rows.items():
+        emit({"part": label, "batch": list(sdf.shape), **r})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("multi_card_check: needs two or more CUDA cards", file=sys.stderr)
@@ -263,7 +407,9 @@ def main() -> int:
     card = smi()
     n_cards = torch.cuda.device_count()
     shard_part(n_cards)
+    second_card_part()
     train_parts(n_cards)
+    tp_parts(n_cards)
     print(card)
     print(json.dumps({"ok": True, "cards": n_cards}))
     return 0

@@ -501,3 +501,141 @@ def test_compute_sdf_on_the_card_matches_the_cpu(dev):
                                atol=1e-5)
     off = fin & (np.abs(on_card - on_cpu) > 1e-5)
     assert off.sum() <= (fin & ~nearest_apart).sum() and off.mean() < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# A card that is not the current one (two cards or more; the current card
+# stays cuda:0 throughout)
+# ---------------------------------------------------------------------------
+
+
+def test_resolve_device_names_the_card(dev):
+    """``"cuda"`` resolves to the current card by its index, so that the
+    caches keyed by device stay on that card when the current one changes;
+    an index stays as given."""
+    from difusion_tpu_torch.device import resolve_device
+    assert resolve_device("cuda") == torch.device("cuda", torch.cuda.current_device())
+    assert resolve_device("cuda:0").index == 0
+
+
+@pytest.fixture(scope="module")
+def two_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("window,rows", [(15, 5), (20, 1), (20, 5)])
+def test_window_stats_wide_tile_on_each_card(two_cards, window, rows):
+    """A tile above 48 KB of shared memory (((32 + 2w)(4R + 2w) + 1) * 16
+    bytes: 49,616 at w = 15, R = 5; 50,704 and 69,136 at w = 20) on cuda:0
+    and then on cuda:1 from one process, both entries: bit-equal to the plain
+    version on each card.  The attribute that grants it belongs to each
+    card's context: a grant kept once a process launches on the second card
+    without it, and the launch fails."""
+    for card in two_cards:
+        pc, ok, planes = _stencil_inputs(card, (45, 64), window + rows)
+        ref = torch.stack(stencil.window_stat_sums_plain(*planes, window, 0.01, 0.04))
+        for entry, inputs in (("window_stats_launch", planes),
+                              ("window_stats_map_launch", (pc, ok))):
+            got = stencil._launch_cuda(entry, inputs, 45, 64, window, 0.01, 0.04, rows=rows)
+            torch.cuda.synchronize(card)
+            assert got.device == card and torch.cuda.current_device() == 0
+            assert torch.equal(got, ref), (str(card), entry)
+
+
+def test_decoder_kernels_on_the_second_card(two_cards, packed):
+    """Kernels 1 and 3 on cuda:1 while cuda:0 is current: against their plain
+    versions on cuda:1 (the tolerances of the tests above), and equal to the
+    same launches on cuda:0."""
+    outs = {}
+    for card in two_cards:
+        gen = torch.Generator(device=card).manual_seed(3)
+        lat = torch.randn(8193, 29, generator=gen, device=card) * 0.3
+        rel = torch.rand(8193, 3, generator=gen, device=card) - 0.5
+        pk = packed.to(card)
+        grad = fused.decode_grad_fused(pk, lat, rel)
+        fwd = fused.decode_fused(pk, lat, rel)
+        ref_g = fused.decode_grad_plain(pk, lat, rel)
+        ref_f = fused.decode_fused_plain(pk, lat, rel)
+        torch.cuda.synchronize(card)
+        assert torch.cuda.current_device() == 0
+        for got, ref in ((grad[0], ref_g[0]), (grad[1], ref_g[1]), (fwd[0], ref_f[0]),
+                         (fwd[1], ref_f[1])):
+            assert got.device == card
+            torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+        assert not bool(fused.grad_rows_off(grad[2], pk, lat, rel).any())
+        outs[card.index] = [t.cpu() for t in (*grad, *fwd)]
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+
+
+def test_graph_program_on_the_second_card(two_cards):
+    """A GraphProgram for tensors on cuda:1, built and run while cuda:0 is
+    current: its loop runs on cuda:1's device, as on the current card."""
+    from difusion_tpu_torch.utils.cudagraph import GraphProgram
+    card = two_cards[1]
+    x = torch.zeros((), device=card)
+    done = torch.zeros((), dtype=torch.bool, device=card)
+    limit = torch.full((), 5.0, device=card)
+
+    def init():
+        x.zero_()
+        done.fill_(False)
+
+    def body():
+        x.copy_(torch.where(done, x, x + 1))
+        done.copy_(done | (x >= limit))
+
+    prog = GraphProgram("cuda:1")
+    prog.add(init)
+    prog.add(body, done=done)
+    prog.build(keep=[limit])
+    for want in (5.0, 2.0):
+        limit.fill_(want)
+        prog.run()
+        torch.cuda.synchronize(card)
+        assert x.item() == want and done.item()
+    assert prog.loop_passes() == [0, 7] and torch.cuda.current_device() == 0
+
+
+def test_track_program_on_the_second_card(two_cards):
+    """The chunked path (TrackProgram: a graph launch a frame, the loops on
+    the card) of a system on cuda:1 while cuda:0 is current: poses and
+    latents torch.equal to the same system's on cuda:0, no exit flag read,
+    kernels 1 and 2 launched on it."""
+    from difusion_tpu_torch.core import map as M
+    from difusion_tpu_torch.core import tracker as T
+    from difusion_tpu_torch.data.production import SyntheticSequence
+    from difusion_tpu_torch.models.weights import load_prior
+    from difusion_tpu_torch.ops.imgproc import Intrinsic
+    from difusion_tpu_torch.slam import SLAMSystem
+    from difusion_tpu_torch.utils.cudagraph import WARM_UP_PASSES
+    calib = Intrinsic(300.0, 300.0, 79.5, 59.5, 5000.0)
+    cfg = M.MapConfig(bound_min=(-2.0, -2.0, -0.5), n_xyz=(40, 40, 40), voxel_size=0.1,
+                      latent_dim=29, capacity=1 << 14, prune_min_vox_obs=4,
+                      ignore_count_th=1.0, encoder_count_th=600.0)
+    frames = list(SyntheticSequence(n_frames=4, h=120, w=160, calib=calib,
+                                    corrugation=0.1, motion_scale=0.6))
+    runs = {}
+    for card in reversed(two_cards):
+        dec, enc, _ = load_prior(HYPER, 300, device=card)
+        system = SLAMSystem(cfg, T.TrackerConfig(point_budget=4096), dec, enc, calib,
+                            integrate_interval=2, meshing=False, device=card)
+        system.process_frame(frames[0])
+        packed = torch.stack([torch.from_numpy(T.pack_frame(f.rgb, f.depth, 5000.0))
+                              for f in frames[1:]]).to(card)
+        _build.reset_launch_counts()
+        system.process_chunk(packed, 160)
+        counts = _build.launch_counts()
+        assert torch.cuda.current_device() == 0
+        assert system.tracker.n_host_syncs == 0
+        assert counts["window_stat_sums"] == 3 + WARM_UP_PASSES
+        assert counts["decode_grad_fused"] >= 2 * 3
+        assert system.state.latents.device == card
+        runs[card.index] = ([p.cpu() for p in system.tracker.pose_history()],
+                            system.state.latents.cpu())
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b), (a - b).abs().max()
+    assert torch.equal(runs[0][1], runs[1][1])
