@@ -92,6 +92,23 @@ Phases, each printing one JSON line:
               per-frame path's device time too.  The two paths' poses on
               these frames must agree.
 9. mesh_profile -- torch.profiler over one full (no_cache) r = 4 extract.
+   library -- the JAX package's library surface: SDFTracker.track_camera on
+              the 41 frames as a loader yields them (uint8 rgb, uint16
+              depth numpy arrays; fusion every 20 frames) against
+              track_camera_packed on the same frames packed losslessly on
+              the host from the converted arrays, run raw, packed, packed,
+              raw: poses torch.equal, ATE, no exit flag read, kernel 2 once
+              a frame, kernel 1 >= 2 a tracked frame, ms/frame of both over
+              the tracked frames without fusion; remove_radius_outlier (nb 16,
+              r 0.05) and estimate_normals (r 0.1) on frame 0's subsampled
+              (76,800) and full (307,200) clouds: masks equal to the same
+              call on the CPU, normals within 1e-4 where the neighbours'
+              eigen-gap (l_mid - l_min) / l_max >= 0.03 and below it a
+              Rayleigh excess within 1e-3 of the CPU normal's, the radius-neighbour
+              counts equal to scipy's cKDTree (at cap 16 where no run reached
+              it; with the cap at the longest run, everywhere), ms and peak
+              memory; compute_normal_weight[_robust] on frame 0's 240x320
+              point map against the CPU (1e-5).
 10. prior -- the offline prior pipeline at the shipped configurations'
               widths: run_generation on configs/data-simple.yaml and
               configs/data-heightfield.yaml as read (sampler_count 200,000,
@@ -872,6 +889,289 @@ def prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod,
     kernels[0]["max_abs_err_prior"] = k1["max_abs_err"]
     kernels[2]["max_abs_err_prior"] = k3["max_abs_err"]
     return hyper
+
+
+LIB_OUTLIER = dict(nb_points=16, radius=0.05)     # remove_radius_outlier
+LIB_NORMALS = dict(max_nn=16, radius=0.1)         # estimate_normals
+LIB_CELL_CAP = 16                                 # both ops' default
+LIB_CANDIDATES = 1 << 27    # candidates a chunk of queries in the uncapped count
+LIB_NORMAL_TOL = 1e-4       # estimate_normals on the card against the CPU, where
+LIB_MIN_GAP = 0.03          # the neighbours' (l_mid - l_min) / l_max is at least this
+LIB_EXCESS_TOL = 1e-3       # below it, the card's Rayleigh excess over the CPU's: the
+                            # normal within ~1.8 degrees of the plane of the two
+                            # smallest eigenvectors (the f32 solver alone reaches 1e-4
+                            # on a near-collinear neighbourhood)
+LIB_IMG_TOL = 1e-5          # image-space normals on the card against the CPU
+
+
+def timed_call(fn):
+    """fn(), its ms to the card's end, and the peak device memory it took
+    (GB, above what was allocated before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def neighbour_counts(pcproc, pts, valid, radius: float) -> dict:
+    """Radius-neighbour counts (self included) on the card against
+    scipy's cKDTree on the same points in float64: at LIB_CELL_CAP, on the
+    queries none of whose 27 runs reached the cap; and with the cap at the
+    longest run (every candidate scanned; queries in chunks), on every
+    query.  A query with a point within 1e-6 r of the sphere (where f32 and
+    f64 distances may disagree) is left out and counted."""
+    from scipy.spatial import cKDTree
+    grid = pcproc.build_grid(pts, valid, radius)
+    n = pts.shape[0]
+    _, ok = pcproc.radius_neighbors(grid, pts, valid, radius, LIB_CELL_CAP)
+    capped_counts = ok.sum(dim=-1)
+    del ok
+    offsets = torch.tensor([(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                            for c in (-1, 0, 1)], dtype=torch.int32, device=pts.device)
+    nb_hash = pcproc._hash_cells(pcproc._cells(pts, radius)[:, None] + offsets[None])
+    run = (torch.searchsorted(grid.sorted_hash, nb_hash, right=True)
+           - torch.searchsorted(grid.sorted_hash, nb_hash))
+    full_run = (run > LIB_CELL_CAP).any(dim=-1)
+    n_valid = int(valid.sum())
+    longest = int(torch.unique_consecutive(grid.sorted_hash[:n_valid],
+                                           return_counts=True)[1].max())
+    chunk = max(1, LIB_CANDIDATES // (27 * longest))
+    full_counts = torch.cat([
+        pcproc.radius_neighbors(grid, pts[i:i + chunk], valid[i:i + chunk], radius,
+                                longest)[1].sum(dim=-1) for i in range(0, n, chunk)])
+    p64 = pts.double().cpu().numpy()
+    v = valid.cpu().numpy()
+    tree = cKDTree(p64[v])
+    lo = tree.query_ball_point(p64[v], radius * (1 - 1e-6), return_length=True, workers=-1)
+    hi = tree.query_ball_point(p64[v], radius * (1 + 1e-6), return_length=True, workers=-1)
+    sure = lo == hi
+    capped = capped_counts.cpu().numpy()[v]
+    full = full_counts.cpu().numpy()[v]
+    within_cap = sure & ~full_run.cpu().numpy()[v]
+    return {"queries": int(v.sum()), "borderline_left_out": int((~sure).sum()),
+            "within_cap_queries": int(within_cap.sum()),
+            "within_cap_mismatches": int((capped[within_cap] != hi[within_cap]).sum()),
+            "longest_run": longest, "uncapped_chunk": chunk,
+            "uncapped_mismatches": int((full[sure] != hi[sure]).sum()),
+            "mean_neighbours": float(hi.mean())}
+
+
+def eigen_check(pcproc, pts, valid, radius: float, normals) -> tuple:
+    """The covariance of each point's estimate_normals neighbours in float64
+    (CPU): its eigen-gap (l_mid - l_min) / l_max (N,), and for each of
+    ``normals`` the Rayleigh excess (n^T C n - l_min) / l_max (N,), 0 for the
+    exact smallest eigenvector.  Where the gap is small the smallest
+    eigenvector is ill-defined, and the closed-form solver's f32 result
+    depends on the order its sums were added in: summing the neighbours in
+    reverse order on one CPU moves such normals by up to 2 on frame 0's full
+    cloud, and by <= 1.3e-5 where the gap is >= 0.03.  The excess is blind to
+    that choice and to the sign."""
+    grid = pcproc.build_grid(pts, valid, radius)
+    idx, ok = pcproc.radius_neighbors(grid, pts, valid, radius, LIB_CELL_CAP,
+                                      exclude_self_index=True)
+    w = ok.double()
+    nb = pts.double()[idx.long()]
+    mean = (nb * w[..., None]).sum(dim=1) / w.sum(dim=-1).clamp(min=1.0)[:, None]
+    c = nb - mean[:, None]
+    del nb
+    cov = torch.einsum("nka,nkb->nab", c * w[..., None], c).cpu()
+    ev = torch.linalg.eigvalsh(cov)
+    top = ev[:, 2].clamp(min=1e-300)
+    excess = []
+    for n in normals:
+        n = n.double().cpu()
+        excess.append((torch.einsum("na,nab,nb->n", n, cov, n) - ev[:, 0]) / top)
+    return (ev[:, 1] - ev[:, 0]) / top, excess
+
+
+def library_phase(dev, kernels, seq, frames, calib, map_cfg, tcfg, dec, enc, _build) -> None:
+    """The JAX package's library surface on the card: ``track_camera`` on
+    the sensor's uint8 / uint16 arrays against ``track_camera_packed`` on the
+    same frames packed losslessly from the converted arrays, the point-cloud
+    ops on frame 0's clouds, and the image-space normals."""
+    from difusion_tpu_torch.core import map as M
+    from difusion_tpu_torch.core import tracker as tracker_mod
+    from difusion_tpu_torch.ops import imgproc, pcproc
+    from difusion_tpu_torch.slam import SLAMSystem
+    from difusion_tpu_torch.utils.cudagraph import WARM_UP_PASSES
+    from difusion_tpu_torch.utils.motion import ate_rmse
+
+    w = frames[0].depth.shape[1]
+    lossless = []
+    for f in frames[:N_MAIN]:
+        rgb = f.rgb.astype(np.float32) * np.float32(1.0 / 255.0)
+        depth = f.depth.astype(np.float32) * np.float32(1.0 / calib.dcam_scale)
+        lossless.append(torch.from_numpy(tracker_mod.pack_frame(
+            rgb, depth, calib.dcam_scale, lossless=True)).pin_memory())
+
+    def run(raw: bool):
+        system = SLAMSystem(map_cfg, tcfg, dec, enc, calib, integrate_interval=20,
+                            depth_cut=(0.5, 5.0), meshing=False, device=dev)
+        tr = system.tracker
+        frame_ms = []
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        for k in range(N_MAIN):
+            set_pose = frames[0].gt_pose if k == 0 else None
+            t0 = time.perf_counter()
+            if raw:
+                pose = tr.track_camera(system.state, frames[k].rgb, frames[k].depth, set_pose)
+            else:
+                pose = tr.track_camera_packed(system.state, lossless[k].to(dev, non_blocking=True),
+                                              w, set_pose)
+            if k % 20 == 0:
+                system.state = M.integrate_keyframe(map_cfg, system.encoder, system.state,
+                                                    *tr.last_pc_world(pose))
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        return tr, frame_ms, _build.launch_counts()
+
+    # raw, packed, packed, raw: each route once first and once after the
+    # other, so neither gains from what the other warmed
+    runs = [run(raw) for raw in (True, False, False, True)]
+    (raw_tr, _, counts), (packed_tr, _, packed_counts) = runs[0], runs[1]
+    history = raw_tr.pose_history()
+    equal = all(all(torch.equal(a, b) for a, b in zip(history, r[0].pose_history()))
+                for r in runs[1:])
+    ate = ate_rmse(seq.gt_trajectory[:N_MAIN], raw_tr.all_pd_pose)
+    flags = sum(r[0].n_host_syncs for r in runs)
+    n_tracked = N_MAIN - 1
+    steady = [k for k in range(2, N_MAIN) if k % 20]     # tracked, no fusion
+
+    def ms(r):
+        return [r[1][k] for k in steady]
+
+    track_line = {
+        "frames": N_MAIN, "input": "uint8 rgb + uint16 depth numpy arrays",
+        "driver": "program (one CUDA-graph launch a tracked frame)",
+        "order": "raw, packed, packed, raw", "steady_frames": len(steady),
+        "ms_per_frame": [statistics.mean(ms(r)) for r in runs[0::3]],
+        "frame_ms_median": [statistics.median(ms(r)) for r in runs[0::3]],
+        "packed_lossless_ms_per_frame": [statistics.mean(ms(r)) for r in runs[1:3]],
+        "packed_lossless_frame_ms_median": [statistics.median(ms(r)) for r in runs[1:3]],
+        "fusion_frame_ms": [r[1][0::20] for r in runs],
+        "launches": counts, "packed_launches": packed_counts,
+        "launches_second_raw": runs[3][2],
+        "exit_flags_read": flags,
+        "poses_torch_equal_packed_lossless": equal,
+        "pose_max_abs_diff_packed_lossless": max(
+            (a - b).abs().max().item() for r in runs[1:]
+            for a, b in zip(history, r[0].pose_history())),
+        "ate_rmse_m": ate}
+    emit({"phase": "library", "part": "track_camera", **track_line})
+    if not equal:
+        fail("library: track_camera's poses differ from track_camera_packed's on the "
+             "lossless pack of the same converted frames")
+    if not ate <= MAX_ATE:
+        fail(f"library: track_camera ATE {ate:.4f} m > {MAX_ATE} m")
+    if flags:
+        fail("library: the host read exit flags on the track_camera path")
+    for c in (counts, runs[3][2]):
+        if c.get("window_stat_sums", 0) != N_MAIN + WARM_UP_PASSES:
+            fail(f"library: window_stat_sums launched {c.get('window_stat_sums', 0)} times "
+                 f"under track_camera, expected {N_MAIN} + {WARM_UP_PASSES}")
+        if c.get("decode_grad_fused", 0) < 2 * n_tracked:
+            fail(f"library: decode_grad_fused launched {c.get('decode_grad_fused', 0)} "
+                 f"times under track_camera, expected >= {2 * n_tracked}")
+    for k in kernels:
+        k["launches_library"] = counts.get(k["name"], 0)
+    del runs, raw_tr, packed_tr
+
+    # ---- the point-cloud ops on frame 0: its subsampled and its full cloud ----
+    _, depth = tracker_mod.sensor_frame(frames[0].rgb, frames[0].depth, calib.dcam_scale, dev)
+    ok = (depth >= 0.5) & (depth <= 5.0)
+    maps = {}
+    for stride in (2, 1):
+        d, o = imgproc.subsample2d(depth, stride), imgproc.subsample2d(ok, stride)
+        sc = 1.0 / stride
+        maps[stride] = (imgproc.unproject_depth(d, o, calib.fx * sc, calib.fy * sc,
+                                                calib.cx * sc, calib.cy * sc), o)
+    rows, problems = {}, []
+    for stride, (pc, o) in maps.items():
+        pts, valid = pc.reshape(-1, 3).contiguous(), o.reshape(-1).contiguous()
+        pts_cpu, valid_cpu = pts.cpu(), valid.cpu()
+        row = {"points": pts.shape[0], "valid": int(valid.sum())}
+        for label, fn, kw in (("remove_radius_outlier", pcproc.remove_radius_outlier,
+                               LIB_OUTLIER),
+                              ("estimate_normals", pcproc.estimate_normals, LIB_NORMALS)):
+            out, first_ms, _ = timed_call(lambda: fn(pts, valid, **kw))
+            out, ms, peak = timed_call(lambda: fn(pts, valid, **kw))
+            t0 = time.perf_counter()
+            ref = fn(pts_cpu, valid_cpu, **kw)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            row[label] = {"ms": ms, "first_ms": first_ms, "peak_mem_gb": peak,
+                          "cpu_ms": cpu_ms}
+            if label == "remove_radius_outlier":
+                differ = int((out.cpu() != ref).sum())
+                row[label].update(kept=int(out.sum()), mask_differs_cpu=differ)
+                if differ:
+                    problems.append(f"remove_radius_outlier on {pts.shape[0]} points: "
+                                    f"{differ} mask entries differ from the CPU's")
+            else:
+                normal, n_ok = out
+                differ = int((n_ok.cpu() != ref[1]).sum())
+                gap, (ex_card, ex_cpu) = eigen_check(pcproc, pts, valid, kw["radius"],
+                                                     (normal, ref[0]))
+                both = n_ok.cpu() & ref[1]
+                held = both & (gap >= LIB_MIN_GAP)
+                loose = both & ~held
+                dev_ = (normal.cpu() - ref[0]).abs().max(dim=-1).values
+                diff = dev_[held].max().item() if bool(held.any()) else 0.0
+                worse = ((ex_card - ex_cpu)[loose].max().item()
+                         if bool(loose.any()) else 0.0)
+                row[label].update(ok=int(n_ok.sum()), ok_differs_cpu=differ,
+                                  held_points=int(held.sum()),
+                                  ill_conditioned=int(loose.sum()),
+                                  normal_max_abs_diff_cpu=diff,
+                                  normal_max_abs_diff_cpu_all=dev_[ref[1]].max().item(),
+                                  past_tol_all=int((dev_[ref[1]] > LIB_NORMAL_TOL).sum()),
+                                  ill_conditioned_excess_max_card=ex_card[loose].max().item()
+                                  if bool(loose.any()) else 0.0,
+                                  ill_conditioned_excess_max_cpu=ex_cpu[loose].max().item()
+                                  if bool(loose.any()) else 0.0,
+                                  ill_conditioned_excess_card_over_cpu=worse)
+                if differ or not diff <= LIB_NORMAL_TOL or not worse <= LIB_EXCESS_TOL:
+                    problems.append(f"estimate_normals on {pts.shape[0]} points: {differ} ok "
+                                    f"entries differ, normals {diff:.3g} from the CPU's "
+                                    f"(tol {LIB_NORMAL_TOL}) where the eigen-gap >= "
+                                    f"{LIB_MIN_GAP}, Rayleigh excess {worse:.3g} over the "
+                                    f"CPU's below it (tol {LIB_EXCESS_TOL})")
+        for label, kw in (("counts_outlier_radius", LIB_OUTLIER),
+                          ("counts_normal_radius", LIB_NORMALS)):
+            c = neighbour_counts(pcproc, pts, valid, kw["radius"])
+            row[label] = c
+            if c["within_cap_mismatches"] or c["uncapped_mismatches"]:
+                problems.append(f"{pts.shape[0]} points, r {kw['radius']}: neighbour counts "
+                                f"differ from cKDTree's ({c})")
+        rows[f"cloud_{pts.shape[0]}"] = row
+    emit({"phase": "library", "part": "pcproc", "cell_cap": LIB_CELL_CAP,
+          "outlier": LIB_OUTLIER, "normals": LIB_NORMALS, **rows})
+    if problems:
+        fail("library: " + "; ".join(problems))
+
+    # ---- image-space normals on frame 0's 240x320 point map ----
+    pc, o = maps[2]
+    img = {}
+    for label, fn in (("compute_normal_weight", imgproc.compute_normal_weight),
+                      ("compute_normal_weight_robust", imgproc.compute_normal_weight_robust)):
+        _, first_ms, _ = timed_call(lambda: fn(pc, o))
+        out, ms, peak = timed_call(lambda: fn(pc, o))
+        ref = fn(pc.cpu(), o.cpu())
+        n_ok = ref[2]
+        same = torch.equal(out[2].cpu(), n_ok)
+        nd = (out[0].cpu() - ref[0]).abs()[n_ok].max().item()
+        wd = ((out[1].cpu() - ref[1]).abs() / ref[1].abs().clamp(min=1.0))[n_ok].max().item()
+        img[label] = {"ms": ms, "first_ms": first_ms, "peak_mem_gb": peak, "ok": int(n_ok.sum()),
+                      "ok_equal_cpu": same, "normal_max_abs_diff_cpu": nd,
+                      "weight_max_rel_diff_cpu": wd}
+        if not same or not nd <= LIB_IMG_TOL or not wd <= LIB_IMG_TOL:
+            fail(f"library: {label} on the card against the CPU: ok equal {same}, "
+                 f"normals {nd:.3g}, weights {wd:.3g} (> {LIB_IMG_TOL})")
+    emit({"phase": "library", "part": "image_normals", "h": pc.shape[0], "w": pc.shape[1],
+          **img})
 
 
 MODES = {
@@ -1957,6 +2257,9 @@ def main() -> int:
           **full.last_stats})
 
     kernels[4]["launches_profile"] = _build.launch_counts().get("decode_fwd_bf16", 0)
+
+    # ---- library: track_camera on sensor arrays, the point-cloud ops ----
+    library_phase(dev, kernels, seq, frames, calib, map_cfg, tcfg, dec, enc, _build)
 
     # ---- prior: generator -> trainer -> the trained prior in serving ----
     hyper = prior_phase(dev, kernels, frames, uploads, calib, map_cfg, tcfg, fused_mod, _build)

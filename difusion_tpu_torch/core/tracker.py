@@ -1,11 +1,12 @@
 """SDF + photometric camera tracker (counterpart of
-difusion_tpu/core/tracker.py:54-266, 282-402, 404-569, 577-686, 719-821,
-841-1011, 1040-1177).
+difusion_tpu/core/tracker.py; its ``preprocess_and_track`` is
+:class:`TrackProgram`).
 
-Per frame: unpack the byte-plane frame, build a 3-level intensity/depth
-pyramid, subsample and unproject the depth, reduce a (2w+1)^2 window per
-pixel for radius-outlier counts and PCA normals (kernel 2,
-``ops/stencil.py``), voxel-filter the point cloud to the point budget, then
+Per frame: convert the camera's arrays (:func:`preprocess_frame`,
+:meth:`SDFTracker.track_camera`) or unpack the byte-plane frame, build a
+3-level intensity/depth pyramid, subsample and unproject the depth, reduce
+a (2w+1)^2 window per pixel for radius-outlier counts and PCA normals
+(kernel 2, ``ops/stencil.py``), voxel-filter the point cloud to the point budget, then
 run the grouped Gauss-Newton schedule over se(3): an SDF term (decoder
 forward + d sdf/d xyz in one kernel, kernel 1, ``ops/decoder_fused.py``, in
 f32 or, under ``sdf_compute_dtype="bfloat16"``, in its bf16 mode; or with
@@ -42,6 +43,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.decoder import Decoder
 from ..ops import compsum, imgproc
 from ..ops.decoder_fused import decode_grad_fused, pack_fused_decoder, supports_spec
@@ -349,6 +351,56 @@ def _preprocess_core(tcfg: TrackerConfig, calib: Intrinsic,
 def preprocess_packed(tcfg: TrackerConfig, calib: Intrinsic,
                       packed: torch.Tensor, w: int) -> ProcessedFrame:
     return _preprocess_core(tcfg, calib, *unpack_frame(packed, calib, w))
+
+
+def _upload(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:         # torch.from_numpy shares the buffer
+        a = a.copy()
+    if a.dtype == np.uint16:
+        # torch's uint16 has few kernels: carry the bits as int16, widen there
+        return torch.from_numpy(a.view(np.int16)).to(device).to(torch.int32) & 0xFFFF
+    return torch.from_numpy(a).to(device)
+
+
+def sensor_frame(rgb, depth, dcam_scale: float, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A camera's frame -> (rgb (H, W, 3) f32 in [0, 1], metric depth (H, W)
+    f32) on ``device``.  ``rgb``: uint8, or float in [0, 1]; ``depth``: an
+    integer type in sensor units (uint16), or float metres; numpy arrays or
+    tensors.  Integers are scaled by multiplying with 1/255 and
+    1/``dcam_scale`` in f32, as the JAX package's jitted
+    ``preprocess_frame`` does (XLA turns its divide into that multiply)."""
+    rgb, depth = _upload(rgb, device), _upload(depth, device)
+    if rgb.dtype == torch.uint8:
+        rgb = rgb.to(torch.float32) * (1.0 / 255.0)
+    if not depth.is_floating_point():
+        depth = depth.to(torch.float32) * (1.0 / dcam_scale)
+    return rgb.to(torch.float32), depth.to(torch.float32)
+
+
+def pack_lossless(rgb: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """f32 rgb (H, W, 3) and depth (H, W) -> the (H, 16W) uint8 byte planes
+    that ``pack_frame(..., lossless=True)`` makes of them, on their device:
+    plane ``4c + k`` is byte k (little-endian) of rgb channel c, plane
+    ``12 + k`` byte k of depth."""
+    h, w = depth.shape
+    rgb_b = rgb.contiguous().view(torch.uint8).reshape(h, w, 3, 4).permute(0, 2, 3, 1)
+    d_b = depth.contiguous().view(torch.uint8).reshape(h, w, 4).permute(0, 2, 1)
+    return torch.cat([rgb_b.reshape(h, 12 * w), d_b.reshape(h, 4 * w)], dim=1)
+
+
+def preprocess_frame(tcfg: TrackerConfig, calib: Intrinsic, rgb, depth,
+                     device="cuda") -> ProcessedFrame:
+    """Pyramid and box-filtered point cloud of a camera's frame (see
+    :func:`sensor_frame` for the inputs), computed on ``device`` through the
+    converted arrays' lossless byte planes: what :meth:`SDFTracker.track_camera`
+    tracks, and on float inputs :func:`preprocess_packed` of
+    ``pack_frame(rgb, depth, lossless=True)`` bit for bit."""
+    rgb, depth = sensor_frame(rgb, depth, calib.dcam_scale, resolve_device(device))
+    return preprocess_packed(tcfg, calib, pack_lossless(rgb, depth), depth.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -912,6 +964,7 @@ class SDFTracker:
     def __init__(self, map_cfg: M.MapConfig, tcfg: TrackerConfig,
                  decoder: Decoder, calib: Intrinsic, device: torch.device):
         check_supported(tcfg)
+        device = resolve_device(device)
         self.map_cfg = map_cfg
         self.tcfg = tcfg
         self.calib = calib
@@ -982,6 +1035,19 @@ class SDFTracker:
         if self.tcfg.motion_prior == "constant_velocity":
             return self.last_delta
         return self._identity
+
+    def track_camera(self, state, rgb, depth, set_pose: Optional[Isometry] = None,
+                     driver: Optional[str] = None) -> Pose:
+        """Track one frame as a camera gives it: ``rgb`` (H, W, 3) uint8 or
+        float in [0, 1], ``depth`` (H, W) uint16 sensor units or float
+        metres, numpy arrays or tensors.  They are converted on the
+        tracker's device as :func:`preprocess_frame` converts them, packed
+        there as ``pack_frame(..., lossless=True)`` packs the converted
+        arrays, and tracked by :meth:`track_camera_packed` (``set_pose`` and
+        ``driver`` as there)."""
+        rgb, depth = sensor_frame(rgb, depth, self.calib.dcam_scale, self.device)
+        return self.track_camera_packed(state, pack_lossless(rgb, depth),
+                                        depth.shape[1], set_pose, driver)
 
     def track_camera_packed(self, state, packed: torch.Tensor, w: int,
                             set_pose: Optional[Isometry] = None,

@@ -1,5 +1,6 @@
 """Depth/intensity image ops on tensors (counterpart of
-difusion_tpu/ops/imgproc.py:22-93, 136-175, 242-273, 312-749).
+difusion_tpu/ops/imgproc.py; its ``_space_to_depth_filter`` one-hot
+convolution is :func:`_patches`' strided slices here).
 
 Layouts follow the JAX package: (H, W) images, (H, W, 3) point maps,
 (H, W, C) textures.  Invalidity is carried as explicit boolean masks.
@@ -20,6 +21,15 @@ class Intrinsic(NamedTuple):
     cx: float
     cy: float
     dcam_scale: float = 1000.0
+
+    def to_K(self) -> np.ndarray:
+        return np.array([[self.fx, 0.0, self.cx],
+                         [0.0, self.fy, self.cy],
+                         [0.0, 0.0, 1.0]])
+
+    def scaled(self, s: float) -> "Intrinsic":
+        return Intrinsic(self.fx * s, self.fy * s, self.cx * s, self.cy * s,
+                         self.dcam_scale)
 
 
 def recip(c: float) -> float:
@@ -77,6 +87,42 @@ def filter_depth(depth: torch.Tensor, valid: torch.Tensor
     return torch.where(ok, out, depth), valid
 
 
+def _sensor_weight(z: torch.Tensor, normal_z: torch.Tensor) -> torch.Tensor:
+    """Sensor-noise weight: 1/w, where w grows with depth and with the
+    grazing angle theta = acos(n_z) (the reference's imgproc.cu:133-135)."""
+    theta = torch.arccos(torch.clamp(normal_z, -1.0, 1.0))
+    theta_diff = theta / (0.5 * 3.14159 - theta)
+    w = (0.0012 + 0.0019 * (z - 0.4) ** 2
+         + 0.0001 / torch.sqrt(torch.clamp(z, min=1e-12)) * theta_diff ** 2)
+    return 1.0 / w
+
+
+def compute_normal_weight(pc_map: torch.Tensor, valid: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Central-difference cross-product normals of an (H, W, 3) point map
+    and their sensor weight (the reference's compute_normal_weight,
+    imgproc.cu:98-137).  Returns (normal (H, W, 3), weight (H, W), -1 where
+    not ok, ok (H, W)); border pixels are not ok."""
+    h, w, _ = pc_map.shape
+
+    def shift(a, dv, du):           # a[v + dv, u + du], wrapping at the border
+        return torch.roll(a, (-dv, -du), dims=(0, 1))
+
+    nb_ok = (shift(valid, 0, 1) & shift(valid, 0, -1)
+             & shift(valid, 1, 0) & shift(valid, -1, 0))
+    diff_x = shift(pc_map, 0, 1) - shift(pc_map, 0, -1)
+    diff_y = shift(pc_map, 1, 0) - shift(pc_map, -1, 0)
+    normal = torch.linalg.cross(diff_y, diff_x, dim=-1)
+    norm = torch.linalg.norm(normal, dim=-1)
+    normal = normal / torch.clamp(norm, min=1e-12)[..., None]
+    u = torch.arange(w, device=pc_map.device)[None, :]
+    v = torch.arange(h, device=pc_map.device)[:, None]
+    interior = (v >= 1) & (v < h - 1) & (u >= 1) & (u < w - 1)
+    ok = valid & nb_ok & interior & (norm >= 1e-6) & (pc_map[..., 2] > 1e-6)
+    weight = _sensor_weight(pc_map[..., 2], normal[..., 2])
+    return normal, torch.where(ok, weight, torch.full_like(weight, -1.0)), ok
+
+
 def sym3eig_smallest_components(x11, x12, x13, x22, x23, x33):
     """Closed-form smallest eigenpair from the 6 unique components of batched
     symmetric 3x3 matrices.  Returns (vx, vy, vz, lam)."""
@@ -112,6 +158,64 @@ def sym3eig_smallest_components(x11, x12, x13, x22, x23, x33):
     comps = [torch.where(use13, r13[c], torch.where(use23, r23[c], r12[c])) * inv
              for c in range(3)]
     return comps[0], comps[1], comps[2], lam
+
+
+def sym3eig_smallest(cov: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form smallest eigenpair of batched symmetric 3x3 matrices:
+    cov (..., 3, 3) -> (eigvec (..., 3), eigval (...,))."""
+    vx, vy, vz, lam = sym3eig_smallest_components(
+        cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2])
+    return torch.stack([vx, vy, vz], dim=-1), lam
+
+
+def compute_normal_weight_robust(pc_map: torch.Tensor, valid: torch.Tensor,
+                                 radius: int = 3, dist2_th: float = 0.01,
+                                 min_count: float = 9.0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Windowed-PCA normals (the reference's compute_normal_weight_robust,
+    imgproc.cu:246-331): a two-pass mean and covariance over the
+    (2 radius + 1)^2 window, restricted to points within sqrt(dist2_th) of
+    the centre, its smallest eigenvector flipped towards the camera.  Not
+    kernel 2, whose one-pass moments use other thresholds.  Returns
+    (normal (H, W, 3), weight (H, W), -1 where not ok, ok (H, W))."""
+    h, w, _ = pc_map.shape
+    dev = pc_map.device
+    z_ok = valid & (pc_map[..., 2] > 1e-6)
+    p = torch.where(z_ok[..., None], pc_map, torch.zeros((), dtype=pc_map.dtype,
+                                                         device=dev))
+    window = [(dv, du) for dv in range(-radius, radius + 1)
+              for du in range(-radius, radius + 1)]
+
+    def neighbor(dv, du):
+        pos = torch.roll(p, (-dv, -du), dims=(0, 1))
+        ok = torch.roll(z_ok, (-dv, -du), dims=(0, 1))
+        d = pos - pc_map          # x, y, z summed in this order on every device
+        near = ok & (d[..., 0] ** 2 + d[..., 1] ** 2 + d[..., 2] ** 2 < dist2_th)
+        return pos, near.to(p.dtype)
+
+    s = torch.zeros_like(p)
+    cnt = torch.zeros(p.shape[:2], dtype=p.dtype, device=dev)
+    for dv, du in window:
+        pos, wgt = neighbor(dv, du)
+        s = s + pos * wgt[..., None]
+        cnt = cnt + wgt
+    mean = s / torch.clamp(cnt, min=1.0)[..., None]
+    cov = torch.zeros(p.shape[:2] + (3, 3), dtype=p.dtype, device=dev)
+    for dv, du in window:
+        pos, wgt = neighbor(dv, du)
+        d = (pos - mean) * wgt[..., None]
+        cov = cov + d[..., :, None] * (pos - mean)[..., None, :]
+
+    normal, _ = sym3eig_smallest(cov)
+    flip = torch.sum(normal * pc_map, dim=-1) > 0.0
+    normal = torch.where(flip[..., None], -normal, normal)
+    u = torch.arange(w, device=dev)[None, :]
+    v = torch.arange(h, device=dev)[:, None]
+    interior = (v >= radius) & (v < h - radius) & (u >= radius) & (u < w - radius)
+    ok = z_ok & interior & (cnt >= min_count)
+    weight = _sensor_weight(pc_map[..., 2], normal[..., 2])
+    return normal, torch.where(ok, weight, torch.full_like(weight, -1.0)), ok
 
 
 def gradient_xy(intensity: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -441,6 +545,20 @@ def subsample2d(img: torch.Tensor, s: int) -> torch.Tensor:
 
 def half_nearest(img: torch.Tensor) -> torch.Tensor:
     return subsample2d(img, 2)
+
+
+def masked_half_bilinear(img: torch.Tensor, ok: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Factor-2 average of the valid pixels of each 2x2 block (an odd last
+    row or column is dropped), the block summed in row-major order.  Returns (image (H/2, W/2), ok: the block had a valid
+    pixel)."""
+    h, w = img.shape
+    h2, w2 = 2 * (h // 2), 2 * (w // 2)
+    i = torch.where(ok, img, torch.zeros((), dtype=img.dtype, device=img.device))
+    o = ok.to(torch.int32)
+    total = i[0:h2:2, 0:w2:2] + i[0:h2:2, 1:w2:2] + i[1:h2:2, 0:w2:2] + i[1:h2:2, 1:w2:2]
+    cnt = o[0:h2:2, 0:w2:2] + o[0:h2:2, 1:w2:2] + o[1:h2:2, 0:w2:2] + o[1:h2:2, 1:w2:2]
+    return total / torch.clamp(cnt, min=1), cnt > 0
 
 
 class Pyramid(NamedTuple):

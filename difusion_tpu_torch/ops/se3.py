@@ -18,6 +18,14 @@ class Pose(NamedTuple):
         """(N, 3) -> (N, 3)."""
         return pts @ self.R.T + self.t[None, :]
 
+    def compose(self, other: "Pose") -> "Pose":
+        """``self`` after ``other``: (R1 R2, R1 t2 + t1)."""
+        return Pose(self.R @ other.R, self.R @ other.t + self.t)
+
+    def inv(self) -> "Pose":
+        Rt = self.R.T
+        return Pose(Rt, -(Rt @ self.t))
+
     @staticmethod
     def identity(device=None, dtype=torch.float32) -> "Pose":
         return Pose(torch.eye(3, dtype=dtype, device=device),

@@ -1,6 +1,6 @@
 """Static-shape segment and group-by primitives (counterpart of
-difusion_tpu/ops/segment.py; its ``segment_sum`` on the map's paths is
-``core/map._segment_sum`` here).
+difusion_tpu/ops/segment.py; on the map's paths its ``segment_sum`` is
+``core/map._segment_sum``, which sorts once on the card).
 
 Unique is a stable sort + boundary flags + a prefix sum, so every shape is
 known up front and nothing reads a count on the host.  ``pack_samples``
@@ -54,19 +54,25 @@ def _segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: 
     return out.index_add_(0, ids, values)[:-1]
 
 
+def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted segment sum of ``values`` (N, L) or (N,) by ids (N,) into
+    ``num_segments`` rows; ids outside the range drop."""
+    if weights is not None:
+        w = weights.to(values.dtype)
+        values = values * (w[:, None] if values.ndim == 2 else w)
+    return _segment_sum(values, segment_ids, num_segments)
+
+
 def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                  weights: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted segment mean and counts of ``values`` (N, L) or (N,), the
     reference's ``groupby_reduce`` (pytorch/network/utility.py:186-208);
     empty segments get mean 0."""
-    if weights is not None:
-        w = weights.to(values.dtype)
-        values = values * (w[:, None] if values.ndim == 2 else w)
-        ones = w
-    else:
-        ones = values.new_ones(values.shape[0])
-    sums = _segment_sum(values, segment_ids, num_segments)
+    sums = segment_sum(values, segment_ids, num_segments, weights)
+    ones = (values.new_ones(values.shape[0]) if weights is None
+            else weights.to(values.dtype))
     counts = _segment_sum(ones, segment_ids, num_segments)
     denom = torch.clamp(counts, min=1e-12)
     return sums / (denom[:, None] if values.ndim == 2 else denom), counts

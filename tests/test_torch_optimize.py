@@ -1,5 +1,6 @@
 """The port's latent optimizer pieces against the JAX package on the CPU,
-with the in-repo prior: ``ops/segment.padded_unique_inverse``,
+with the in-repo prior: ``ops/segment.padded_unique_inverse`` and
+``segment_sum`` / ``segment_mean``,
 ``build_optimize_samples`` (dense and hash), ``optimize_latents`` (Adam as
 optax computes it), ``merge_optimize_result``, and the save/load round trip
 of the optimizer's state fields.  Map state and samples cross from the JAX
@@ -18,12 +19,14 @@ import torch
 
 from difusion_tpu.core import hash_map as JHM
 from difusion_tpu.core import map as JM
+from difusion_tpu.ops import segment as JS
 from difusion_tpu.ops.segment import padded_unique_inverse as jax_unique
 from difusion_tpu.slam import load_prior as jax_load_prior
 from difusion_tpu_torch.core import hash_map as HM
 from difusion_tpu_torch.core import map as M
 from difusion_tpu_torch.models.decoder import DecoderSpec
 from difusion_tpu_torch.models.weights import from_jax_params
+from difusion_tpu_torch.ops import segment as TS
 from difusion_tpu_torch.ops.segment import padded_unique_inverse
 
 HYPER = Path(__file__).resolve().parents[1] / "di-checkpoints/study_mixed/hyper.json"
@@ -108,6 +111,27 @@ def test_padded_unique_inverse_matches_jax(case):
     assert int(got.count) == int(ref.count)
     plain = padded_unique_inverse(torch.from_numpy(ids))
     assert int(plain.count) == len(np.unique(ids))
+
+
+@pytest.mark.parametrize("width", [0, 5])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_sum_and_mean_match_jax(width, weighted):
+    """``segment_sum`` and ``segment_mean`` on (N,) and (N, L) values, with
+    and without weights, ids out of range dropped: 1e-5 (f32 sums in
+    another order)."""
+    rng = np.random.default_rng(6)
+    shape = (400,) if width == 0 else (400, width)
+    values = rng.normal(size=shape).astype(np.float32)
+    ids = rng.integers(-3, 33, 400).astype(np.int32)
+    w = rng.random(400).astype(np.float32) if weighted else None
+    jw = None if w is None else jnp.asarray(w)
+    tw = None if w is None else torch.from_numpy(w)
+    ref = JS.segment_sum(jnp.asarray(values), jnp.asarray(ids), 30, jw)
+    got = TS.segment_sum(torch.from_numpy(values), torch.from_numpy(ids), 30, tw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+    for g, r in zip(TS.segment_mean(torch.from_numpy(values), torch.from_numpy(ids), 30, tw),
+                    JS.segment_mean(jnp.asarray(values), jnp.asarray(ids), 30, jw)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("kind", ["dense", "hash"])
