@@ -17,7 +17,9 @@ Phases, each printing one JSON line:
               kernels 1 and 3 in their f32 and their bf16 mode, five
               instances); its device time (CUDA-graph replay of
               back-to-back launches), the wrapper's host time per call, and
-              its bounds.
+              its bounds.  The bf16 entries also give their kernels'
+              ptxas registers and spills, and fail on a spill or on ptxas
+              serializing a wgmma chain.
 4. main    -- SLAMSystem.process_frame on the card at bench.py's
               configuration: a 640x480 SyntheticSequence, a dense 70x70x40
               map of 0.1 m voxels, point budget 8192, fusion every 20 frames,
@@ -169,6 +171,7 @@ import contextlib
 import gc
 import io
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -324,7 +327,30 @@ def bf16_bounds(flops: float, nbytes: float) -> dict:
     return {"bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_decoder_bf16(packed, fused_mod, dev):
+def ptxas_of(build_info, lib: str, kernel: str) -> dict:
+    """``kernel``'s registers, spill bytes and wgmma warnings from ``lib``'s
+    ptxas report (the mangled entry name holds the kernel's name after its
+    length); fails when the report has no entry of that kernel, a spill, or
+    a wgmma chain that ptxas serialized."""
+    lines = build_info.get(lib, {}).get("ptxas", [])
+    out = {}
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and re.search(rf"\d{kernel}[EI]", ln):
+            for nxt in lines[i + 1:i + 3]:
+                if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt):
+                    out["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+                if m := re.search(r"Used (\d+) registers", nxt):
+                    out["registers"] = int(m.group(1))
+            out["wgmma_warnings"] = [w for w in lines if "wgmma" in w and kernel in w]
+            break
+    if "registers" not in out or "spill_bytes" not in out:
+        fail(f"{lib}.cu: no ptxas report of {kernel}: {lines}")
+    if out["spill_bytes"] or out["wgmma_warnings"]:
+        fail(f"{lib}.cu: {kernel} spills or has its wgmma serialized: {out}")
+    return out
+
+
+def check_decoder_bf16(packed, fused_mod, build_info, dev):
     """Kernel 1's bf16 mode vs its plain bf16 version at N = 8192, 1 and
     8191: sdf/std within BF16_ATOL; gradient rows beyond 1e-3 + 1e-3 |ref|
     (a bf16 rounding that went the other way) at most BF16_FLIP_ROWS of N,
@@ -363,13 +389,14 @@ def check_decoder_bf16(packed, fused_mod, dev):
     def call():
         return fused_mod.decode_grad_fused(packed, lat, rel)
     return {"name": "decode_grad_bf16", "route": "cuda",
-            "source": "difusion_tpu_torch/csrc/decoder_grad.cu",
+            "source": "difusion_tpu_torch/csrc/decoder_bf16.cu",
             "replaces": "difusion_tpu/ops/decoder_fused.py:189",
             "max_abs_err": worst, "grad_rows_at_bf16_flip": flip_rows,
             "tolerance": f"sdf/std {BF16_ATOL}; grad 1e-3 + 1e-3|ref| on all but "
                          f"{BF16_FLIP_ROWS} of the rows, 0.15 + 0.05|ref| on all",
             "ms": graph_ms(call, 50), "eager_ms": time_ms(call, 20),
             "host_us": host_us(call),
+            "ptxas": ptxas_of(build_info, "decoder_bf16", "decode_grad_bf16_kernel"),
             "plain_ms": time_ms(lambda: fused_mod.decode_grad_plain(packed, lat, rel), 5),
             **bf16_bounds(flops, nbytes), "library_ms": None,
             "library_note": "no single PyTorch call computes an MLP forward "
@@ -378,7 +405,7 @@ def check_decoder_bf16(packed, fused_mod, dev):
             "flops": flops, "bytes": nbytes}
 
 
-def check_decode_fused_bf16(packed, fused_mod, dev):
+def check_decode_fused_bf16(packed, fused_mod, build_info, dev):
     """Kernel 3's bf16 mode vs its plain bf16 version at N = 2^20, 1 and
     524,287 on lattice-range inputs: sdf/std within BF16_ATOL."""
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -404,11 +431,12 @@ def check_decode_fused_bf16(packed, fused_mod, dev):
     def call():
         return fused_mod.decode_fused(packed, lat, rel)
     return {"name": "decode_fwd_bf16", "route": "cuda",
-            "source": "difusion_tpu_torch/csrc/decoder_grad.cu",
+            "source": "difusion_tpu_torch/csrc/decoder_bf16.cu",
             "replaces": "difusion_tpu/ops/decoder_fused.py:105",
             "max_abs_err": worst, "tolerance": f"sdf/std {BF16_ATOL}",
             "ms": graph_ms(call, 5), "eager_ms": time_ms(call, 10, per_batch=5),
             "host_us": host_us(call, 20),
+            "ptxas": ptxas_of(build_info, "decoder_bf16", "decode_fwd_bf16_kernel"),
             "plain_ms": time_ms(lambda: fused_mod.decode_fused_plain(packed, lat, rel),
                                 5, per_batch=3),
             **bf16_bounds(flops, nbytes), "library_ms": None,
@@ -1673,8 +1701,8 @@ def main() -> int:
                check_stencil(frames[0], system.tracker.tcfg, calib, stencil_mod,
                              tracker_mod, imgproc, info, dev),
                check_decode_fused(system.tracker.packed, fused_mod, dev),
-               check_decoder_bf16(packed_bf16, fused_mod, dev),
-               check_decode_fused_bf16(packed_bf16, fused_mod, dev)]
+               check_decoder_bf16(packed_bf16, fused_mod, info, dev),
+               check_decode_fused_bf16(packed_bf16, fused_mod, info, dev)]
     emit({"phase": "kernels", "checked": [k["name"] for k in kernels]})
 
     # ---- main path: counts reset just before, read just after ----

@@ -44,18 +44,8 @@
 // multiplies.  Every 2 k-tiles the mma partials, summed from zero, join the
 // f32 accumulator with a rounded FADD (mlp_tc.cuh says why).
 //
-// The bf16 mode (kernels decode_grad_bf16_kernel and decode_fwd_bf16_kernel,
-// the same body with BF16 set) computes what the Pallas kernels compute for a
-// bf16 w_stack: the inputs and the weights rounded to bf16 (RNE; the pack
-// rounds the folded f32 weights), every product exact and summed in f32 on
-// the tensor cores (mma.sync.m16n8k16 bf16, one pass, so its bound is the
-// flops at the 989 TFLOP/s bf16 dense peak: 1.51 us and 0.105 ms), biases
-// and heads in f32, each hidden activation rounded to bf16 after bias and
-// relu and each backward dz rounded to bf16 after its relu mask.  Weights
-// stream as bf16 fragments (a quarter of the 3xTF32 mode's bytes, mlp_tc.cuh
-// has their layout) through ring slots of 8 KB; activations stay f32 in
-// shared memory, holding bf16-exact values, so the row buffers, the stores
-// and the barriers are the f32 mode's.
+// The bf16 mode (the JAX package's bf16 w_stack) has kernels of its own,
+// designed for Hopper in decoder_bf16.cu.
 //
 // Designs tried on the H100 and dropped: a warp carrying 16 full rows in
 // registers from layer to layer spilled past 255 registers; a cp.async ring
@@ -81,52 +71,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decoder_pack.cuh"
 #include "mlp_tc.cuh"
 
 namespace {
 
+using namespace decoder_pack;
 using namespace mlp_tc;
 
-constexpr int LAT = 29;
-constexpr int DIN = 32;     // latent + xyz
-constexpr int HID = 128;
-constexpr int H2 = 96;      // layer 2 shrinks so [h2 | x] stays 128 wide
 constexpr int LDX = 40;     // input row stride (floats)
 constexpr int LDA = 136;    // activation row stride (floats)
 constexpr int KC = 4;       // weight k-tiles a ring slot holds
 constexpr int FLUSH = 2;    // k-tiles summed on the tensor cores between FADDs
 constexpr int SLOT = KC * (HID / 8) * 32;  // float4s a slot holds: 32 KB
-constexpr int SLOT_BF16 = SLOT / 4;         // the bf16 mode's: 8 KB
-
-// packed layout (floats); must match ops/decoder_fused.py:pack_fused_decoder.
-// The f32 segments serve the plain versions; the kernels read the biases,
-// heads, xyz columns and the hi/lo fragment-ordered segment at OFF_TC.
-constexpr int OFF_F0 = 0;                      // W0^T  [32][128]
-constexpr int OFF_F1 = OFF_F0 + DIN * HID;     // W1^T  [128][128]
-constexpr int OFF_F2 = OFF_F1 + HID * HID;     // W2^T  [128][96]
-constexpr int OFF_F3 = OFF_F2 + HID * H2;      // W3^T  [128][128] (rows: h2 | x)
-constexpr int OFF_G3 = OFF_F3 + HID * HID;     // W3[:, :96]  [128][96]
-constexpr int OFF_G2 = OFF_G3 + HID * H2;      // W2    [96][128]
-constexpr int OFF_G1 = OFF_G2 + H2 * HID;      // W1    [128][128]
-constexpr int OFF_W3XYZ = OFF_G1 + HID * HID;  // W3[:, 125:128]  [128][3]
-constexpr int OFF_W0XYZ = OFF_W3XYZ + HID * 3; // W0[:, 29:32]    [128][3]
-constexpr int OFF_B0 = OFF_W0XYZ + HID * 3;
-constexpr int OFF_B1 = OFF_B0 + HID;
-constexpr int OFF_B2 = OFF_B1 + HID;
-constexpr int OFF_B3 = OFF_B2 + H2;
-constexpr int OFF_WSDF = OFF_B3 + HID;
-constexpr int OFF_WSTD = OFF_WSDF + HID;
-constexpr int OFF_BHEAD = OFF_WSTD + HID;      // b_sdf, b_std, 0, 0
-constexpr int OFF_TC = OFF_BHEAD + 4;          // f0 f1 f2 f3 g3 g2 g1, hi/lo fragments
-constexpr int TC_FLOATS = 2 * (OFF_W3XYZ - OFF_F0);
-constexpr int PACKED_SIZE = OFF_TC + TC_FLOATS;
-// the bf16 mode's pack: the same f32 segments (weights rounded to bf16,
-// biases f32), then the seven weight matrices as bf16 fragments, two to a
-// float (ops/decoder_fused._bf16_frag)
-constexpr int PACKED_SIZE_BF16 = OFF_TC + TC_FLOATS / 4;
-static_assert(OFF_TC % 4 == 0, "the fragment segment must be 16-byte aligned");
-static_assert(OFF_B0 % 2 == 0 && OFF_B2 % 2 == 0 && OFF_WSDF % 2 == 0,
-              "bias and head vectors are read as float2");
 
 // chunks of KC k-tiles in the stream: every layer's depth is a multiple of
 // 8 KC, so no chunk straddles two layers
@@ -134,9 +91,7 @@ constexpr int CHUNKS_FWD = (DIN + HID + HID + HID) / (8 * KC);  // 13
 constexpr int CHUNKS_ALL = CHUNKS_FWD + (HID + H2 + HID) / (8 * KC);  // 24
 static_assert(DIN % (8 * KC) == 0 && H2 % (8 * KC) == 0, "chunks must not straddle layers");
 
-// chunk j of the stream: offset and size (float4s) in the fragment segment;
-// the bf16 mode's chunks are a quarter of the 3xTF32 mode's (DIV = 4)
-template <int DIV>
+// chunk j of the stream: offset and size (float4s) in the fragment segment
 struct DecoderSpan {
   __device__ static __forceinline__ void span(int j, int& off, int& cnt) {
     const int chunks[7] = {DIN / (8 * KC), HID / (8 * KC), HID / (8 * KC), HID / (8 * KC),
@@ -147,8 +102,7 @@ struct DecoderSpan {
     bool found = false;
 #pragma unroll
     for (int l = 0; l < 7; ++l) {
-      // KC k-tiles x (N/8 n-tiles) x 32 lanes x 1 float4, over DIV
-      const int c = KC * ns[l] * 4 / DIV;
+      const int c = KC * ns[l] * 4;  // KC k-tiles x (N/8 n-tiles) x 32 lanes x 1 float4
       if (!found) {
         if (j < chunks[l]) {
           off += j * c;
@@ -189,24 +143,6 @@ __device__ __forceinline__ void load_frag(const float* p0, int kt, float (&a)[MT
   }
 }
 
-// the bf16 mode's A fragment of 16-deep k-tile kt (mlp_tc.cuh): rows g and
-// g+8 at cols 16kt + 2t, +1 and 16kt + 8 + 2t, +1, values already bf16-exact
-template <int LD, int MT>
-__device__ __forceinline__ void load_frag_bf16(const float* p0, int kt, uint32_t (&a)[MT][4]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const float* p = p0 + 16 * m * LD + 16 * kt;
-    const float2 r0 = *reinterpret_cast<const float2*>(p);
-    const float2 r1 = *reinterpret_cast<const float2*>(p + 8 * LD);
-    const float2 r2 = *reinterpret_cast<const float2*>(p + 8);
-    const float2 r3 = *reinterpret_cast<const float2*>(p + 8 * LD + 8);
-    a[m][0] = pack_bf16x2(r0.x, r0.y);
-    a[m][1] = pack_bf16x2(r1.x, r1.y);
-    a[m][2] = pack_bf16x2(r2.x, r2.y);
-    a[m][3] = pack_bf16x2(r3.x, r3.y);
-  }
-}
-
 // the warp's output fragments (n-tiles nb ..) -> the block's activation rows,
 // between two barriers: every warp has read the layer's input before (the
 // rows are shared with the warps that hold the other column parts), and
@@ -229,34 +165,10 @@ __device__ __forceinline__ void sync_store(const float (&z)[MT][4][4], float* p0
 // a layer with NT_ALL n-tiles, on the warp's NTN n-tiles from nb, a chunk of
 // KC k-tiles at a time.  Every FLUSH k-tiles' partial sums start from zero on
 // the tensor cores and join z with a rounded FADD (mlp_tc.cuh).
-// In the bf16 mode a chunk is 2 k-tiles of 16, one mma each per (m-tile,
-// n-tile), summed from zero and added to z once per chunk.
-template <int KT, int NTN, int NT_ALL, int LD, int MT, bool BF16, class Ring>
+template <int KT, int NTN, int NT_ALL, int LD, int MT, class Ring>
 __device__ __forceinline__ void gemm(float (&z)[MT][4][4], const float* p0, int nb,
                                      Ring& ring, int& it, int lane) {
   static_assert(KT % KC == 0 && KC % FLUSH == 0, "a layer takes whole chunks");
-  if constexpr (BF16) {
-#pragma unroll 1
-    for (int kc = 0; kc < KT; kc += KC) {
-      const uint2* w = reinterpret_cast<const uint2*>(ring.acquire(it)) + 32 * nb;
-      float c[MT][4][4];
-      zero<MT, NTN>(c);
-#pragma unroll
-      for (int kk = 0; kk < KC / 2; ++kk) {
-        uint32_t a[MT][4];
-        load_frag_bf16<LD, MT>(p0, kc / 2 + kk, a);
-        ktile_mma_bf16<MT, NTN>(c, a, w + kk * NT_ALL * 32, lane);
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int nt = 0; nt < NTN; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) z[m][nt][e] += c[m][nt][e];
-      ring.release(it++);
-    }
-    return;
-  }
 #pragma unroll 1
   for (int kc = 0; kc < KT; kc += KC) {
     const float4* w = ring.acquire(it) + 32 * nb;
@@ -281,9 +193,8 @@ __device__ __forceinline__ void gemm(float (&z)[MT][4][4], const float* p0, int 
   }
 }
 
-// z = relu(z + b) in place (rounded to bf16 in the bf16 mode); returns the
-// [z > 0] bits, bit 4 (4m + nt) + e
-template <int MT, int NTN, bool BF16>
+// z = relu(z + b) in place; returns the [z > 0] bits, bit 4 (4m + nt) + e
+template <int MT, int NTN>
 __device__ __forceinline__ uint32_t bias_relu(float (&z)[MT][4][4],
                                               const float* __restrict__ bias, int nb,
                                               int t) {
@@ -296,8 +207,7 @@ __device__ __forceinline__ uint32_t bias_relu(float (&z)[MT][4][4],
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float v = z[m][nt][e] + ((e & 1) ? b.y : b.x);
-        float r = v > 0.f ? v : 0.f;
-        if constexpr (BF16) r = bf16_round(r);
+        const float r = v > 0.f ? v : 0.f;
         const bool on = r > 0.f;
         z[m][nt][e] = r;
         bits |= (uint32_t)on << (4 * (4 * m + nt) + e);
@@ -306,18 +216,16 @@ __device__ __forceinline__ uint32_t bias_relu(float (&z)[MT][4][4],
   return bits;
 }
 
-// z *= [h > 0] in place (then rounded to bf16 in the bf16 mode)
-template <int MT, int NTN, bool BF16>
+// z *= [h > 0] in place
+template <int MT, int NTN>
 __device__ __forceinline__ void relu_grad(float (&z)[MT][4][4], uint32_t bits) {
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int nt = 0; nt < NTN; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < 4; ++e)
         if (!((bits >> (4 * (4 * m + nt) + e)) & 1u)) z[m][nt][e] = 0.f;
-        if constexpr (BF16) z[m][nt][e] = bf16_round(z[m][nt][e]);
-      }
 }
 
 // the warp's part (its 32 columns from n-tile nb) of d[row] . w[:, j] for
@@ -363,27 +271,23 @@ __host__ __device__ constexpr int exch_floats() { return GRAD ? 2 + 6 : 2; }
 template <int WARPS, int MT>
 __host__ __device__ constexpr int block_rows() { return WARPS / PARTS * 16 * MT; }
 
-template <bool BF16>
-__host__ __device__ constexpr int slot_float4s() { return BF16 ? SLOT_BF16 : SLOT; }
-
-template <int WARPS, int MT, bool GRAD, int RING, bool BF16>
+template <int WARPS, int MT, bool GRAD, int RING>
 __host__ __device__ constexpr int smem_bytes() {
-  return RING * slot_float4s<BF16>() * 16 +
+  return RING * SLOT * 16 +
          block_rows<WARPS, MT>() * (LDX + LDA + PARTS * exch_floats<GRAD>()) *
              (int)sizeof(float) +
          (GRAD ? 3 * WARPS * 32 * (int)sizeof(uint32_t) : 0) +
          2 * RING * (int)sizeof(uint64_t);
 }
 
-template <int WARPS, int MT, bool GRAD, int RING, bool BF16>
+template <int WARPS, int MT, bool GRAD, int RING>
 __device__ __forceinline__ void decoder_body(
     const float* __restrict__ latent, const float* __restrict__ rel,
     const float* __restrict__ P, float* __restrict__ sdf_out,
     float* __restrict__ std_out, float* __restrict__ grad_out, int n) {
   constexpr int NTHR = WARPS * 32, BM = block_rows<WARPS, MT>();
-  constexpr int SLOTN = slot_float4s<BF16>();
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4 + RING * SLOTN);  // inputs [BM][LDX]
+  float* xs = reinterpret_cast<float*>(smem4 + RING * SLOT);   // inputs [BM][LDX]
   float* acts = xs + BM * LDX;                                 // activations [BM][LDA]
   float2* head_x = reinterpret_cast<float2*>(acts + BM * LDA); // [part][BM] (zs, zd)
   float* grad_x = reinterpret_cast<float*>(head_x + PARTS * BM);  // [part][BM][6]
@@ -396,7 +300,7 @@ __device__ __forceinline__ void decoder_body(
   const int r0 = warp / PARTS * 16 * MT + g;      // the lane's first row in the block
   const int n0 = blockIdx.x * BM;
 
-  WeightRing<GRAD ? CHUNKS_ALL : CHUNKS_FWD, RING, SLOTN, WARPS, DecoderSpan<BF16 ? 4 : 1>> ring{
+  WeightRing<GRAD ? CHUNKS_ALL : CHUNKS_FWD, RING, SLOT, WARPS, DecoderSpan> ring{
       smem4, reinterpret_cast<const float4*>(P + OFF_TC), bars, bars + RING, tid};
   ring.init();
   ring.start();
@@ -404,7 +308,6 @@ __device__ __forceinline__ void decoder_body(
     const int r = idx / DIN, k = idx % DIN, gr = n0 + r;
     float v = 0.f;
     if (gr < n) v = k < LAT ? latent[(size_t)gr * LAT + k] : rel[(size_t)gr * 3 + k - LAT];
-    if constexpr (BF16) v = bf16_round(v);
     xs[r * LDX + k] = v;
   }
   __syncthreads();  // the inputs and the ring's barriers are ready
@@ -419,27 +322,27 @@ __device__ __forceinline__ void decoder_body(
 
   // ---- forward ----
   zero<MT, NQ>(z);
-  gemm<DIN / 8, NQ, HID / 8, LDX, MT, BF16>(z, x0, nb, ring, it, lane);    // layer 0: x -> 128
-  const uint32_t m0 = bias_relu<MT, NQ, BF16>(z, P + OFF_B0, nb, t);
+  gemm<DIN / 8, NQ, HID / 8, LDX, MT>(z, x0, nb, ring, it, lane);    // layer 0: x -> 128
+  const uint32_t m0 = bias_relu<MT, NQ>(z, P + OFF_B0, nb, t);
   if constexpr (GRAD) park[tid] = m0;
   sync_store<MT, NQ>(z, a0, nb);
 
   zero<MT, NQ>(z);
-  gemm<HID / 8, NQ, HID / 8, LDA, MT, BF16>(z, a0, nb, ring, it, lane);    // layer 1
-  const uint32_t m1 = bias_relu<MT, NQ, BF16>(z, P + OFF_B1, nb, t);
+  gemm<HID / 8, NQ, HID / 8, LDA, MT>(z, a0, nb, ring, it, lane);    // layer 1
+  const uint32_t m1 = bias_relu<MT, NQ>(z, P + OFF_B1, nb, t);
   if constexpr (GRAD) park[NTHR + tid] = m1;
   sync_store<MT, NQ>(z, a0, nb);
 
   zero<MT, NQ2>(z);
-  gemm<HID / 8, NQ2, H2 / 8, LDA, MT, BF16>(z, a0, nb2, ring, it, lane);   // layer 2: 128 -> 96
-  const uint32_t m2 = bias_relu<MT, NQ2, BF16>(z, P + OFF_B2, nb2, t);
+  gemm<HID / 8, NQ2, H2 / 8, LDA, MT>(z, a0, nb2, ring, it, lane);   // layer 2: 128 -> 96
+  const uint32_t m2 = bias_relu<MT, NQ2>(z, P + OFF_B2, nb2, t);
   if constexpr (GRAD) park[2 * NTHR + tid] = m2;
   sync_store<MT, NQ2>(z, a0, nb2);
 
   zero<MT, NQ>(z);
-  gemm<H2 / 8, NQ, HID / 8, LDA, MT, BF16>(z, a0, nb, ring, it, lane);     // layer 3: [h2 | x]
-  gemm<DIN / 8, NQ, HID / 8, LDX, MT, BF16>(z, x0, nb, ring, it, lane);
-  const uint32_t m3 = bias_relu<MT, NQ, BF16>(z, P + OFF_B3, nb, t);
+  gemm<H2 / 8, NQ, HID / 8, LDA, MT>(z, a0, nb, ring, it, lane);     // layer 3: [h2 | x]
+  gemm<DIN / 8, NQ, HID / 8, LDX, MT>(z, x0, nb, ring, it, lane);
+  const uint32_t m3 = bias_relu<MT, NQ>(z, P + OFF_B3, nb, t);
 
   // heads: sdf = tanh(h3 . w_sdf + b), std = 0.05 + 0.5 softplus(h3 . w_std + b),
   // each dot the sum of the column parts' dots, in part order
@@ -498,7 +401,7 @@ __device__ __forceinline__ void decoder_body(
           z[m][nt][e] = (1.f - sq * sq) * ((e & 1) ? ws.y : ws.x);
         }
     }
-    relu_grad<MT, NQ, BF16>(z, m3);
+    relu_grad<MT, NQ>(z, m3);
     float gx[6 * MT];
     part_dot3<MT>(z, P + OFF_W3XYZ, nb, t, gx);                   // dz3 . W3b[:, xyz]
     if (t == 0) {
@@ -510,18 +413,18 @@ __device__ __forceinline__ void decoder_body(
     sync_store<MT, NQ>(z, a0, nb);
 
     zero<MT, NQ2>(z);                                             // dh2 = dz3 W3a
-    gemm<HID / 8, NQ2, H2 / 8, LDA, MT, BF16>(z, a0, nb2, ring, it, lane);
-    relu_grad<MT, NQ2, BF16>(z, park[2 * NTHR + tid]);
+    gemm<HID / 8, NQ2, H2 / 8, LDA, MT>(z, a0, nb2, ring, it, lane);
+    relu_grad<MT, NQ2>(z, park[2 * NTHR + tid]);
     sync_store<MT, NQ2>(z, a0, nb2);
 
     zero<MT, NQ>(z);                                              // dh1 = dz2 W2
-    gemm<H2 / 8, NQ, HID / 8, LDA, MT, BF16>(z, a0, nb, ring, it, lane);
-    relu_grad<MT, NQ, BF16>(z, park[NTHR + tid]);
+    gemm<H2 / 8, NQ, HID / 8, LDA, MT>(z, a0, nb, ring, it, lane);
+    relu_grad<MT, NQ>(z, park[NTHR + tid]);
     sync_store<MT, NQ>(z, a0, nb);
 
     zero<MT, NQ>(z);                                              // dh0 = dz1 W1
-    gemm<HID / 8, NQ, HID / 8, LDA, MT, BF16>(z, a0, nb, ring, it, lane);
-    relu_grad<MT, NQ, BF16>(z, park[tid]);
+    gemm<HID / 8, NQ, HID / 8, LDA, MT>(z, a0, nb, ring, it, lane);
+    relu_grad<MT, NQ>(z, park[tid]);
 
     part_dot3<MT>(z, P + OFF_W0XYZ, nb, t, gx);                   // dz0 . W0[:, xyz]
     if (t == 0) {
@@ -558,19 +461,17 @@ __device__ __forceinline__ void decoder_body(
 // Kernel 1: 16 warps of 16 rows x 32 columns, 64 rows a block.  Kernel 3:
 // 12 warps of 32 rows x 32 columns, 96 rows a block.  3-4 warps to an SM
 // sub-partition hide one another's shared-memory and tensor-core latency.
-// The bf16 instances keep the tiling; their ring slots are a quarter of the
-// size.
 constexpr int K1_WARPS = 16, K1_MT = 1, K1_RING = 5;
 constexpr int K3_WARPS = 12, K3_MT = 2, K3_RING = 4;
-static_assert(smem_bytes<K1_WARPS, K1_MT, true, K1_RING, false>() <= 232448 &&
-              smem_bytes<K3_WARPS, K3_MT, false, K3_RING, false>() <= 232448,
+static_assert(smem_bytes<K1_WARPS, K1_MT, true, K1_RING>() <= 232448 &&
+              smem_bytes<K3_WARPS, K3_MT, false, K3_RING>() <= 232448,
               "a block has 227 KB of shared memory");
 
 __global__ void __launch_bounds__(K1_WARPS * 32, 1)
 decode_grad_kernel(const float* __restrict__ latent, const float* __restrict__ rel,
                    const float* __restrict__ P, float* __restrict__ sdf_out,
                    float* __restrict__ std_out, float* __restrict__ grad_out, int n) {
-  decoder_body<K1_WARPS, K1_MT, true, K1_RING, false>(latent, rel, P, sdf_out, std_out,
+  decoder_body<K1_WARPS, K1_MT, true, K1_RING>(latent, rel, P, sdf_out, std_out,
                                                       grad_out, n);
 }
 
@@ -578,26 +479,8 @@ __global__ void __launch_bounds__(K3_WARPS * 32, 1)
 decode_fwd_kernel(const float* __restrict__ latent, const float* __restrict__ rel,
                   const float* __restrict__ P, float* __restrict__ sdf_out,
                   float* __restrict__ std_out, int n) {
-  decoder_body<K3_WARPS, K3_MT, false, K3_RING, false>(latent, rel, P, sdf_out, std_out,
+  decoder_body<K3_WARPS, K3_MT, false, K3_RING>(latent, rel, P, sdf_out, std_out,
                                                        nullptr, n);
-}
-
-// the bf16 mode of kernel 1 (the JAX package's _mlp_grad_kernel with a bf16
-// w_stack) and of kernel 3 (_mlp_kernel with a bf16 w_stack)
-__global__ void __launch_bounds__(K1_WARPS * 32, 1)
-decode_grad_bf16_kernel(const float* __restrict__ latent, const float* __restrict__ rel,
-                        const float* __restrict__ P, float* __restrict__ sdf_out,
-                        float* __restrict__ std_out, float* __restrict__ grad_out, int n) {
-  decoder_body<K1_WARPS, K1_MT, true, K1_RING, true>(latent, rel, P, sdf_out, std_out,
-                                                     grad_out, n);
-}
-
-__global__ void __launch_bounds__(K3_WARPS * 32, 1)
-decode_fwd_bf16_kernel(const float* __restrict__ latent, const float* __restrict__ rel,
-                       const float* __restrict__ P, float* __restrict__ sdf_out,
-                       float* __restrict__ std_out, int n) {
-  decoder_body<K3_WARPS, K3_MT, false, K3_RING, true>(latent, rel, P, sdf_out, std_out,
-                                                      nullptr, n);
 }
 
 // the devices whose shared-memory attribute an instance remembers having set
@@ -625,48 +508,27 @@ int launch(void (*kernel)(Params...), bool (&attr_set)[MAX_DEVICES], int smem, i
 }  // namespace
 
 extern "C" int decode_grad_packed_size() { return PACKED_SIZE; }
-extern "C" int decode_grad_packed_size_bf16() { return PACKED_SIZE_BF16; }
 
 // Kernel 1: latent (n, 29), rel (n, 3), packed (PACKED_SIZE,) f32 contiguous
 // on the device; writes sdf (n,), std (n,), grad (n, 3).  Returns
-// cudaGetLastError().  The _bf16 entry takes a (PACKED_SIZE_BF16,) pack.
+// cudaGetLastError().
 extern "C" int decode_grad_launch(const float* latent, const float* rel,
                                   const float* packed, float* sdf, float* std_,
                                   float* grad, int n, void* stream) {
   static bool attr_set[MAX_DEVICES] = {};
   return launch(decode_grad_kernel, attr_set,
-                smem_bytes<K1_WARPS, K1_MT, true, K1_RING, false>(), K1_WARPS,
-                block_rows<K1_WARPS, K1_MT>(), n, stream, latent, rel, packed, sdf, std_,
-                grad, n);
-}
-
-extern "C" int decode_grad_bf16_launch(const float* latent, const float* rel,
-                                       const float* packed, float* sdf, float* std_,
-                                       float* grad, int n, void* stream) {
-  static bool attr_set[MAX_DEVICES] = {};
-  return launch(decode_grad_bf16_kernel, attr_set,
-                smem_bytes<K1_WARPS, K1_MT, true, K1_RING, true>(), K1_WARPS,
+                smem_bytes<K1_WARPS, K1_MT, true, K1_RING>(), K1_WARPS,
                 block_rows<K1_WARPS, K1_MT>(), n, stream, latent, rel, packed, sdf, std_,
                 grad, n);
 }
 
 // Kernel 3: latent (n, 29), rel (n, 3), packed (PACKED_SIZE,) f32 contiguous
-// on the device; writes sdf (n,), std (n,).  Returns cudaGetLastError().  The
-// _bf16 entry takes a (PACKED_SIZE_BF16,) pack.
+// on the device; writes sdf (n,), std (n,).  Returns cudaGetLastError().
 extern "C" int decode_fwd_launch(const float* latent, const float* rel,
                                  const float* packed, float* sdf, float* std_,
                                  int n, void* stream) {
   static bool attr_set[MAX_DEVICES] = {};
   return launch(decode_fwd_kernel, attr_set,
-                smem_bytes<K3_WARPS, K3_MT, false, K3_RING, false>(), K3_WARPS,
-                block_rows<K3_WARPS, K3_MT>(), n, stream, latent, rel, packed, sdf, std_, n);
-}
-
-extern "C" int decode_fwd_bf16_launch(const float* latent, const float* rel,
-                                      const float* packed, float* sdf, float* std_,
-                                      int n, void* stream) {
-  static bool attr_set[MAX_DEVICES] = {};
-  return launch(decode_fwd_bf16_kernel, attr_set,
-                smem_bytes<K3_WARPS, K3_MT, false, K3_RING, true>(), K3_WARPS,
+                smem_bytes<K3_WARPS, K3_MT, false, K3_RING>(), K3_WARPS,
                 block_rows<K3_WARPS, K3_MT>(), n, stream, latent, rel, packed, sdf, std_, n);
 }

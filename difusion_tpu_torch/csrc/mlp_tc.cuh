@@ -1,5 +1,6 @@
 // Warp-level MLP machinery on Hopper's tensor cores in 3xTF32, shared by the
-// fused decoder kernels of decoder_grad.cu.
+// fused decoder kernels of decoder_grad.cu; decoder_bf16.cu uses its
+// mbarrier and TMA helpers.
 //
 // Products.  mma.sync.m16n8k8 tf32 with f32 accumulation.  Each f32 operand
 // x is split as hi = rna_tf32(x), lo = rna_tf32(x - hi) (round to nearest,
@@ -132,57 +133,6 @@ __device__ __forceinline__ void ktile_mma(float (&acc)[MT][4][4], const float (&
       mma_tf32(acc[m][nt], ah[m], __float_as_uint(b.z), __float_as_uint(b.w));
       mma_tf32(acc[m][nt], ah[m], bh0, bh1);
     }
-  }
-}
-
-// ---- bf16 mode: mma.sync.m16n8k16 bf16 with f32 accumulation ----
-//
-// The bf16 mode (the JAX package's bf16 w_stack) rounds the inputs, the
-// weights and every hidden activation to bf16 and multiplies them exactly
-// on the tensor cores, one pass per product.  Fragments of m16n8k16: the A
-// fragment of k-tile k holds, for lane (g, t), rows g and g+8 at columns
-// 16k + 2t, +1 (a0, a1) and 16k + 8 + 2t, +1 (a2, a3), each pair one
-// bf16x2 register; the accumulators of n-tiles 2k and 2k+1 hold the same
-// rows at the same columns, so an output fragment, rounded and packed, is
-// the next layer's A fragment as it stands and the weights need no row
-// permutation.  Weights are stored per (k-tile, n-tile) as one uint2 a
-// lane: (W[16k + 2t][g], W[16k + 2t + 1][g]) and (W[16k + 8 + 2t][g],
-// W[16k + 9 + 2t][g]) of column 8n + g (ops/decoder_fused._bf16_frag).
-
-// f32 -> bf16 by round to nearest, ties to even (finite x), kept as an f32
-// whose low 16 bits are zero
-__device__ __forceinline__ float bf16_round(float x) {
-  const uint32_t u = __float_as_uint(x);
-  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
-}
-
-// two bf16-exact f32 values -> one bf16x2 register (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// acc[m][nt] += A_m . B_nt for the warp's MT m-tiles and NTN n-tiles over
-// one 16-deep k-tile.  a[m]: this lane's A fragment of m-tile m (bf16x2
-// registers a0..a3); w: the warp's first n-tile of the k-tile's B
-// fragments, [nt][lane] uint2s in shared memory.
-template <int MT, int NTN>
-__device__ __forceinline__ void ktile_mma_bf16(float (&acc)[MT][4][4],
-                                               const uint32_t (&a)[MT][4], const uint2* w,
-                                               int lane) {
-  static_assert(NTN <= 4, "a warp holds at most 4 n-tiles");
-#pragma unroll
-  for (int nt = 0; nt < NTN; ++nt) {
-    const uint2 b = w[nt * 32 + lane];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) mma_bf16(acc[m][nt], a[m], b);
   }
 }
 

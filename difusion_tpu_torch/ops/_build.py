@@ -93,7 +93,7 @@ def build_all() -> Dict[str, dict]:
             build_info[n] = {"seconds": time.perf_counter() - t0,
                              "ptxas": [ln.strip() for ln in log.splitlines()
                                        if "Used" in ln or "spill" in ln
-                                       or "Compiling entry" in ln]}
+                                       or "Compiling entry" in ln or "wgmma" in ln]}
             if proc.returncode != 0:
                 failed.append(f"{n}.cu:\n{log}")
             else:

@@ -7,8 +7,9 @@
 * :func:`decode_fused` is the counterpart of :105-181 (``_mlp_kernel`` /
   ``decode_fused``), the mesher's lattice decode.
 
-Each wrapper launches its hand-written CUDA kernel (both in
-``csrc/decoder_grad.cu``) on CUDA tensors and runs its plain version
+Each wrapper launches its hand-written CUDA kernel (``csrc/decoder_grad.cu``
+in f32, ``csrc/decoder_bf16.cu`` in bf16) on CUDA tensors and runs its plain
+version
 (:func:`decode_grad_plain`, :func:`decode_fused_plain`) on CPU tensors.
 There is no other route: a CUDA tensor never reaches a plain version
 through a wrapper.
@@ -23,8 +24,9 @@ into TF32 hi/lo parts and laid out in mma fragment order (:func:`_tc_frag`).
 Both kernels have a second mode, the JAX package's bf16 ``w_stack``
 (difusion_tpu/ops/decoder_fused.py:99, :139-140, :254-255):
 ``pack_fused_decoder(decoder, torch.bfloat16)`` rounds the folded weights to
-bf16 (biases stay f32) and stores the kernels' copy as bf16 fragments
-(:func:`_bf16_frag`), so the pack is shorter (``PACKED_SIZE_BF16``).  The
+bf16 (biases stay f32) and stores the kernels' copy in bf16 as the tiles
+``wgmma`` reads from shared memory (:func:`_wgmma_tiles`), so the pack is
+shorter (``PACKED_SIZE_BF16``).  The
 wrappers select the mode by the pack's size, as the JAX package selects it
 by ``w_stack.dtype``: the inputs and every hidden activation are rounded to
 bf16, each backward ``dz`` after its relu mask too, and every product sums
@@ -92,14 +94,15 @@ def _tc_frag(b: torch.Tensor) -> torch.Tensor:
     return torch.cat([hi, lo], dim=-1).reshape(k // 8, n // 8, 32, 4)
 
 
-def _bf16_frag(b: torch.Tensor) -> torch.Tensor:
-    """A (K, N) right-hand matrix of ``act @ b`` -> its m16n8k16 bf16 B
-    fragments, (K/16, N/8, 32, 4) bf16: lane 4g + t of (k-tile kt, n-tile nt)
-    holds b[16kt + 2t, +1] and b[16kt + 8 + 2t, +1] of column 8nt + g, the
-    two bf16x2 registers of ``mma.sync`` (csrc/mlp_tc.cuh)."""
+def _wgmma_tiles(b: torch.Tensor) -> torch.Tensor:
+    """A (K, N) right-hand matrix of ``act @ b`` -> bf16 (K/16, N/8, 2, 8, 8),
+    wgmma's K-major B operand without swizzle (csrc/decoder_bf16.cu): for
+    each 16-deep k-step s and 8-column group c, two 8 x 8 core matrices (k
+    values 16s .. 16s + 7, then 16s + 8 ..), each column's 8 k values one
+    16-byte row: [s, c, h, j, i] = b[16s + 8h + i, 8c + j]."""
     k, n = b.shape
-    v = b.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3)  # kt nt g t h e
-    return v.reshape(k // 16, n // 8, 32, 4).to(torch.bfloat16)
+    v = b.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2)  # s c h j i
+    return v.to(torch.bfloat16)
 
 
 def is_bf16(packed: torch.Tensor) -> bool:
@@ -132,7 +135,7 @@ def pack_fused_decoder(decoder: Decoder, dtype: torch.dtype = torch.float32
         "b_head": torch.cat([b[4], u_b, torch.zeros(2, device=u_b.device)]),
     }
     if bf16:
-        tc = torch.cat([_bf16_frag(parts[name]).reshape(-1) for name in TC_LAYERS])
+        tc = torch.cat([_wgmma_tiles(parts[name]).reshape(-1) for name in TC_LAYERS])
         parts["tc"] = tc.view(torch.float32)
     else:
         parts["tc"] = torch.cat([_tc_frag(parts[name]).reshape(-1) for name in TC_LAYERS])
@@ -249,35 +252,38 @@ def _check_inputs(what, packed, latent, rel):
             raise ValueError(f"{what}: {name} must be a contiguous "
                              f"float32 {shape} tensor on {latent.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if packed.data_ptr() % 16:
+        raise ValueError(f"{what}: packed must start on a 16-byte boundary (TMA copies it)")
 
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
+# library -> its entry points, each with its number of outputs
+_ENTRIES = {"decoder_grad": (("decode_grad_launch", 3), ("decode_fwd_launch", 2)),
+            "decoder_bf16": (("decode_grad_bf16_launch", 3), ("decode_fwd_bf16_launch", 2))}
 
 
-def _load():
-    """csrc/decoder_grad.cu's library, its layout checked and its entry
-    points typed once per process."""
-    global _lib
-    if _lib is None:
-        lib = _build.load("decoder_grad")
-        if (lib.decode_grad_packed_size() != PACKED_SIZE
-                or lib.decode_grad_packed_size_bf16() != PACKED_SIZE_BF16):
-            raise RuntimeError("decoder_grad.cu packed layout disagrees with "
-                               "ops/decoder_fused.py")
-        for entry, n_out in (("decode_grad_launch", 3), ("decode_fwd_launch", 2),
-                             ("decode_grad_bf16_launch", 3),
-                             ("decode_fwd_bf16_launch", 2)):
+def _load(name: str):
+    """csrc/<name>.cu's library, its layout checked and its entry points
+    typed once per process."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        got, want = ((lib.decode_grad_packed_size(), PACKED_SIZE) if name == "decoder_grad"
+                     else (lib.decode_bf16_packed_size(), PACKED_SIZE_BF16))
+        if got != want:
+            raise RuntimeError(f"{name}.cu packed layout disagrees with ops/decoder_fused.py")
+        for entry, n_out in _ENTRIES[name]:
             fn = getattr(lib, entry)
             fn.argtypes = [ctypes.c_void_p] * (3 + n_out) + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return lib
 
 
-def _launch(name, entry, packed, latent, rel, outs):
-    """Launch ``entry`` of csrc/decoder_grad.cu on (latent, rel, packed) ->
-    ``outs`` on the current stream, check it and count it."""
-    fn = getattr(_load(), entry)
+def _launch(name, lib, entry, packed, latent, rel, outs):
+    """Launch ``entry`` of csrc/<lib>.cu on (latent, rel, packed) -> ``outs``
+    on the current stream, check it and count it as ``name``."""
+    fn = getattr(_load(lib), entry)
     err = _build.launch_on(latent.device.index, fn, latent.data_ptr(), rel.data_ptr(),
                            packed.data_ptr(), *(o.data_ptr() for o in outs), latent.shape[0])
     _build.check(err, name)
@@ -299,9 +305,11 @@ def decode_grad_fused(packed: torch.Tensor, latent: torch.Tensor,
             torch.empty(n, 3, device=latent.device))
     if n:
         if is_bf16(packed):
-            _launch("decode_grad_bf16", "decode_grad_bf16_launch", packed, latent, rel, outs)
+            _launch("decode_grad_bf16", "decoder_bf16", "decode_grad_bf16_launch", packed,
+                    latent, rel, outs)
         else:
-            _launch("decode_grad_fused", "decode_grad_launch", packed, latent, rel, outs)
+            _launch("decode_grad_fused", "decoder_grad", "decode_grad_launch", packed,
+                    latent, rel, outs)
     return outs
 
 
@@ -318,7 +326,10 @@ def decode_fused(packed: torch.Tensor, latent: torch.Tensor,
             torch.empty(n, device=latent.device))
     if n:
         if is_bf16(packed):
-            _launch("decode_fwd_bf16", "decode_fwd_bf16_launch", packed, latent, rel, outs)
+            _launch("decode_fwd_bf16", "decoder_bf16", "decode_fwd_bf16_launch", packed,
+                    latent, rel, outs)
         else:
-            _launch("decode_fused", "decode_fwd_launch", packed, latent, rel, outs)
+            _launch("decode_fused", "decoder_grad", "decode_fwd_launch", packed, latent, rel,
+                    outs)
     return outs
+

@@ -217,6 +217,17 @@ def barrier(mesh: Mesh) -> None:
         dist.barrier(group=mesh.group)
 
 
+def leave_group() -> None:
+    """Meet every rank of the default group once, then destroy it.  A rank
+    with nothing to do (one past the mesh) would otherwise close its
+    connections while a slower peer is still completing its side of gloo's
+    full-mesh handshake in ``init_process_group``, which then fails with
+    "Connection closed by peer".  The barrier waits at most the group's
+    timeout."""
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # Spawned ranks
 # ---------------------------------------------------------------------------
@@ -239,9 +250,15 @@ def _rank_main(rank: int, world: int, tmp: str, backend: str, timeout: float) ->
                                 device_id=device)
         try:
             result = fn(*args, **kwargs)
-        finally:
+        except BaseException:
             dist.destroy_process_group()
-        torch.save(result, os.path.join(tmp, f"result_{rank}.pt"))
+            raise
+        # the result before the exit barrier: a rank that waits there for a
+        # slower one has returned, and the parent does not count it as hung
+        out = os.path.join(tmp, f"result_{rank}.pt")
+        torch.save(result, out + ".tmp")
+        os.replace(out + ".tmp", out)
+        leave_group()
     except BaseException:                   # noqa: BLE001 -- reported to the parent
         Path(tmp, f"error_{rank}.txt").write_text(traceback.format_exc())
         raise
@@ -280,7 +297,8 @@ def launch(fn: Callable, world: int, *args, backend: str = "gloo", timeout: floa
                 break
             multiprocessing.connection.wait([p.sentinel for p in pending], left)
             pending = [p for p in pending if p.exitcode is None]
-        hung = [r for r, p in enumerate(procs) if p.exitcode is None]
+        hung = [r for r, p in enumerate(procs)
+                if p.exitcode is None and not Path(tmp, f"result_{r}.pt").exists()]
         for p in procs:
             if p.is_alive():
                 p.kill()

@@ -75,13 +75,17 @@ def packed_bf16(dev):
     return fused.pack_fused_decoder(dec, torch.bfloat16)
 
 
-@pytest.mark.parametrize("n", [1, 15, 16, 17, 64, 65, 777, 8192, 8193])
+# kernel 1's bf16 mode: a 64-row tile a block; 132 x 64 rows fill an H100
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 777, 8192, 8193,
+                               132 * 64 - 1, 132 * 64 + 1])
 def test_decode_grad_bf16_kernel_matches_plain(dev, packed_bf16, n):
     """Kernel 1's bf16 mode against its plain bf16 version: sdf/std atol
     2e-3 (chip_smoke.py's BF16_ATOL: an activation whose f32 sum ran in
     another order may round to the neighbouring bf16 value); gradient rows
     within 1e-3 + 1e-3 |ref| but for at most max(2, N / 1000) rows, all
-    within atol 0.15 + rtol 0.05; one launch counted as decode_grad_bf16."""
+    within atol 0.15 + rtol 0.05; one launch counted as decode_grad_bf16.
+    At the edges of the 16-row warp slice, the 64-row tile and one block a
+    streaming multiprocessor."""
     gen = torch.Generator(device=dev).manual_seed(n)
     lat = torch.randn(n, 29, generator=gen, device=dev) * 0.3
     rel = torch.rand(n, 3, generator=gen, device=dev) - 0.5
@@ -97,11 +101,18 @@ def test_decode_grad_bf16_kernel_matches_plain(dev, packed_bf16, n):
     assert int(beyond.sum()) <= max(2, n // 1000)
 
 
-@pytest.mark.parametrize("n", [0, 1, 17, 96, 97, 4097, (1 << 20) + 3])
+# kernel 3's bf16 mode: persistent, 3 warpgroups of 64-row tiles a block and
+# one block an SM, so its tiles wrap at 132 x 3 x 64 rows on an H100
+K3_WAVE = 132 * 3 * 64
+
+
+@pytest.mark.parametrize("n", [0, 1, 17, 63, 64, 65, 96, 97, 4097, K3_WAVE - 1, K3_WAVE + 1,
+                               2 * K3_WAVE + 5, (1 << 20) + 3])
 def test_decode_fwd_bf16_kernel_matches_plain(dev, packed_bf16, n):
     """Kernel 3's bf16 mode against its plain bf16 version over the
     mesher's lattice range: sdf/std atol 2e-3; one launch counted as
-    decode_fwd_bf16, none for N = 0."""
+    decode_fwd_bf16, none for N = 0.  At the edges of the 64-row tile and
+    of the persistent grid's first and second pass over the tiles."""
     gen = torch.Generator(device=dev).manual_seed(n)
     lat = torch.randn(n, 29, generator=gen, device=dev) * 0.3
     rel = torch.rand(n, 3, generator=gen, device=dev) * 1.75 - 1.0
@@ -566,6 +577,33 @@ def test_decoder_kernels_on_the_second_card(two_cards, packed):
             assert got.device == card
             torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
         assert not bool(fused.grad_rows_off(grad[2], pk, lat, rel).any())
+        outs[card.index] = [t.cpu() for t in (*grad, *fwd)]
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+
+
+def test_bf16_decoder_kernels_on_the_second_card(two_cards, packed_bf16):
+    """Kernels 1 and 3 in bf16 on cuda:1 while cuda:0 is current (each sets
+    its shared-memory attribute and reads its block count on that card):
+    against their plain versions there (the bf16 tolerances above), and
+    equal to the same launches on cuda:0."""
+    outs = {}
+    for card in two_cards:
+        gen = torch.Generator(device=card).manual_seed(4)
+        lat = torch.randn(K3_WAVE + 1, 29, generator=gen, device=card) * 0.3
+        rel = torch.rand(K3_WAVE + 1, 3, generator=gen, device=card) - 0.5
+        pk = packed_bf16.to(card)
+        grad = fused.decode_grad_fused(pk, lat[:8449], rel[:8449])
+        fwd = fused.decode_fused(pk, lat, rel)
+        ref_g = fused.decode_grad_plain(pk, lat[:8449], rel[:8449])
+        ref_f = fused.decode_fused_plain(pk, lat, rel)
+        torch.cuda.synchronize(card)
+        assert torch.cuda.current_device() == 0
+        for got, ref in ((grad[0], ref_g[0]), (grad[1], ref_g[1]), (fwd[0], ref_f[0]),
+                         (fwd[1], ref_f[1])):
+            assert got.device == card
+            torch.testing.assert_close(got, ref, atol=2e-3, rtol=0)
+        torch.testing.assert_close(grad[2], ref_g[2], atol=0.15, rtol=0.05)
         outs[card.index] = [t.cpu() for t in (*grad, *fwd)]
     for a, b in zip(outs[0], outs[1]):
         assert torch.equal(a, b)

@@ -13,8 +13,10 @@ gradient carry on.  Tolerances: sdf and std atol 2e-3; the gradient, of up
 to ~2 in size, within 1e-2 on 99% of the rows and within the JAX package's
 own bf16-against-f32 bound (atol 0.15, rtol 0.05, tests/test_decoder_fused.py)
 on every row.  ``Decoder.decode(compute_dtype=bfloat16)`` follows the JAX
-package's XLA ``decode`` cast for cast: atol 2e-3.  The kernels' fragment
-segment is read back by the kernels' own indexing."""
+package's XLA ``decode`` cast for cast: atol 2e-3.  The kernels' weight
+segment is read back through the kernels' own wgmma descriptors, and the
+pack's offsets against the kernels' header."""
+import re
 from pathlib import Path
 
 import numpy as np
@@ -88,26 +90,76 @@ def test_bf16_pack_is_the_jax_w_stack(decoders):
         F.pack_fused_decoder(t_dec, torch.float16)
 
 
+def _b_desc(addr):
+    """csrc/decoder_bf16.cu ``b_desc``: wgmma's 64-bit shared-memory
+    descriptor of a K-major B operand, layout type 0 (no swizzle)."""
+    return ((addr & 0x3FFFF) >> 4) | ((128 >> 4) << 16) | ((256 >> 4) << 32)
+
+
+def _wgmma_b_read(smem, desc, n):
+    """The (16, n) B operand of one m64nNk16 bf16 wgmma, read from the byte
+    array ``smem`` as the hardware reads a K-major operand through ``desc``:
+    8 x 8 core matrices of 16-byte rows (one per column), the two k halves
+    LBO bytes apart, 8-column groups SBO bytes apart."""
+    start = (desc & 0x3FFF) << 4
+    lbo, sbo = ((desc >> 16) & 0x3FFF) << 4, ((desc >> 32) & 0x3FFF) << 4
+    assert desc >> 62 == 0 and (desc >> 49) & 7 == 0, "no swizzle, base offset 0"
+    k, c = np.meshgrid(np.arange(16), np.arange(n), indexing="ij")
+    addr = start + (k // 8) * lbo + (c // 8) * sbo + (c % 8) * 16 + (k % 8) * 2
+    bits = smem[addr].astype(np.uint32) | (smem[addr + 1].astype(np.uint32) << 8)
+    return (bits << 16).view(np.float32)
+
+
 def test_bf16_fragments_read_back_by_the_kernels_indexing(decoders):
-    """Lane 4g + t of (k-tile kt, n-tile nt) holds W[16kt + 2t, +1] and
-    W[16kt + 8 + 2t, +1] of column 8nt + g (csrc/mlp_tc.cuh), layer after
-    layer in the kernels' stream order."""
+    """The bf16 pack's kernel segment, copied whole into shared memory as
+    the kernels' TMA copies place it, reads back through the kernels' own
+    wgmma descriptors (matrix l at byte mat_off(l), k-step s N x 32 bytes
+    on) as each of the seven weight matrices, bit for bit, in stream order."""
     *_, t_dec = decoders
     p = F.unpack(F.pack_fused_decoder(t_dec, torch.bfloat16))
-    tc = p["tc"].contiguous().view(torch.bfloat16).float()
+    smem = p["tc"].contiguous().view(torch.uint8).numpy()
     off = 0
-    lane = torch.arange(32)
-    g, t = lane // 4, lane % 4
     for name in F.TC_LAYERS:
         k, n = dict(F._SEGMENTS)[name]
-        frag = tc[off:off + k * n].reshape(k // 16, n // 8, 32, 4)
-        off += k * n
-        for kt in range(k // 16):
-            for nt in range(n // 8):
-                rows = 16 * kt + torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], 1)
-                want = p[name][rows, (8 * nt + g)[:, None]]
-                assert torch.equal(frag[kt, nt], want), (name, kt, nt)
-    assert off == tc.numel()
+        got = np.concatenate([_wgmma_b_read(smem, _b_desc(off + s * n * 32), n)
+                              for s in range(k // 16)])
+        np.testing.assert_array_equal(got, p[name].numpy(), err_msg=name)
+        off += k * n * 2
+    assert off == smem.size
+
+
+def _header_constants():
+    """The ``constexpr int`` constants of csrc/decoder_pack.cuh, evaluated in
+    order (their expressions use + * / of the ones before)."""
+    src = (Path(F.__file__).resolve().parents[1] / "csrc/decoder_pack.cuh").read_text()
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    return env
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_offsets_match_the_kernels_header(dtype):
+    """Each OFF_* of the header that kernels 1 and 3 read in both modes is
+    where ops/decoder_fused.py puts the segment, and the mode's size
+    (PACKED_SIZE / PACKED_SIZE_BF16) is the pack's."""
+    env = _header_constants()
+    seg = {"OFF_W3XYZ": "w3_xyz", "OFF_W0XYZ": "w0_xyz", "OFF_WSDF": "w_sdf",
+           "OFF_WSTD": "w_std", "OFF_BHEAD": "b_head"}
+    starts, off = {}, 0
+    for name, shape in F._SEGMENTS:
+        starts[name] = off
+        off += int(torch.Size(shape).numel())
+    offs = {k: v for k, v in env.items() if k.startswith("OFF_")}
+    assert len(offs) == len(F._SEGMENTS)
+    for k, v in offs.items():
+        assert v == starts[seg.get(k, k[4:].lower())], k
+    if dtype == torch.bfloat16:
+        assert env["PACKED_SIZE_BF16"] == F.PACKED_SIZE_BF16
+        assert starts["tc"] + env["TC_FLOATS"] // 4 == F.PACKED_SIZE_BF16
+    else:
+        assert env["PACKED_SIZE"] == F.PACKED_SIZE
+        assert starts["tc"] + env["TC_FLOATS"] == F.PACKED_SIZE
 
 
 def _close_grad(got, ref):

@@ -356,3 +356,13 @@ def test_mesh_layout_and_its_errors():
         D.make_mesh(2)
     with pytest.raises(RuntimeError, match="not divisible by tp=2"):
         D.make_mesh(1, tp=2)
+
+
+def test_no_rank_leaves_before_the_slowest_returns(tmp_path):
+    """A rank whose function returns at once stays in the process group
+    (its process alive) until the slowest rank's function has returned too:
+    leaving early closed its connections while a slower peer could still be
+    completing gloo's full-mesh handshake in init_process_group, which then
+    failed with "Connection closed by peer"."""
+    gone = D.launch(R.outlive_peers, 4, str(tmp_path), 1.5, timeout=LAUNCH_S)
+    assert gone == [[], None, None, None]

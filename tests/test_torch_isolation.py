@@ -12,7 +12,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "difusion_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "stencil_tune.py", ROOT / "multi_card_check.py"]
+    ROOT / "chip_smoke.py", ROOT / "stencil_tune.py", ROOT / "multi_card_check.py",
+    ROOT / "decoder_tune.py"]
 
 
 def _imported_modules(path: Path):

@@ -1,7 +1,9 @@
 """What each spawned rank of tests/test_torch_distributed.py runs
 (``difusion_tpu_torch.train.distributed.launch`` pickles these functions by
 name, so they live in a module that the ranks import without JAX)."""
+import os
 import time
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -65,3 +67,27 @@ def mesh_coords(n, tp):
     x = torch.full((2, 3), float(mesh.model_rank))
     return (mesh.dp, mesh.tp, mesh.data_rank, mesh.model_rank,
             P.gather_cols(x, mesh).numpy() if mesh.tp > 1 else x.numpy())
+
+
+def _alive(pid):
+    """Whether process ``pid`` runs (an exited one not yet reaped is a
+    zombie, and counts as gone)."""
+    try:
+        os.kill(pid, 0)
+        return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0] != "Z"
+    except (ProcessLookupError, FileNotFoundError):
+        return False
+
+
+def outlive_peers(pid_dir, seconds):
+    """Every rank writes its pid; then rank 0 sleeps ``seconds`` while the
+    others return at once, and returns the ranks whose processes are gone."""
+    rank = dist.get_rank()
+    Path(pid_dir, str(rank)).write_text(str(os.getpid()))
+    dist.barrier()
+    if rank != 0:
+        return None
+    time.sleep(seconds)
+    return [r for r in range(1, dist.get_world_size())
+            if not _alive(int(Path(pid_dir, str(r)).read_text()))]
+
