@@ -1826,7 +1826,6 @@ def main() -> int:
                        for i, (_, _, done) in enumerate(chunk_done)],
           "run_sequence_s": run_s, "capture_s": program.capture_s,
           "gn_host_syncs_per_frame": csys.tracker.n_host_syncs / n_tracked,
-          "spec_evals_per_frame": csys.tracker.n_spec_evals / n_tracked,
           "graph_replays": program.n_replays, "warm_up_passes": WARM_UP_PASSES,
           "gn_evaluations_per_frame": sum(passes) / n_tracked,
           "gn_evaluations_by_group": [p for p in passes if p],

@@ -40,6 +40,14 @@ unsharded decode's) against that device's copy of the packed weights and
 the latent table, made once an extract, and the slices come back to the
 map's device before marching cubes.  With one device the extract is the
 unsharded one.
+
+Spans (:mod:`..utils.tracing`), one set for both backends: ``mesh.extract``
+(its item the extractor's extract number) holds ``mesh.prep`` (1; its count
+read and its download are the device waits ``mesh.prep.sync``),
+``mesh.grid`` (the batch tables, the backend's grid and the blocks' upload),
+``mesh.decode`` (the decode dispatches), ``mesh.mc`` a chunk (3; its count
+read and download, ``mesh.mc.download``, a device wait) and ``mesh.splice``
+(4).
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ from ..models.decoder import Decoder
 from ..ops import decoder_fused as _fused
 from ..ops.marching_cubes import marching_cubes_sparse, mc_triangles_np
 from ..ops.sampling import block_lattice, get_samples
+from ..utils import tracing
 from . import hash_map as HM
 from . import map as M
 
@@ -82,7 +91,10 @@ def _mesh_prep_dense(cfg: M.MapConfig, state: M.MapState, no_cache: bool
             torch.clamp(nb_slot, 0, cfg.capacity - 1).to(torch.int64)]
         flag = flag | (inb & nb_dirty)
     flag = flag & (state.positions >= 0) & (state.obs_count > cfg.ignore_count_th)
+    s = tracing.begin("mesh.prep.sync", wait=True) if tracing.ON else -1
     slots = torch.nonzero(flag)[:, 0]                  # the one count sync
+    if s >= 0:
+        tracing.end(s)
     return cell[slots], slots
 
 
@@ -101,7 +113,10 @@ def _mesh_prep_hash(cfg: HM.HashMapConfig, state: HM.HashMapState, no_cache: boo
         flag = flag | ((nb_slot >= 0)
                        & dirty[torch.clamp(nb_slot, 0, cfg.capacity - 1)])
     flag = flag & occupied & (state.obs_count > cfg.ignore_count_th)
+    s = tracing.begin("mesh.prep.sync", wait=True) if tracing.ON else -1
     slots = torch.nonzero(flag)[:, 0]                  # the one count sync
+    if s >= 0:
+        tracing.end(s)
     return cell[slots], slots
 
 
@@ -316,6 +331,7 @@ class _MeshExtractorBase:
         # output itself; and its sizes (blocks, bucket, dispatches)
         self.last_transfer_bytes = 0
         self.last_stats: dict = {}
+        self._n_extracts = 0                  # the mesh.extract spans' item
         self.clear_cache()
 
     # -- cache ---------------------------------------------------------------
@@ -349,21 +365,38 @@ class _MeshExtractorBase:
     def extract(self, state, max_std: float = 2000.0, no_cache: bool = False):
         """Re-mesh the blocks around dirty slots (every observed block with
         ``no_cache``) and return the state with its dirty flags cleared."""
+        se = tracing.begin("mesh.extract", self._n_extracts) if tracing.ON else -1
+        self._n_extracts += 1
+        state = self._extract(state, max_std, no_cache)
+        if se >= 0:
+            tracing.end(se)
+        return state
+
+    def _extract(self, state, max_std: float, no_cache: bool):
         if no_cache:
             self.clear_cache()
         capacity = state.latents.shape[0]
+        s = tracing.begin("mesh.prep") if tracing.ON else -1
         cells_d, slots_d = self._mesh_prep(state, no_cache)
         state = state._replace(mesh_dirty=torch.zeros_like(state.mesh_dirty))
         n = slots_d.shape[0]
         self.last_transfer_bytes = 4
         self.last_stats = {"blocks": n}
         if n == 0:
+            if s >= 0:
+                tracing.end(s)
             return state
         # the only state->host transfer: the n live (cell, slot) rows
+        sw = tracing.begin("mesh.prep.sync", wait=True) if tracing.ON else -1
         rows = torch.cat([cells_d, slots_d[:, None]], dim=1).cpu().numpy()
+        if sw >= 0:
+            tracing.end(sw)
         cells, slots = rows[:, :3], rows[:, 3]
         self.last_transfer_bytes += n * 12 + n * 4
+        if s >= 0:
+            tracing.end(s)
 
+        s = tracing.begin("mesh.grid") if tracing.ON else -1
         dev = state.latents.device
         B = _next_bucket(n)
         slot_pad_d, slot_to_batch_d = _batch_tables(slots_d, B, capacity)
@@ -376,6 +409,12 @@ class _MeshExtractorBase:
                      + local[:, 2]).astype(np.int32)
         valid_blocks = np.full(B, -1, np.int32)
         valid_blocks[:n] = lin_local
+        # one upload for every marching-cubes chunk, before the decode: a
+        # pageable copy waits for the card's queue to drain
+        valid_blocks_d = torch.from_numpy(valid_blocks).to(dev)
+        self.last_transfer_bytes += B * 4
+        if s >= 0:
+            tracing.end(s)
 
         # decoder evaluation in chunks of <= max_eval_points lattice sites;
         # with shard, each chunk in contiguous block slices over the devices
@@ -389,6 +428,8 @@ class _MeshExtractorBase:
         copies = {d: (self.decoder if d == dev else copy.deepcopy(self.decoder).to(d),
                       None if self.packed is None else self.packed.to(d),
                       state.latents.to(d)) for d in set(shards)}
+
+        s = tracing.begin("mesh.decode") if tracing.ON else -1
 
         def decode(decoder, packed, table, chunk):
             if self.fast:
@@ -408,6 +449,8 @@ class _MeshExtractorBase:
         evals_per_block = self.r ** 3 + self.refine_k if self.fast else per_block
         cube_sdf = torch.cat([p[0] for p in parts])
         cube_std = torch.cat([p[1] for p in parts])
+        if s >= 0:
+            tracing.end(s)
 
         # marching cubes over block chunks; each chunk's corner blending
         # reads ANY evaluated neighbour through slot_to_batch
@@ -420,17 +463,23 @@ class _MeshExtractorBase:
         tri_parts, std_parts, blk_parts = [], [], []
         emitted = 0
         for s0 in range(0, B, C_mc):
-            vb = torch.from_numpy(valid_blocks[s0:s0 + C_mc]).to(dev)
-            self.last_transfer_bytes += int(vb.numel()) * 4
+            s = tracing.begin("mesh.mc") if tracing.ON else -1
             budget = min(self.max_triangles, 5 * n_sub * C_mc)
             result = marching_cubes_sparse(
-                indexer_d, slot_to_batch_d, vb, cube_sdf, cube_std, (nxl, nyl, nzl),
-                self.r, budget, max_std=max_std, interpolate=self.interpolate)
+                indexer_d, slot_to_batch_d, valid_blocks_d[s0:s0 + C_mc], cube_sdf,
+                cube_std, (nxl, nyl, nzl), self.r, budget, max_std=max_std,
+                interpolate=self.interpolate)
+            sw = tracing.begin("mesh.mc.download", wait=True) if tracing.ON else -1
             tris_c, stds_c, blocks_c, cnt = mc_triangles_np(result)
+            if sw >= 0:
+                tracing.end(sw)
             emitted += cnt
             tri_parts.append(tris_c)
             std_parts.append(stds_c)
             blk_parts.append(blocks_c)
+            if s >= 0:
+                tracing.end(s)
+        s = tracing.begin("mesh.splice") if tracing.ON else -1
         tris = np.concatenate(tri_parts)
         stds = np.concatenate(std_parts)
         blocks = np.concatenate(blk_parts)
@@ -456,6 +505,8 @@ class _MeshExtractorBase:
         self._tris = np.concatenate([self._tris[keep_mask], tris])
         self._std = np.concatenate([self._std[keep_mask], stds])
         self._slot = np.concatenate([self._slot[keep_mask], tri_slot])
+        if s >= 0:
+            tracing.end(s)
         return state
 
     # -- export --------------------------------------------------------------

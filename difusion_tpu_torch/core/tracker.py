@@ -926,13 +926,13 @@ class TrackProgram:
 
     def _build(self) -> None:
         prog = GraphProgram(self.tr.device)
-        prog.add(self._pre)
+        prog.add(self._pre, name="pre")
         groups = self.tr.tcfg.iter_config
         for gi, (n, terms) in enumerate(groups):
-            prog.add(self._next_group)
+            prog.add(self._next_group, name=f"group{gi}.init")
             prog.add(partial(self._step, n, terms, gi == len(groups) - 1),
-                     done=self.carry.done)
-        prog.add(self._finish)
+                     done=self.carry.done, name=f"group{gi}.gn")
+        prog.add(self._finish, name="finish")
         prog.build(keep=_tensors((self.last, self.delta, self.prev))
                    + [self.rgb_weight, self.n_unstable])
         self.program = prog
@@ -958,8 +958,7 @@ class SDFTracker:
     ``n_host_syncs`` counts the exit flags of the GN loop that the host
     waited for: one per update of the host loop, none where the frame runs
     as a :class:`TrackProgram` on the card (on the CPU the program's loop
-    reads them).  ``n_spec_evals`` counts evaluations made past a group's
-    ``done``: the program's loops end on the device, so it stays 0."""
+    reads them)."""
 
     def __init__(self, map_cfg: M.MapConfig, tcfg: TrackerConfig,
                  decoder: Decoder, calib: Intrinsic, device: torch.device):
@@ -994,7 +993,6 @@ class SDFTracker:
         self._identity = Pose.identity(device)
         self.last_delta = self._identity
         self.n_host_syncs = 0
-        self.n_spec_evals = 0
         self.programs: Dict[tuple, TrackProgram] = {}    # by frame shape
 
     @property

@@ -1,8 +1,12 @@
 """Online SLAM: track + fuse + optimize + mesh, and the offline runner
 ``python -m difusion_tpu_torch.slam <fusion yaml>`` (counterpart of
 difusion_tpu/slam.py): ``--interactive`` steps through the sequence from the
-terminal (:meth:`SLAMSystem.run_interactive`), ``--xprof DIR`` writes a
-``torch.profiler`` Chrome trace of the run into ``DIR``.
+terminal (:meth:`SLAMSystem.run_interactive`), ``--profile`` adds each
+stage's median and first time to the summary, ``--xprof DIR`` writes a
+``torch.profiler`` Chrome trace of the run into ``DIR``.  Both come from the
+port's spans (:mod:`.utils.tracing`), which either switches on: the stage
+timings are the ``slam.track``, ``slam.fuse`` and ``slam.mesh`` spans, and
+the trace holds every span as an annotation beside the device's work.
 
 The map is the dense one (``core/map.py``) when the mapping config gives
 bounds, else (or with ``indexer: hash``) the hash-indexed one
@@ -26,6 +30,15 @@ schedule names.  On the card both track each frame as one launch of the
 tracker's :class:`~.core.tracker.TrackProgram` (a CUDA graph whose GN loops
 end on the device), so the host reads no exit flag; on the CPU the
 per-frame path runs the host loop.  Both compute the same values.
+
+Spans (with the recorder on; each carries its frame's index):
+``slam.run_sequence`` and, inside it, ``slam.wait_feed`` (the main thread
+waiting for the feeder); on the feeder thread ``slam.feed.pack``,
+``slam.feed.stack`` and ``slam.feed.upload`` (pin and copy);
+``slam.process_chunk`` and ``slam.process_frame``, the latter holding
+``slam.frame.pack`` and ``slam.frame.upload`` (a pageable copy: the host
+waits for the card); and on both paths ``slam.track``, ``slam.fuse`` and
+``slam.mesh``.
 """
 from __future__ import annotations
 
@@ -33,7 +46,6 @@ import json
 import logging
 import queue
 import threading
-import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -54,11 +66,24 @@ from .models.encoder import Encoder
 from .models.weights import load_prior
 from .ops.imgproc import Intrinsic, Pyramid
 from .ops.se3 import Pose
+from .utils import tracing
 from .utils.motion import Isometry, ate_rmse
 
 __all__ = ["SLAMSystem", "load_prior", "track_fuse_scan"]
 
 _PointCloud = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# SLAMSystem.timings' stages and the spans they read
+STAGE_SPANS = {"track": "slam.track", "integrate": "slam.fuse", "mesh": "slam.mesh"}
+
+
+def _end_stage(s: int, device: torch.device, sync: bool) -> None:
+    """End stage span ``s`` (if open), first waiting for the card under
+    ``sync`` (``SLAMSystem.profile``), so that it times the stage's work."""
+    if s >= 0:
+        if sync and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        tracing.end(s)
 
 
 class ScanCarry(NamedTuple):
@@ -88,7 +113,7 @@ def apply_merge(state, merge_args):
 def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
                     packed_chunk: torch.Tensor, do_integrate: Sequence[bool],
                     w: int, merge_at: Optional[Sequence[bool]] = None,
-                    merge_args=None, with_merge: bool = False):
+                    merge_args=None, with_merge: bool = False, sync: bool = False):
     """K sequential frame steps (unpack + preprocess + GN track + optional
     encoder fusion) from one stacked buffer, starting from ``tracker``'s
     temporal state (which it does not change: see
@@ -102,9 +127,10 @@ def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
     (``merge_args``, see :func:`apply_merge`) into the map just before the
     fusion of each frame that ``merge_at`` (K host bools) flags, where the
     per-frame path merges it; the tracker's program then loads the merged
-    and fused tables for the next frame.  Returns ``(ScanCarry, (Rs (K, 3,
-    3), ts (K, 3), energies (K,)))``.  Numerically identical to K
-    ``process_frame`` calls."""
+    and fused tables for the next frame.  ``sync``: wait for the card at
+    the end of each ``slam.track`` and ``slam.fuse`` span.  Returns
+    ``(ScanCarry, (Rs (K, 3, 3), ts (K, 3), energies (K,)))``.  Numerically
+    identical to K ``process_frame`` calls."""
     if with_merge and (merge_at is None or merge_args is None):
         raise ValueError("with_merge needs merge_at and merge_args")
     K = int(packed_chunk.shape[0])
@@ -116,15 +142,20 @@ def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
     budget = tracker.tcfg.point_budget
     integrated = (torch.zeros(budget, 3, device=dev), torch.zeros(budget, 3, device=dev),
                   torch.zeros(budget, dtype=torch.bool, device=dev))
+    first = tracker.n_tracked
     for k in range(K):
+        s = tracing.begin("slam.track", first + k) if tracing.ON else -1
         prog.preprocess_and_track(packed_chunk[k])
         outs[k].copy_(prog.out)
+        _end_stage(s, dev, sync)
         if do_integrate[k]:
+            s = tracing.begin("slam.fuse", first + k) if tracing.ON else -1
             if with_merge and merge_at[k]:
                 state = apply_merge(state, merge_args)
             state = integrate(tracker.map_cfg, encoder, state, *prog.world)
             prog.load_state(state)
             integrated = tuple(t.clone() for t in prog.world)
+            _end_stage(s, dev, sync)
     carry = ScanCarry(state, prog.last, prog.prev, prog.rgb_weight, prog.n_unstable,
                       prog.delta, prog.cur._replace(pyramid=prog.prev), integrated)
     return carry, (outs[:, :9].reshape(K, 3, 3), outs[:, 9:12], outs[:, 12])
@@ -186,9 +217,8 @@ class SLAMSystem:
         self.first_iso: Optional[Isometry] = None
         # mapping-only: every frame takes its ground-truth pose, no tracking
         self.use_gt_poses = False
-        # profile=True waits for the device after each stage to time it
+        self._profile_from = -1
         self.profile = profile
-        self.timings: Dict[str, List[float]] = {"track": [], "integrate": [], "mesh": []}
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         # run_async: one extract at a time in a worker thread
@@ -248,19 +278,43 @@ class SLAMSystem:
         system.first_iso = first_iso
         return system
 
-    # -- per-frame step ------------------------------------------------------
+    # -- stage timings ---------------------------------------------------------
 
-    def _stage_done(self, stage: str, t0: float) -> None:
-        if self.profile:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.timings[stage].append(time.perf_counter() - t0)
+    @property
+    def profile(self) -> bool:
+        """True: the stage spans wait for the card before they end, so that
+        they time each stage's work.  Setting it switches the process's span
+        recorder on (it stays on), and :attr:`timings` reads the spans
+        recorded from then on."""
+        return self._profile_from >= 0
+
+    @profile.setter
+    def profile(self, on: bool) -> None:
+        if on and not self.profile:
+            tracing.enable()
+            self._profile_from = tracing.n_spans()
+        elif not on:
+            self._profile_from = -1
+
+    @property
+    def timings(self) -> Dict[str, List[float]]:
+        """Seconds of each stage (``track``, ``integrate``, ``mesh``): the
+        durations of its spans (:data:`STAGE_SPANS`) since :attr:`profile`
+        was switched on; empty lists without it."""
+        spans = tracing.spans(self._profile_from) if self.profile else []
+        return {stage: [s.seconds for s in spans if s.name == name and s.end_ns >= 0]
+                for stage, name in STAGE_SPANS.items()}
+
+    def _stage_end(self, s: int) -> None:
+        _end_stage(s, self.device, self.profile)
+
+    # -- per-frame step ------------------------------------------------------
 
     def _mesh(self) -> None:
         """An incremental extract: here, or (``run_async``) submitted to the
         worker over a snapshot of the state, whose dirty flags clear now so
         that fusion marks new work for the next extract."""
-        t0 = time.perf_counter()
+        s = tracing.begin("slam.mesh") if tracing.ON else -1
         if self._mesh_executor is None:
             self.state = self.mesher.extract(self.state, max_std=self.mesh_max_std)
         else:
@@ -273,7 +327,7 @@ class SLAMSystem:
                 ready.record(torch.cuda.current_stream(self.device))
             self._mesh_future = self._mesh_executor.submit(self._extract_snapshot,
                                                            snapshot, ready)
-        self._stage_done("mesh", t0)
+        self._stage_end(s)
 
     def _extract_snapshot(self, snapshot, ready: Optional[torch.cuda.Event]) -> None:
         """The worker's extract.  On the card it runs on the mesh stream once
@@ -340,7 +394,6 @@ class SLAMSystem:
         :func:`~.core.tracker.pack_frame` buffer already on the device.
         ``driver``: :meth:`~.core.tracker.SDFTracker.track_camera_packed`'s
         (by default the program on the card, the host loop on the CPU)."""
-        t0 = time.perf_counter()
         set_pose = None
         if self.use_gt_poses:
             if frame.gt_pose is None:
@@ -350,19 +403,29 @@ class SLAMSystem:
             set_pose = self.first_iso if self.first_iso is not None else (
                 frame.gt_pose if frame.gt_pose is not None else Isometry())
         tr = self.tracker
+        sf = tracing.begin("slam.process_frame", tr.n_tracked) if tracing.ON else -1
         if packed is None:
-            packed = torch.from_numpy(tracker_mod.pack_frame(
-                frame.rgb, frame.depth, tr.calib.dcam_scale,
-                lossless=tr.tcfg.lossless_packing)).to(self.device)
+            s = tracing.begin("slam.frame.pack") if tracing.ON else -1
+            buf = tracker_mod.pack_frame(frame.rgb, frame.depth, tr.calib.dcam_scale,
+                                         lossless=tr.tcfg.lossless_packing)
+            if s >= 0:
+                tracing.end(s)
+            s = tracing.begin("slam.frame.upload", wait=True) if tracing.ON else -1
+            packed = torch.from_numpy(buf).to(self.device)
+            if s >= 0:
+                tracing.end(s)
+        s = tracing.begin("slam.track") if tracing.ON else -1
         pose = tr.track_camera_packed(self.state, packed, frame.depth.shape[1],
                                       set_pose, driver=driver)
-        self._stage_done("track", t0)
+        self._stage_end(s)
         if (tr.n_tracked - 1) % self.integrate_interval == 0:
-            t0 = time.perf_counter()
+            s = tracing.begin("slam.fuse") if tracing.ON else -1
             self._fuse(*tr.last_pc_world(pose))
-            self._stage_done("integrate", t0)
+            self._stage_end(s)
         if self.mesher is not None and (tr.n_tracked - 1) % self.meshing_interval == 0:
             self._mesh()
+        if sf >= 0:
+            tracing.end(sf)
         return pose
 
     # -- chunked step ----------------------------------------------------------
@@ -386,6 +449,7 @@ class SLAMSystem:
             raise RuntimeError("mapping-only mode (use_gt_poses) runs the per-frame path")
         K = int(packed_chunk.shape[0])
         start = tr.n_tracked
+        sc = tracing.begin("slam.process_chunk", start) if tracing.ON else -1
         do_integrate = [(start + k) % self.integrate_interval == 0 for k in range(K)]
         merge_at, merge_args = None, None
         if self._pending_opt is not None and any(do_integrate):
@@ -395,7 +459,8 @@ class SLAMSystem:
         carry, (Rs, ts, _) = track_fuse_scan(tr, self.encoder, self.state,
                                              packed_chunk, do_integrate, w,
                                              merge_at=merge_at, merge_args=merge_args,
-                                             with_merge=merge_args is not None)
+                                             with_merge=merge_args is not None,
+                                             sync=self.profile)
         self.state = carry.state
         if self.latent_optimize and any(do_integrate):
             self._optimize(*carry.integrated)
@@ -410,23 +475,29 @@ class SLAMSystem:
         if self.mesher is not None and any(
                 (start + k) % self.meshing_interval == 0 for k in range(K)):
             self.finish_meshing()
-            t0 = time.perf_counter()
+            s = tracing.begin("slam.mesh", start) if tracing.ON else -1
             self.state = self.mesher.extract(self.state, max_std=self.mesh_max_std)
-            self._stage_done("mesh", t0)
+            self._stage_end(s)
+        if sc >= 0:
+            tracing.end(sc)
         return tr.last_pose
 
     # -- offline runner --------------------------------------------------------
 
-    def _upload(self, array: np.ndarray):
+    def _upload(self, array: np.ndarray, item: int):
         """Host array -> (device tensor, the event its copy ends with).  On
-        the card the copy leaves pinned memory on a stream of its own."""
+        the card the copy leaves pinned memory on a stream of its own.
+        ``item``: the index of its (first) frame."""
+        s = tracing.begin("slam.feed.upload", item) if tracing.ON else -1
         t = torch.from_numpy(array)
-        if self._copy_stream is None:
-            return t, None
-        with torch.cuda.stream(self._copy_stream):
-            out = t.pin_memory().to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+        out, done = t, None
+        if self._copy_stream is not None:
+            with torch.cuda.stream(self._copy_stream):
+                out = t.pin_memory().to(self.device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+        if s >= 0:
+            tracing.end(s)
         return out, done
 
     def run_sequence(self, sequence: RGBDSequence, max_frames: int = -1,
@@ -437,13 +508,23 @@ class SLAMSystem:
 
         ``chunk > 1`` stacks that many frames into one upload and one
         :meth:`process_chunk` (the first frame goes alone, the tail may be
-        shorter); poses are identical to the per-frame path's."""
+        shorter); poses are identical to the per-frame path's.  With
+        :attr:`profile` the result holds each stage's median and first time
+        (``track_ms``, ``track_first_ms``, ``integrate_ms``, ...)."""
         n = len(sequence) if max_frames < 0 else min(max_frames, len(sequence))
         self.first_iso = self.first_iso or sequence.first_iso
         start = self.tracker.n_tracked      # this call's slice of the history
         use_chunk = chunk if (chunk > 1 and not self.use_gt_poses) else 0
         tcfg, dcam = self.tracker.tcfg, self.tracker.calib.dcam_scale
         q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+        sr = tracing.begin("slam.run_sequence", start) if tracing.ON else -1
+
+        def stacked(batch: list, item: int):
+            s = tracing.begin("slam.feed.stack", item) if tracing.ON else -1
+            out = np.stack(batch)
+            if s >= 0:
+                tracing.end(s)
+            return self._upload(out, item)
 
         def feeder():
             try:
@@ -452,26 +533,34 @@ class SLAMSystem:
                     if i >= n:
                         break
                     w = frame.depth.shape[1]
+                    s = tracing.begin("slam.feed.pack", start + i) if tracing.ON else -1
                     pk = tracker_mod.pack_frame(frame.rgb, frame.depth, dcam,
                                                 lossless=tcfg.lossless_packing)
+                    if s >= 0:
+                        tracing.end(s)
                     if not use_chunk or (i == 0 and start == 0):
-                        q.put(("frame", frame, self._upload(pk), w))
+                        q.put(("frame", frame, self._upload(pk, start + i), w))
                         continue
+                    if not batch:
+                        k0 = start + i
                     batch.append(pk)
                     if len(batch) == use_chunk:
-                        q.put(("chunk", None, self._upload(np.stack(batch)), w))
+                        q.put(("chunk", None, stacked(batch, k0), w))
                         batch = []
                 if batch:
-                    q.put(("chunk", None, self._upload(np.stack(batch)), w))
+                    q.put(("chunk", None, stacked(batch, k0), w))
             except Exception as e:          # surface loader errors downstream
                 q.put(e)
             q.put(None)
 
-        thread = threading.Thread(target=feeder, daemon=True)
+        thread = threading.Thread(target=feeder, name="slam-feeder", daemon=True)
         thread.start()
         i = 0
         while True:
+            s = tracing.begin("slam.wait_feed", start + i) if tracing.ON else -1
             item = q.get()
+            if s >= 0:
+                tracing.end(s)
             if item is None:
                 break
             if isinstance(item, Exception):
@@ -491,6 +580,8 @@ class SLAMSystem:
                 logging.info("frame %d/%d", i, n)
         thread.join()
         self.finish_meshing()
+        if sr >= 0:
+            tracing.end(sr)
         trajectory = self.tracker.all_pd_pose[start:]
         result: Dict[str, Any] = {
             "n_frames": len(trajectory),
@@ -632,11 +723,14 @@ def main(argv=None):
     parser.add_argument("--output", type=str, default="slam_out")
     parser.add_argument("--no-mesh", action="store_true")
     parser.add_argument("--profile", action="store_true",
-                        help="per-stage device-synced timings")
+                        help="per-stage timings in the summary (median and "
+                             "first, ms): the port's slam.track, slam.fuse and "
+                             "slam.mesh spans, each ended after a wait for the "
+                             "card")
     parser.add_argument("--xprof", type=str, default="",
                         help="write a torch.profiler Chrome trace (CPU and, on "
                              "the card, CUDA activities) of run_sequence into "
-                             "this dir")
+                             "this dir, with the port's spans as annotations")
     parser.add_argument("--chunk", type=int, default=0,
                         help="stack N frames per upload and track each as one "
                              "graph launch (same poses as per-frame)")
@@ -669,6 +763,7 @@ def main(argv=None):
         result = system.run_interactive(seq, cli.max_frames, out_dir=cli.output)
     elif cli.xprof:
         from torch.profiler import ProfilerActivity, profile
+        tracing.enable()
         activities = [ProfilerActivity.CPU]
         if system.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)

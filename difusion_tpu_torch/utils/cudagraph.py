@@ -20,6 +20,14 @@ capture raises; nothing falls back to eager execution.
 
 On the CPU, which the caller asked for, :meth:`run` calls the same callables
 in order and reads ``done`` after every pass of a loop.
+
+Where the span recorder (:mod:`.tracing`) is on when :meth:`build` runs,
+the program times its segments: on the card a one-thread stamp kernel sits
+before the first segment and after each one, reads ``%globaltimer`` and adds
+the time since the last stamp to that segment's device counter (a loop's
+counter takes all its passes); on the CPU the host clock times each
+segment.  :meth:`GraphProgram.segment_ns` reads the sums.  With the
+recorder off the program has no stamps: one node a segment.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import _build
+from . import tracing
 
 # eager passes over the segments before the capture; they launch the
 # segments' kernels like any eager call
@@ -44,44 +53,74 @@ def _load():
     if _lib is None:
         lib = _build.load("graph_loop")
         ptr = ctypes.POINTER(ctypes.c_void_p)
-        lib.graph_program_build.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr]
+        lib.graph_program_build.argtypes = [ctypes.c_int, ptr, ptr, ptr, ctypes.c_void_p,
+                                            ctypes.POINTER(ctypes.c_int), ptr]
         lib.graph_program_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.graph_program_destroy.argtypes = [ctypes.c_void_p]
+        lib.globaltimer_steps.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         for fn in (lib.graph_program_build, lib.graph_program_launch,
-                   lib.graph_program_destroy):
+                   lib.graph_program_destroy, lib.globaltimer_steps):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def globaltimer_steps(device, n: int = 4096) -> List[int]:
+    """The ``n`` successive nonzero steps of the card's ``%globaltimer``
+    that one thread sees when it reads the timer in a loop: their least is
+    the resolution of :meth:`GraphProgram.segment_ns` on that card."""
+    dev = resolve_device(device)
+    out = torch.zeros(n, dtype=torch.int64, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _build.check(lib.globaltimer_steps(out.data_ptr(), n,
+                                           torch.cuda.current_stream(dev).cuda_stream),
+                     "globaltimer_steps")
+    return out.cpu().tolist()
+
+
 class GraphProgram:
     """See the module's docstring.  Counters: ``n_replays`` (launches of the
     whole program), ``n_flag_reads`` (exit flags the host read: none on the
-    card), ``capture_s`` (seconds :meth:`build` took, warm-up included)."""
+    card), ``capture_s`` (seconds :meth:`build` took, warm-up included),
+    ``n_nodes`` (nodes of the executable graph's top level, on the card) and,
+    where the recorder was on at :meth:`build`, :meth:`segment_ns`."""
 
     def __init__(self, device):
         self.device = resolve_device(device)
         self._segments: List[Tuple[Callable[[], None], Optional[torch.Tensor]]] = []
+        self.names: List[str] = []
         self._exec: Optional[ctypes.c_void_p] = None
         self._graphs: list = []                   # own the segments' memory
         self._recorded: List[Dict[str, int]] = []  # kernel launches per segment
         self._runs: Optional[torch.Tensor] = None  # device count of loop passes
         self._counted: List[int] = []              # passes already in the launch counts
         self._replays_counted = 0
+        self._stamps: Optional[torch.Tensor] = None  # last stamp, then ns a segment
+        self._host_ns: Optional[List[int]] = None     # the same on the CPU
         self.n_replays = 0
         self.n_flag_reads = 0
         self.capture_s = 0.0
+        self.n_nodes = 0
 
-    def add(self, fn: Callable[[], None], done: Optional[torch.Tensor] = None) -> None:
+    def add(self, fn: Callable[[], None], done: Optional[torch.Tensor] = None,
+            name: str = "") -> None:
+        """Append a segment (a loop where ``done`` is given); ``name`` keys
+        it in :meth:`segment_ns` (by default its position)."""
         if done is not None and (done.dtype != torch.bool or done.numel() != 1):
             raise ValueError("a loop's exit flag is one bool")
+        name = name or str(len(self._segments))
+        if name in self.names:
+            raise ValueError(f"segment name {name!r} is taken")
         self._segments.append((fn, done))
+        self.names.append(name)
 
     def build(self, keep: Sequence[torch.Tensor] = ()) -> None:
         """Capture the segments (CUDA only).  ``keep``: the tensors that the
         segments update in place; they hold the same values afterwards.
         Everything runs on the program's card, whichever card is current."""
         if self.device.type != "cuda":
+            self._host_ns = [0] * len(self._segments) if tracing.ON else None
             return
         t0 = time.perf_counter()
         lib = _load()
@@ -119,10 +158,15 @@ class GraphProgram:
         raws = array(*[g.raw_cuda_graph() for g in self._graphs])
         done = array(*[None if d is None else d.data_ptr() for _, d in self._segments])
         runs = array(*[self._runs[k].data_ptr() for k in range(n)])
+        if tracing.ON:
+            self._stamps = torch.zeros(n + 1, dtype=torch.int64, device=self.device)
         out = ctypes.c_void_p()
-        _build.check(lib.graph_program_build(n, raws, done, runs, ctypes.byref(out)),
-                     "graph_program_build")
+        n_nodes = ctypes.c_int()
+        _build.check(lib.graph_program_build(
+            n, raws, done, runs, None if self._stamps is None else self._stamps.data_ptr(),
+            ctypes.byref(n_nodes), ctypes.byref(out)), "graph_program_build")
         self._exec = out
+        self.n_nodes = n_nodes.value
         for t, s in zip(keep, saved):
             t.copy_(s)
         torch.cuda.synchronize(self.device)
@@ -135,13 +179,29 @@ class GraphProgram:
                                           self._exec), "graph_program_launch")
             self.n_replays += 1
             return
-        for fn, done in self._segments:
+        for k, (fn, done) in enumerate(self._segments):
+            t0 = time.perf_counter_ns()
             fn()
             while done is not None:
                 self.n_flag_reads += 1
                 if bool(done):
                     break
                 fn()
+            if self._host_ns is not None:
+                self._host_ns[k] += time.perf_counter_ns() - t0
+
+    def segment_ns(self) -> Dict[str, int]:
+        """Nanoseconds each segment took over every launch since
+        :meth:`build`, a loop's passes all counted, by name; empty unless
+        the recorder was on at :meth:`build`.  On the card the stamps'
+        sums: reading waits for the card."""
+        if self._stamps is not None:
+            ns = self._stamps[1:].cpu().tolist()
+        elif self._host_ns is not None:
+            ns = list(self._host_ns)
+        else:
+            return {}
+        return dict(zip(self.names, ns))
 
     def loop_passes(self) -> List[int]:
         """Passes each segment's loop has made since :meth:`build` (0 for a

@@ -318,6 +318,57 @@ def test_graph_replay_of_gn_step_equals_eager(tracked):
     assert counts["decode_grad_fused"] == passes[4] + passes[6] + 2 * WARM_UP_PASSES
 
 
+def test_stamped_track_program_times_its_segments(tracked):
+    """Built with the span recorder on, the tracker's program has a stamp
+    before its first segment and after each one; every segment's device
+    time is positive, their sum over the launches is no more than the
+    launches' time on CUDA events, and the poses and map are those of the
+    program built with the recorder off, which has one node a segment."""
+    from difusion_tpu_torch.utils import tracing
+    make, _, packed = tracked
+    plain = make()
+    plain.process_chunk(packed, 160)
+    tracing.enable()
+    try:
+        stamped = make()
+        stamped.process_chunk(packed, 160)            # builds the program
+        prog = next(iter(stamped.tracker.programs.values())).program
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        before = prog.segment_ns()
+        start.record()
+        for _ in range(4):
+            prog.run()
+        stop.record()
+        torch.cuda.synchronize()
+        after = prog.segment_ns()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    for a, b in zip(stamped.tracker.pose_history(), plain.tracker.pose_history()):
+        assert torch.equal(a, b), (a - b).abs().max()
+    assert torch.equal(stamped.state.latents, plain.state.latents)
+    names = prog.names
+    assert list(after) == names and names[0] == "pre" and names[-1] == "finish"
+    spent = {k: after[k] - before[k] for k in names}
+    assert all(v > 0 for v in spent.values()), spent
+    wall_ns = start.elapsed_time(stop) * 1e6
+    assert sum(spent.values()) <= wall_ns, (sum(spent.values()), wall_ns)
+    assert prog.n_nodes == 2 * len(names) + 1
+    plain_prog = next(iter(plain.tracker.programs.values())).program
+    assert plain_prog.n_nodes == len(names) and plain_prog.segment_ns() == {}
+
+
+def test_globaltimer_steps_are_fine():
+    """The global timer that the stamps read moves in steps a kernel can
+    see; their least is the stamps' resolution (PERF.md gives it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from difusion_tpu_torch.utils.cudagraph import globaltimer_steps
+    steps = globaltimer_steps("cuda", 4096)
+    assert min(steps) > 0 and sorted(steps)[len(steps) // 2] < 10_000, steps[:16]
+
+
 def test_replay_after_done_leaves_the_carry(tracked):
     """One more eager ``gn_step`` on the carry the graph left (done) returns
     every field ``torch.equal``: a step past ``done`` is a no-op."""
