@@ -80,6 +80,15 @@ Phases, each printing one JSON line:
 7. offline -- save_map of the mesh phase's map, then the offline mesher
               (mesh_tool, r = 8) in-process; ms, triangles, dispatch sizes,
               launches and the mesh's error.
+   marching_cubes -- csrc/marching_cubes.cu (mc_classify, mc_scan,
+              mc_emit) on the first chunk of the mesh phase's last r = 4
+              extract and of the offline r = 8 export, recorded as the mesher
+              ran them: every output torch.equal to the plain version's; the
+              kernels' device time a chunk by CUDA-graph replay, the plain
+              chain's by replay and eagerly, the bound (the chunk's lattice
+              bytes and the (budget, 13) buffer at 3.35 TB/s), ptxas
+              registers and spills; fails unless the mesh and offline paths
+              launched each kernel once a chunk.
    mesh_fast -- the mesh phase's map meshed coarse-to-fine (fast) against
               the dense lattice decode: a full r = 4 extract and mesh_tool
               --fast at r = 8.  Decoder evaluations (cut >= 3x), kernel 3
@@ -616,6 +625,76 @@ def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, build_i
             "blocks_on_busiest_sm": plan.blocks_per_sm,
             "busiest_sm_over_mean": plan.busiest_over_mean,
             "ptxas": resources, "flops": flops, "bytes": nbytes}
+
+
+MC_KERNELS = ("mc_classify", "mc_scan", "mc_emit")
+
+
+@contextlib.contextmanager
+def capture_mc(meshing_mod, chunks: dict, label: str):
+    """Inside, the mesher's marching_cubes_sparse calls are also recorded
+    into ``chunks[label]``: the first chunk of the last extract that ran, as
+    copies of its arguments."""
+    original = meshing_mod.marching_cubes_sparse
+
+    def recording(*args, **kw):
+        if args[2].data_ptr() == args[2].untyped_storage().data_ptr():   # a first chunk
+            chunks[label] = ([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw))
+        return original(*args, **kw)
+    meshing_mod.marching_cubes_sparse = recording
+    try:
+        yield
+    finally:
+        meshing_mod.marching_cubes_sparse = original
+
+
+def check_marching_cubes(mc_mod, build_info, chunks: dict) -> dict:
+    """csrc/marching_cubes.cu on recorded mesher chunks (the live extract's
+    r = 4 chunk, the export's r = 8 chunk of 512 blocks) against the plain
+    version on the same inputs: every output torch.equal (fails otherwise);
+    the kernels' device time a chunk by CUDA-graph replay, the plain chain's
+    by replay and eagerly (CUDA events over back-to-back calls: what the
+    mesher's host launching sees), the wrapper's host time; the bound: the
+    chunk's lattice bytes (its blocks' (2r)^3 sdf and std, each read about
+    once) and the (budget, 13) buffer written, at 3.35 TB/s."""
+    rows = {}
+    for label, (args, kw) in chunks.items():
+        got = mc_mod.marching_cubes_sparse(*args, **kw)
+        ref = mc_mod.marching_cubes_sparse_plain(*args, **kw)
+        torch.cuda.synchronize()
+        equal = (int(got.count) == int(ref.count)
+                 and torch.equal(got.packed.view(torch.int32), ref.packed.view(torch.int32)))
+        if not equal:
+            fail(f"marching_cubes_sparse ({label}): the kernels' result is not "
+                 f"torch.equal to the plain version's (count {int(got.count)} against "
+                 f"{int(ref.count)})")
+        blocks, r, budget = args[2].shape[0], args[6], args[7]
+        nbytes = 2 * blocks * (2 * r) ** 3 * 4 + budget * mc_mod.ROW * 4
+
+        def call():
+            return mc_mod.marching_cubes_sparse(*args, **kw)
+
+        def plain():
+            return mc_mod.marching_cubes_sparse_plain(*args, **kw)
+        rows[label] = {"blocks": blocks, "r": r, "budget": budget,
+                       "interpolate": kw.get("interpolate", True),
+                       "max_std": kw.get("max_std"), "triangles": int(got.count),
+                       "ms": graph_ms(call, 20), "eager_ms": time_ms(call, 10),
+                       "host_us": host_us(call, 20),
+                       "plain_graph_ms": graph_ms(plain, 2, reps=3),
+                       "plain_ms": time_ms(plain, 3, per_batch=3),
+                       "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes", "torch_equal": equal}
+    return {"name": "mc_classify", "route": "cuda",
+            "source": "difusion_tpu_torch/csrc/marching_cubes.cu",
+            "replaces": None,
+            "why": "the plain chain's ~800 PyTorch ops a chunk, launched one by one by "
+                   "the host (the mesher's mesh.mc spans)",
+            "kernels": list(MC_KERNELS), "chunks": rows,
+            "ptxas": {k: ptxas_of(build_info, "marching_cubes", f"{k}_kernel")
+                      for k in MC_KERNELS},
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes sparse marching cubes"}
 
 
 def profiled(fn, count: str = "decode_grad_kernel") -> dict:
@@ -1651,11 +1730,13 @@ def main() -> int:
     from difusion_tpu_torch.config import dict_to_args
     from difusion_tpu_torch.core import map as M
     from difusion_tpu_torch.core import tracker as tracker_mod
+    from difusion_tpu_torch.core import meshing as meshing_mod
     from difusion_tpu_torch.core.meshing import MeshExtractor
     from difusion_tpu_torch.core.tracker import TrackerConfig
     from difusion_tpu_torch.data.production import SyntheticSequence, mesh_error_stats
     from difusion_tpu_torch.ops import _build, imgproc
     from difusion_tpu_torch.ops import decoder_fused as fused_mod
+    from difusion_tpu_torch.ops import marching_cubes as mc_mod
     from difusion_tpu_torch.ops import stencil as stencil_mod
     from difusion_tpu_torch.ops.imgproc import Intrinsic
     from difusion_tpu_torch.slam import SLAMSystem, load_prior
@@ -2078,11 +2159,13 @@ def main() -> int:
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     mesh_frame_ms = []
-    for k in range(N_MAIN):
-        t0 = time.perf_counter()
-        msys.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
-        torch.cuda.synchronize()
-        mesh_frame_ms.append((time.perf_counter() - t0) * 1e3)
+    mc_chunks = {}
+    with capture_mc(meshing_mod, mc_chunks, "live_r4"):
+        for k in range(N_MAIN):
+            t0 = time.perf_counter()
+            msys.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
+            torch.cuda.synchronize()
+            mesh_frame_ms.append((time.perf_counter() - t0) * 1e3)
     counts = _build.launch_counts()
     tris, _ = msys.mesher.triangles()
     merr = mesh_error_stats(tris)
@@ -2107,6 +2190,8 @@ def main() -> int:
         fail(f"mesh phase ATE {mate:.4f} m > 0.05 m")
     kernels[2]["launches"] = counts.get("decode_fused", 0)
     kernels[2]["path"] = "mesh (online extracts on the fusion frames)"
+    mc_launches = {"mesh": {k: counts.get(k, 0) for k in MC_KERNELS},
+                   "mesh_chunks": sum(e.get("mc_chunks", 0) for e in extracts)}
     kernels[4]["launches"] = counts.get("decode_fwd_bf16", 0)
 
     # ---- async: the mesh phase's run with the extracts in a worker ----
@@ -2159,9 +2244,10 @@ def main() -> int:
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
-        tool = mesh_tool.main([map_path, ply_path, "--hyper", str(HYPER), "--epoch",
-                               "300", "--resolution", "8", "--max-std",
-                               str(MESH_MAX_STD)])
+        with capture_mc(meshing_mod, mc_chunks, "export_r8"):
+            tool = mesh_tool.main([map_path, ply_path, "--hyper", str(HYPER), "--epoch",
+                                   "300", "--resolution", "8", "--max-std",
+                                   str(MESH_MAX_STD)])
         torch.cuda.synchronize()
         tool_ms = (time.perf_counter() - t0) * 1e3
         counts = _build.launch_counts()
@@ -2185,6 +2271,21 @@ def main() -> int:
     check_mesh("offline", tris, merr)
     for k in (kernels[2], kernels[4]):
         k["launches_offline"] = counts.get(k["name"], 0)
+
+    # ---- marching cubes: the kernels on the recorded chunks, their launches ----
+    mc_launches.update(offline={k: counts.get(k, 0) for k in MC_KERNELS},
+                       offline_chunks=stats["mc_chunks"])
+    mc_row = check_marching_cubes(mc_mod, info, mc_chunks)
+    mc_row.update(launches=mc_launches["mesh"]["mc_classify"],
+                  path="mesh (online extracts) and offline (mesh_tool, r = 8)",
+                  launches_by_kernel=mc_launches)
+    emit({"phase": "marching_cubes", **mc_row})
+    for phase in ("mesh", "offline"):
+        want = dict.fromkeys(MC_KERNELS, mc_launches[f"{phase}_chunks"])
+        if mc_launches[phase] != want:
+            fail(f"marching cubes on the {phase} path launched {mc_launches[phase]}, "
+                 f"expected one of each kernel a chunk: {want}")
+    kernels.append(mc_row)
 
     # ---- mesh_fast: the mesh phase's map, coarse-to-fine against dense ----
     fast_rows = {}

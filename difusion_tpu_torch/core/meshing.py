@@ -26,8 +26,9 @@ Per extract:
    upsampling to (2r)^3, and an exact decode of each block's ``refine_k``
    sites nearest the surface -- two decodes a dispatch.
 3. Sparse marching cubes runs in block chunks against the full lattice
-   buffers, so chunk seams are exact; each chunk costs one count read and
-   one packed download.
+   buffers, so chunk seams are exact (``ops.marching_cubes``: three CUDA
+   kernel launches a chunk on the card, its plain version on the CPU); each
+   chunk costs one count read and one download of its packed rows.
 4. The triangles splice into a host-side cache keyed by latent slot: a
    re-meshed slot's old triangles are replaced.
 

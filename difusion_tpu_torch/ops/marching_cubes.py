@@ -1,5 +1,5 @@
 """Sparse marching cubes with cross-block (sdf, std) interpolation
-(counterpart of difusion_tpu/ops/marching_cubes.py), as plain PyTorch.
+(counterpart of difusion_tpu/ops/marching_cubes.py).
 
 * Each active block evaluated the decoder on a ``2r`` lattice covering the
   voxel plus a half-voxel margin.  Block-corner values blend the overlapping
@@ -9,55 +9,68 @@
 * Per-(block, subcell) triangle emission uses the 256-case tables
   (:mod:`.mc_tables`) and per-vertex std-aware interpolation, pruning
   triangles with any vertex std above ``max_std``.
-* Triangles compact by a prefix sum into a fixed ``max_triangles`` buffer:
-  extra triangles are dropped and the true count is reported.
+* Triangles compact by a prefix sum into a fixed ``max_triangles`` buffer
+  of 13-float rows (:class:`McResult`): extra triangles are dropped and the
+  true count is reported.
 
-Every step is a fixed-shape tensor op in the JAX package's order (the 8
-corner choices, the ``sdf_interp`` chain, the 5 triangle slabs), so the
-triangles come out in the same order and agree to f32 rounding.  The
-numpy-built constant tables upload once per ``(r, device)``.
+:func:`marching_cubes_sparse` launches the hand-written CUDA kernels of
+``csrc/marching_cubes.cu`` on CUDA tensors (three launches, counted as
+``mc_classify``, ``mc_scan`` and ``mc_emit``) and runs
+:func:`marching_cubes_sparse_plain` on CPU tensors; a CUDA tensor never
+reaches the plain version through it.  The plain version is every step as a
+fixed-shape tensor op in the JAX package's order (the 8 corner choices, the
+``sdf_interp`` chain, the 5 triangle slabs), so the triangles come out in
+the same order and agree with the JAX package to f32 rounding; the kernels
+compute the same arithmetic in the same order and equal it bit for bit.
+The numpy-built constant tables upload once per ``(r, device)``.
 """
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from . import _build
 from .mc_tables import CORNER_OFFSETS, EDGE_CORNERS, TRI_TABLE
+
+ROW = 13      # floats a triangle: 9 vertex coordinates, 3 vertex stds, the block id
+SLABS = 5     # triangles a cube emits at most
 
 
 class McResult(NamedTuple):
+    """Views of one (T, 13) buffer, ``packed``: a triangle a row, its 9
+    vertex coordinates (vertex*3 + coord, voxel units), its 3 vertex stds and
+    its linearized block id bit-cast to f32 (-1 padding)."""
     triangles: torch.Tensor   # (9, T) f32: rows = vertex*3 + coord, voxel units
     tri_std: torch.Tensor     # (3, T) f32 per-vertex std
     tri_block: torch.Tensor   # (T,) int32 linearized block id (-1 padding)
     count: torch.Tensor       # () int64 total emitted (may exceed T)
+    packed: torch.Tensor      # (T, 13) f32: the buffer the other fields view
+
+
+def _result(packed: torch.Tensor, count: torch.Tensor) -> McResult:
+    return McResult(packed[:, :9].T, packed[:, 9:12].T, packed.view(torch.int32)[:, 12],
+                    count, packed)
 
 
 def mc_triangles_np(res: McResult) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """Host-side unpack: (tris (C, 3, 3), stds (C, 3), blocks (C,), count)
     where C = min(count, buffer size).  One count read, then ONE download of
-    the packed (13, cb) buffer, cb the count rounded up to a power of two."""
+    the buffer's first cb rows (contiguous), cb the count rounded up to a
+    power of two."""
     total = int(res.count)
-    cap = res.triangles.shape[1]
+    cap = res.packed.shape[0]
     count = min(total, cap)
     cb = 1
     while cb < count:
         cb *= 2
     cb = min(cb, cap)
-    packed = _pack_mc_outputs(res.triangles, res.tri_std, res.tri_block, cb).cpu().numpy()
-    tris = packed[0:9, :count].T.reshape(count, 3, 3)
-    stds = packed[9:12, :count].T
-    blocks = packed[12, :count].view(np.int32)
-    return tris, stds, blocks, total
-
-
-def _pack_mc_outputs(triangles, tri_std, tri_block, cb: int) -> torch.Tensor:
-    """(13, cb) f32 download buffer: 9 triangle rows, 3 std rows, the block
-    ids bit-cast to f32 in row 12 (the host views them back as int32)."""
-    blk = tri_block[:cb].view(torch.float32)
-    return torch.cat([triangles[:, :cb], tri_std[:, :cb], blk[None]], dim=0)
+    rows = res.packed[:cb].cpu().numpy()[:count]
+    return (rows[:, :9].reshape(count, 3, 3), rows[:, 9:12],
+            rows.view(np.int32)[:, 12], total)
 
 
 def _corner_tables(r: int):
@@ -225,13 +238,12 @@ def _mc_consts(r: int, device: torch.device):
             torch.from_numpy(TRI_TABLE.astype(np.int64)).to(device))
 
 
-def marching_cubes_sparse(indexer: torch.Tensor, slot_to_batch: torch.Tensor,
-                          valid_blocks: torch.Tensor, cube_sdf: torch.Tensor,
-                          cube_std: torch.Tensor, n_xyz: Tuple[int, int, int],
-                          r: int, max_triangles: int, max_std: float = 2000.0,
-                          interpolate: bool = True) -> McResult:
-    """Emit triangles for all active blocks.  ``cube_sdf`` must already
-    carry the sign flip (the mesher negates the decoder output)."""
+def marching_cubes_sparse_plain(indexer: torch.Tensor, slot_to_batch: torch.Tensor,
+                                valid_blocks: torch.Tensor, cube_sdf: torch.Tensor,
+                                cube_std: torch.Tensor, n_xyz: Tuple[int, int, int],
+                                r: int, max_triangles: int, max_std: float = 2000.0,
+                                interpolate: bool = True) -> McResult:
+    """Plain PyTorch version of :func:`marching_cubes_sparse`."""
     dev = cube_sdf.device
     _, ny, nz = n_xyz
     B = valid_blocks.shape[0]
@@ -307,15 +319,97 @@ def marching_cubes_sparse(indexer: torch.Tensor, slot_to_batch: torch.Tensor,
     all_block = block_of_sub.reshape(-1).repeat(5)
 
     # ordered compaction: every dropped or overflowing candidate lands in the
-    # extra column max_triangles, which is sliced off, so the write order of
+    # extra row max_triangles, which is sliced off, so the write order of
     # duplicate indices does not matter
     order = torch.cumsum(all_mask.to(torch.int64), 0) - 1
     out_idx = torch.where(all_mask & (order < max_triangles), order, max_triangles)
-    triangles = torch.zeros(9, max_triangles + 1, device=dev)
-    triangles[:, out_idx] = all_tris
-    tri_std = torch.zeros(3, max_triangles + 1, device=dev)
-    tri_std[:, out_idx] = all_stds
-    tri_block = torch.full((max_triangles + 1,), -1, dtype=torch.int32, device=dev)
-    tri_block[out_idx] = all_block.to(torch.int32)
-    return McResult(triangles[:, :-1], tri_std[:, :-1], tri_block[:-1],
-                    all_mask.sum())
+    packed = torch.zeros(max_triangles + 1, ROW, device=dev)
+    packed.view(torch.int32)[:, 12] = -1
+    packed[out_idx] = torch.cat([all_tris, all_stds,
+                                 all_block.to(torch.int32).view(torch.float32)[None]]).T
+    return _result(packed[:-1], all_mask.sum())
+
+
+_lib = None
+
+
+def _load():
+    """csrc/marching_cubes.cu's library, its entry points typed once per
+    process."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("marching_cubes")
+        lib.mc_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.mc_workspace_bytes.restype = ctypes.c_longlong
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mc_sparse_launch.argtypes = [p, p, ll, p, i, p, p, ll, ll, ll, i, i, p,
+                                         ctypes.c_float, i, p, p, p, p]
+        lib.mc_sparse_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+@lru_cache(maxsize=8)
+def _tri_table(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(TRI_TABLE.astype(np.int8)).to(device)
+
+
+def _check_inputs(indexer, slot_to_batch, valid_blocks, cube_sdf, cube_std, n_xyz, r,
+                  max_triangles) -> None:
+    """What the kernels take: contiguous tensors on one card, int32 indexer
+    and block list, int64 slot_to_batch, f32 (rows, 2r, 2r, 2r) lattices."""
+    dev = cube_sdf.device
+    n_cells = int(np.prod(n_xyz))
+    side = 2 * r
+    for name, t, dtype, ok in (
+            ("indexer", indexer, torch.int32, indexer.shape == (n_cells,)),
+            ("slot_to_batch", slot_to_batch, torch.int64,
+             slot_to_batch.dim() == 1 and slot_to_batch.numel() >= 1),
+            ("valid_blocks", valid_blocks, torch.int32, valid_blocks.dim() == 1),
+            ("cube_sdf", cube_sdf, torch.float32,
+             cube_sdf.dim() == 4 and cube_sdf.shape[1:] == (side,) * 3),
+            ("cube_std", cube_std, torch.float32, cube_std.shape == cube_sdf.shape)):
+        if t.device != dev or t.dtype != dtype or not ok or not t.is_contiguous():
+            raise ValueError(f"marching_cubes_sparse: {name} must be a contiguous {dtype} "
+                             f"tensor on {dev} (n_xyz {tuple(n_xyz)}, r {r}), got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"contiguous {t.is_contiguous()}")
+    if r < 1 or not 0 <= ROW * max_triangles < 2 ** 31 \
+            or SLABS * valid_blocks.shape[0] * r ** 3 >= 2 ** 31:
+        raise ValueError(f"marching_cubes_sparse: needs r >= 1, 0 <= 13 * max_triangles "
+                         f"< 2^31 and 5 * blocks * r^3 < 2^31 (32-bit indices), got r {r}, "
+                         f"max_triangles {max_triangles}, {valid_blocks.shape[0]} blocks")
+
+
+def marching_cubes_sparse(indexer: torch.Tensor, slot_to_batch: torch.Tensor,
+                          valid_blocks: torch.Tensor, cube_sdf: torch.Tensor,
+                          cube_std: torch.Tensor, n_xyz: Tuple[int, int, int],
+                          r: int, max_triangles: int, max_std: float = 2000.0,
+                          interpolate: bool = True) -> McResult:
+    """Emit triangles for all active blocks.  ``cube_sdf`` must already
+    carry the sign flip (the mesher negates the decoder output).  CUDA
+    tensors launch the kernels of ``csrc/marching_cubes.cu`` on the current
+    stream (or raise); CPU tensors run :func:`marching_cubes_sparse_plain`."""
+    if not cube_sdf.is_cuda:
+        return marching_cubes_sparse_plain(indexer, slot_to_batch, valid_blocks, cube_sdf,
+                                           cube_std, n_xyz, r, max_triangles, max_std,
+                                           interpolate)
+    _check_inputs(indexer, slot_to_batch, valid_blocks, cube_sdf, cube_std, n_xyz, r,
+                  max_triangles)
+    dev = cube_sdf.device
+    lib = _load()
+    n_blocks = valid_blocks.shape[0]
+    work = torch.empty(lib.mc_workspace_bytes(n_blocks, r), dtype=torch.uint8, device=dev)
+    packed = torch.empty(max_triangles, ROW, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    nx, ny, nz = (int(v) for v in n_xyz)
+    err = _build.launch_on(
+        dev.index, lib.mc_sparse_launch, indexer.data_ptr(), slot_to_batch.data_ptr(),
+        slot_to_batch.numel(), valid_blocks.data_ptr(), n_blocks, cube_sdf.data_ptr(),
+        cube_std.data_ptr(), nx, ny, nz, int(r), int(bool(interpolate)),
+        _tri_table(dev).data_ptr(), float(max_std), int(max_triangles), work.data_ptr(),
+        packed.data_ptr(), count.data_ptr())
+    _build.check(err, "marching_cubes_sparse")
+    for name in ("mc_classify", "mc_scan", "mc_emit"):
+        _build.count_launch(name)
+    return _result(packed, count)

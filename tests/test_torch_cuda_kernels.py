@@ -3,6 +3,7 @@ need an NVIDIA card with nvcc (marker ``cuda``) and skip elsewhere; on such
 a machine run ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``."""
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -229,6 +230,234 @@ def test_wrappers_reject_bad_inputs(dev, packed):
         stencil._launch_cuda("window_stats_map_launch", (pc, ok), 4, 5, 2, 0.1, 0.1, rows=3)
     with pytest.raises(ValueError):   # a strip longer than the window
         stencil._launch_cuda("window_stats_map_launch", (pc, ok), 4, 5, 1, 0.1, 0.1, rows=5)
+
+
+# ---------------------------------------------------------------------------
+# Sparse marching cubes: csrc/marching_cubes.cu against the plain version
+# ---------------------------------------------------------------------------
+
+MC_COUNTS = ("mc_classify", "mc_scan", "mc_emit")
+
+
+def _mc_world(dev, r, n_xyz=(6, 5, 7), seed=0, n_pad=7):
+    """A dense grid whose every cell is a block but ~1/7 free (indexer -1),
+    ~1/9 of the allocated slots unevaluated (slot_to_batch -1), the live
+    blocks in a shuffled order and then ``n_pad`` padding rows (-1), and
+    per-cell (2r)^3 lattices of a sphere that cuts all six faces of the
+    grid, with a varying std."""
+    import numpy as np
+    from difusion_tpu_torch.ops import sampling as S
+    rng = np.random.default_rng(seed)
+    n_cells = int(np.prod(n_xyz))
+    indexer = np.arange(n_cells, dtype=np.int32)
+    indexer[rng.uniform(size=n_cells) < 1 / 7] = -1
+    s2b = np.concatenate([np.arange(n_cells), [-1]]).astype(np.int64)
+    s2b[:-1][rng.uniform(size=n_cells) < 1 / 9] = -1
+    live = np.nonzero(indexer >= 0)[0].astype(np.int32)
+    rng.shuffle(live)
+    blocks = np.concatenate([live, np.full(n_pad, -1, np.int32)])
+    cell = np.stack(np.meshgrid(*[np.arange(k) for k in n_xyz], indexing="ij"), -1)
+    cell = cell.reshape(-1, 3)
+    pos = (cell[:, None, :] + 0.5 + S.block_lattice(r)[None]) / np.asarray(n_xyz)
+    sdf = np.linalg.norm(pos - [0.5, 0.45, 0.55], axis=-1) - 0.52
+    std = 0.1 + 0.04 * np.sin(20.0 * pos[..., 0]) * np.cos(15.0 * pos[..., 1])
+    side = 2 * r
+    return [torch.from_numpy(a).to(dev) for a in (
+        indexer, s2b, blocks, sdf.reshape(-1, side, side, side).astype(np.float32),
+        std.reshape(-1, side, side, side).astype(np.float32))]
+
+
+def _mc_both(args, n_xyz, r, budget, **kw):
+    """The kernels and the plain version on the same card inputs: their
+    results and the kernels' launches by name."""
+    from difusion_tpu_torch.ops import marching_cubes as MC
+    before = _build.launch_counts()
+    got = MC.marching_cubes_sparse(*args, n_xyz, r, budget, **kw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    ref = MC.marching_cubes_sparse_plain(*args, n_xyz, r, budget, **kw)
+    return got, ref, {k: after.get(k, 0) - before.get(k, 0) for k in MC_COUNTS}
+
+
+def _assert_mc_equal(got, ref):
+    assert int(got.count) == int(ref.count)
+    assert torch.equal(got.triangles, ref.triangles)
+    assert torch.equal(got.tri_std, ref.tri_std)
+    assert torch.equal(got.tri_block, ref.tri_block)
+    assert torch.equal(got.packed.view(torch.int32), ref.packed.view(torch.int32))
+
+
+@pytest.mark.parametrize("interpolate", [True, False])
+@pytest.mark.parametrize("r", [2, 3, 4, 8, 9])
+def test_marching_cubes_kernels_equal_plain(dev, r, interpolate):
+    """Triangles, stds, block ids and count torch.equal to the plain version
+    (r 9: two passes of 512 subcells and of corners a block), over a grid
+    with free cells, unevaluated slots, shuffled blocks and padding rows,
+    with triangles in blocks on all six faces of the grid; one launch of
+    each kernel a call."""
+    n_xyz = (6, 5, 7)
+    args = _mc_world(dev, r, n_xyz, seed=r)
+    got, ref, launches = _mc_both(args, n_xyz, r, 1 << 16, interpolate=interpolate)
+    _assert_mc_equal(got, ref)
+    assert launches == dict.fromkeys(MC_COUNTS, 1)
+    count = int(got.count)
+    assert 100 < count < 1 << 16
+    blk = got.tri_block[:count].long()
+    coords = torch.stack([blk // (n_xyz[1] * n_xyz[2]), (blk // n_xyz[2]) % n_xyz[1],
+                          blk % n_xyz[2]])
+    for a in range(3):
+        assert int(coords[a].min()) == 0 and int(coords[a].max()) == n_xyz[a] - 1
+
+
+@pytest.mark.parametrize("max_std,budget", [(0.12, 1 << 14), (2000.0, 100), (0.12, 300),
+                                            (2000.0, 0)])
+def test_marching_cubes_kernels_prune_and_truncate(dev, max_std, budget):
+    """Pruning by vertex std and a budget below the survivors: the same
+    true count, the same truncated buffer (zeros and block -1 past it)."""
+    args = _mc_world(dev, 4, seed=11)
+    got, ref, _ = _mc_both(args, (6, 5, 7), 4, budget, max_std=max_std)
+    _assert_mc_equal(got, ref)
+    full = int(_mc_both(args, (6, 5, 7), 4, 1 << 14)[1].count)
+    if max_std < 1.0:
+        assert 0 < int(got.count) < full
+    else:
+        assert int(got.count) == full > budget
+
+
+def test_marching_cubes_kernels_without_blocks(dev):
+    """A chunk of no blocks: count 0 and a buffer of zeros and block -1."""
+    indexer, s2b, blocks, sdf, std = _mc_world(dev, 3)
+    got, ref, launches = _mc_both((indexer, s2b, blocks[:0], sdf, std), (6, 5, 7), 3, 64)
+    _assert_mc_equal(got, ref)
+    assert int(got.count) == 0 and launches == dict.fromkeys(MC_COUNTS, 1)
+
+
+def test_marching_cubes_kernels_at_the_export_chunk(dev):
+    """One chunk at the offline export's size: 512 blocks at r = 8 against
+    the lattices of every evaluated block of the grid, budget 2^20."""
+    n_xyz = (10, 9, 8)
+    indexer, s2b, blocks, sdf, std = _mc_world(dev, 8, n_xyz, seed=3, n_pad=0)
+    assert blocks.shape[0] >= 512
+    got, ref, _ = _mc_both((indexer, s2b, blocks[:512].contiguous(), sdf, std), n_xyz, 8,
+                           1 << 20)
+    _assert_mc_equal(got, ref)
+    assert int(got.count) > 10000
+
+
+def test_marching_cubes_wrapper_rejects_bad_inputs(dev):
+    from difusion_tpu_torch.ops import marching_cubes as MC
+    indexer, s2b, blocks, sdf, std = _mc_world(dev, 2)
+    good = (indexer, s2b, blocks, sdf, std)
+    for i, bad in ((0, indexer.long()), (1, s2b.int()), (2, blocks.cpu()),
+                   (3, sdf.transpose(1, 2)), (4, std[:-1]), (3, sdf.double())):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            MC.marching_cubes_sparse(*args, (6, 5, 7), 2, 1024)
+    with pytest.raises(ValueError):       # the indexer is not the grid's
+        MC.marching_cubes_sparse(*good, (6, 5, 6), 2, 1024)
+
+
+@pytest.fixture(scope="module")
+def fused_systems(dev):
+    """A dense and a hash-map system that fused small frames at their
+    ground-truth poses, meshing at r = 4 on each fusion frame, built twice:
+    with the kernels and with the plain version in the mesher's place."""
+    from difusion_tpu_torch.core import hash_map as HM
+    from difusion_tpu_torch.core import map as M
+    from difusion_tpu_torch.core import meshing
+    from difusion_tpu_torch.core import tracker as T
+    from difusion_tpu_torch.data.production import SyntheticSequence
+    from difusion_tpu_torch.models.weights import load_prior
+    from difusion_tpu_torch.ops import marching_cubes as MC
+    from difusion_tpu_torch.ops.imgproc import Intrinsic
+    from difusion_tpu_torch.slam import SLAMSystem
+    calib = Intrinsic(300.0, 300.0, 79.5, 59.5, 5000.0)
+    dec, enc, _ = load_prior(HYPER, 300, device=dev)
+    cfgs = {"dense": M.MapConfig(bound_min=(-2.0, -2.0, -0.5), n_xyz=(40, 40, 40),
+                                 voxel_size=0.1, latent_dim=29, capacity=1 << 14,
+                                 prune_min_vox_obs=4, ignore_count_th=1.0,
+                                 encoder_count_th=600.0),
+            "hash": HM.HashMapConfig(voxel_size=0.1, capacity=1 << 14, table_size=1 << 16,
+                                     prune_min_vox_obs=4, ignore_count_th=1.0)}
+    frames = list(SyntheticSequence(n_frames=5, h=120, w=160, calib=calib,
+                                    corrugation=0.1, motion_scale=0.6))
+    out = {}
+    for kind, cfg in cfgs.items():
+        for route in ("kernels", "plain"):
+            system = SLAMSystem(cfg, T.TrackerConfig(point_budget=4096), dec, enc, calib,
+                                integrate_interval=2, device=dev)
+            system.use_gt_poses = True
+            original = meshing.marching_cubes_sparse
+            if route == "plain":
+                meshing.marching_cubes_sparse = MC.marching_cubes_sparse_plain
+            try:
+                _build.reset_launch_counts()
+                for frame in frames:
+                    system.process_frame(frame)
+                torch.cuda.synchronize()
+            finally:
+                meshing.marching_cubes_sparse = original
+            out[kind, route] = (system, _build.launch_counts())
+    return out, dec
+
+
+@pytest.mark.parametrize("kind", ["dense", "hash"])
+def test_incremental_extracts_through_the_kernels_equal_plain(fused_systems, kind):
+    """Three incremental r = 4 extracts on the fusion frames: the same
+    triangle soup through the kernels as through the plain version, and the
+    kernels launched once each a marching-cubes chunk (none on the plain
+    route)."""
+    systems, _ = fused_systems
+    (ks, kc), (ps, pc) = systems[kind, "kernels"], systems[kind, "plain"]
+    kt, kstd = ks.mesher.triangles()
+    pt, pstd = ps.mesher.triangles()
+    assert len(kt) > 100
+    assert np.array_equal(kt, pt) and np.array_equal(kstd, pstd)
+    assert all(kc.get(k, 0) >= 3 for k in MC_COUNTS)
+    assert kc["mc_classify"] == kc["mc_scan"] == kc["mc_emit"]
+    assert not any(pc.get(k, 0) for k in MC_COUNTS)
+
+
+@pytest.mark.parametrize("kind,r", [("dense", 4), ("dense", 8), ("hash", 8)])
+def test_full_extract_through_the_kernels_equals_plain(fused_systems, kind, r):
+    """A no_cache extract of the fused map: the kernels' soup equals the
+    plain version's; each kernel launched once a chunk (several chunks at r
+    = 8, where max_eval_points is cut to make them); and the same soup from
+    a side stream, as the run_async worker extracts."""
+    from difusion_tpu_torch.core import meshing
+    from difusion_tpu_torch.ops import marching_cubes as MC
+    systems, dec = fused_systems
+    system = systems[kind, "kernels"][0]
+    cls = meshing.HashMeshExtractor if kind == "hash" else meshing.MeshExtractor
+
+    def extract(plain=False, stream=None):
+        ex = cls(system.map_cfg, dec, voxel_resolution=r, max_eval_points=1 << 14)
+        original = meshing.marching_cubes_sparse
+        if plain:
+            meshing.marching_cubes_sparse = MC.marching_cubes_sparse_plain
+        try:
+            _build.reset_launch_counts()
+            if stream is None:
+                ex.extract(system.state, max_std=0.15, no_cache=True)
+            else:
+                stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(stream):
+                    ex.extract(system.state, max_std=0.15, no_cache=True)
+                stream.synchronize()
+        finally:
+            meshing.marching_cubes_sparse = original
+        return ex.triangles(), ex.last_stats, _build.launch_counts()
+    (kt, kstd), stats, counts = extract()
+    (pt, pstd), _, _ = extract(plain=True)
+    (st, sstd), _, _ = extract(stream=torch.cuda.Stream(dev))
+    assert len(kt) > 100
+    assert np.array_equal(kt, pt) and np.array_equal(kstd, pstd)
+    assert np.array_equal(st, kt) and np.array_equal(sstd, kstd)
+    assert {k: counts.get(k, 0) for k in MC_COUNTS} == dict.fromkeys(MC_COUNTS,
+                                                                     stats["mc_chunks"])
+    if r == 8:
+        assert stats["mc_chunks"] >= 2
 
 
 # ---------------------------------------------------------------------------

@@ -107,3 +107,31 @@ def test_max_std_pruning_and_budget_overflow(max_std, budget):
     np.testing.assert_array_equal(got.tri_block.numpy(), np.asarray(ref.tri_block))
     np.testing.assert_allclose(got.triangles.numpy(), np.asarray(ref.triangles), atol=1e-5)
     np.testing.assert_allclose(got.tri_std.numpy(), np.asarray(ref.tri_std), atol=1e-5)
+
+
+def test_kernel_wrapper_checks_its_inputs():
+    """The checks the CUDA route makes before it launches (``_check_inputs``,
+    run here on CPU tensors and one on the meta device): the mesher's
+    dtypes and shapes pass; a wrong dtype, a tensor on another device, a
+    non-contiguous lattice, lattices of another r or shape, an indexer that
+    is not the grid's, and sizes past the kernels' 32-bit indices raise."""
+    indexer, s2b, blocks, sdf, std = (torch.from_numpy(a) for a in _world(2))
+    good = [indexer, s2b, blocks, sdf, std]
+    MC._check_inputs(*good, (N, N, N), 2, 1 << 14)
+    for i, bad in ((0, indexer.long()), (1, s2b.int()), (2, blocks.long()),
+                   (3, sdf.double()), (4, std.double()), (0, indexer.to("meta")),
+                   (2, blocks[::2]), (3, sdf.transpose(1, 3)), (4, std[:-1]),
+                   (3, sdf[:, :2, :2, :2].contiguous())):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            MC._check_inputs(*args, (N, N, N), 2, 1 << 14)
+    for n_xyz, r, budget in (((N, N, N + 1), 2, 1 << 14), ((N, N, N), 3, 1 << 14),
+                             ((N, N, N), 2, -1), ((N, N, N), 2, 2 ** 31 // 13 + 1)):
+        with pytest.raises(ValueError):
+            MC._check_inputs(*good, n_xyz, r, budget)
+    lattice = torch.zeros(1, 32, 32, 32)
+    many = torch.full((2 ** 31 // (5 * 16 ** 3) + 1,), -1, dtype=torch.int32)
+    MC._check_inputs(indexer, s2b, many[:-1], lattice, lattice, (N, N, N), 16, 1 << 14)
+    with pytest.raises(ValueError):       # 5 * blocks * r^3 >= 2^31
+        MC._check_inputs(indexer, s2b, many, lattice, lattice, (N, N, N), 16, 1 << 14)
