@@ -1,0 +1,11 @@
+"""Kernel 3's device milliseconds an extract: the time the profiler gives
+the launches whose name holds ``decode_fwd_kernel`` (the 128-wide instance
+and the wide ones alike), over the extracts of the traced window."""
+
+
+def read(ctx):
+    n, secs = ctx.trace.kernel_time("decode_fwd_kernel")
+    extracts = ctx.counts.get("extracts", 0)
+    if not n or secs <= 0 or not extracts:
+        return None
+    return 1e3 * secs / extracts

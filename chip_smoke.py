@@ -166,6 +166,22 @@ Phases, each printing one JSON line:
 
 11. xprof -- `python -m difusion_tpu_torch.slam ... --xprof DIR` in-process
               on 4 frames: the Chrome trace must exist and name kernel 1.
+12. deepsdf -- DeepSDF's decoder (benchmark/configs/lrkt-deepsdf.json: code
+              256, 8 x 512, latent_in 4; the in-repo prior
+              di-checkpoints/deepsdf_mixed): the wide instances of kernels 1
+              and 3 (csrc/decoder_wide.cu) against their plain versions at
+              N = 8192 (and 1, 8191) and N = 2^20 (and 1, 524,287), timed by
+              graph replay beside the port's plain path (Decoder.decode in
+              f32, TF32 off, and autograd for the gradient, also by graph
+              replay), with ptxas's registers and spills; the benchmark's
+              export of the lap's map (ExportDriver, r = 8, no_cache) under
+              both configurations on one seed: vertices, mesh error against
+              the analytic surface, ms, the decode instance and its launches
+              (none of another instance); then DEEPSDF_FRAMES frames of the
+              lap through run_sequence(chunk=12) on the DeepSDF
+              configuration's own tracking block (sdf_fused "on"): ms/frame,
+              the GN loops' device-counted passes, kernel 1's wide launches
+              (>= 2 a tracked frame, none of the 128-wide instance), ATE.
 
 Then one line {"kernels": [...]} with every kernel's launches on its path
 (and as each phase's counts read them: launches_<phase>), error against its
@@ -207,6 +223,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # instruction, half the FLOP rate above.
 PEAK_F32_INSTR_PER_S = 132 * 128 * 1.98e9
 HYPER = Path(__file__).resolve().parent / "di-checkpoints/study_mixed/hyper.json"
+DEEPSDF_CFG = Path(__file__).resolve().parent / "benchmark/configs/lrkt-deepsdf.json"
+DENSE_CFG = Path(__file__).resolve().parent / "benchmark/configs/lrkt-dense.json"
+DEEPSDF_FRAMES = 240
+DEEPSDF_SEED = 2718281828
+WIDE_GRAD_N = (8192, 1, 8191)          # the point budget, and ragged
+WIDE_FWD_N = (1 << 20, 1, 524287)      # one export dispatch, and ragged
 N_MAIN = 41          # frames on the main path: fusions at 0, 20 and 40
 N_PROFILE = 3
 CHUNK = 12           # frames a chunk, as bench.py streams them
@@ -495,6 +517,201 @@ def check_decode_fused(packed, fused_mod, dev):
             "library_note": "no single PyTorch call computes the decoder MLP",
             "shape": f"N={n}, f32 in and out, 3xTF32 products",
             "flops": flops, "bytes": nbytes}
+
+
+def check_wide(dec, packed, fused_mod, build_info, dev) -> list:
+    """The wide instances of kernels 1 and 3 at DeepSDF's widths against
+    their plain versions, and timed by graph replay beside the port's plain
+    path (Decoder.decode in f32 with TF32 off; autograd for kernel 1's
+    gradient).  Tolerances, both f32 computations summing 512-wide dots in
+    another order through 9 layers (3xTF32 keeps ~22 bits of each
+    product): sdf/std atol 2e-5; grad atol 1e-4 + rtol 1e-4, where a row at
+    a relu kink may match either one-sided derivative
+    (``decoder_fused.grad_rows_off``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L = dec.spec.latent_size
+    flops_fwd, flops_grad = (float(f) for f in decoder_flops(dec.spec))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for name, counter, sizes, make_rel in (
+            ("decode_grad_wide", "decode_grad_kernel_wide", WIDE_GRAD_N,
+             lambda n: torch.rand(n, 3, generator=gen, device=dev) - 0.5),
+            ("decode_fwd_wide", "decode_fwd_kernel_wide", WIDE_FWD_N,
+             lambda n: torch.rand(n, 3, generator=gen, device=dev) * 1.75 - 1.0)):
+        grad = name == "decode_grad_wide"
+        worst, kink_rows, main_inputs = 0.0, 0, None
+        for n in sizes:
+            lat = torch.randn(n, L, generator=gen, device=dev) * 0.3
+            rel = make_rel(n)
+            before = _build_counts(name)
+            got = (fused_mod.decode_grad_fused if grad else fused_mod.decode_fused)(
+                packed, lat, rel)
+            ref = (fused_mod.decode_grad_plain if grad else fused_mod.decode_fused_plain)(
+                packed, lat, rel)
+            torch.cuda.synchronize()
+            if _build_counts(name) != before + 1:
+                fail(f"{name} at N={n}: not one counted launch")
+            for what, g, r in (("sdf", got[0], ref[0]), ("std", got[1], ref[1])):
+                err = (g - r).abs()
+                if not torch.isfinite(g).all() or bool((err > 2e-5).any()):
+                    fail(f"{name} {what} at N={n}: max abs err {err.max().item():.3g}")
+                worst = max(worst, err.max().item())
+            if grad:
+                if not torch.isfinite(got[2]).all():
+                    fail(f"{name} grad at N={n}: not finite")
+                off = fused_mod.grad_rows_off(got[2], packed, lat, rel)
+                if bool(off.any()):
+                    fail(f"{name} grad at N={n}: {int(off.sum())} rows off")
+                err = (got[2] - ref[2]).abs()
+                beyond = (err > 1e-4 + 1e-4 * ref[2].abs()).any(dim=1)
+                kink_rows += int(beyond.sum())
+                if not bool(beyond.all()):
+                    worst = max(worst, err[~beyond].max().item())
+            if main_inputs is None:
+                main_inputs = (lat, rel)
+        lat, rel = main_inputs
+        n = lat.shape[0]
+
+        def call():
+            return (fused_mod.decode_grad_fused if grad else fused_mod.decode_fused)(
+                packed, lat, rel)
+
+        def plain_path():
+            if not grad:
+                return dec.decode(lat, rel)
+            x = rel.detach().requires_grad_(True)
+            with torch.enable_grad():
+                sdf, std = dec.decode(lat, x)
+                g, = torch.autograd.grad(sdf, x, grad_outputs=torch.ones_like(sdf))
+            return sdf, std, g
+        reps = 50 if grad else 3
+        flops = (flops_grad if grad else flops_fwd) * n
+        nbytes = 4.0 * (n * (L + 3) + n * (5 if grad else 2) + dec_param_count(dec))
+        out.append({"name": name, "route": "cuda",
+                    "source": "difusion_tpu_torch/csrc/decoder_wide.cu",
+                    "replaces": "difusion_tpu/ops/decoder_fused.py:189" if grad else
+                                "difusion_tpu/ops/decoder_fused.py:105",
+                    "max_abs_err": worst, "grad_rows_at_relu_kink": kink_rows,
+                    "ms": graph_ms(call, reps), "eager_ms": time_ms(call, 10, per_batch=3),
+                    "host_us": host_us(call, 20),
+                    "plain_path_ms": graph_ms(plain_path, reps),
+                    "plain_ms": time_ms(lambda: (fused_mod.decode_grad_plain if grad else
+                                                 fused_mod.decode_fused_plain)(packed, lat, rel),
+                                        3, per_batch=2),
+                    **decoder_bounds(flops, nbytes),
+                    "bound_once_ms": bound_ms(flops, nbytes, PEAK_TF32_FLOPS)[0],
+                    **ptxas_of(build_info, "decoder_wide", counter),
+                    "library_ms": None,
+                    "library_note": "no single PyTorch call computes the decoder MLP",
+                    "shape": f"N={n}, DeepSDF 8 x 512, code {L}, f32 in and out, 3xTF32",
+                    "flops": flops, "bytes": nbytes})
+    return out
+
+
+def _build_counts(name: str) -> int:
+    from difusion_tpu_torch.ops import _build
+    return _build.launch_counts().get(name, 0)
+
+
+def decoder_flops(spec) -> tuple:
+    """(forward, forward + d sdf/d xyz) FLOPs a point, counted once, from
+    the benchmark's counts (benchmark/flops.py)."""
+    from benchmark import flops
+    hyper = {"code_length": spec.latent_size,
+             "network_specs": {"dims": list(spec.dims), "latent_in": list(spec.latent_in)}}
+    return flops.decoder_fwd_flops(hyper), flops.decoder_grad_flops(hyper)
+
+
+def dec_param_count(dec) -> int:
+    return sum(p.numel() for p in dec.parameters())
+
+
+def deepsdf_phase(dev, kernels, fused_mod, build_info) -> None:
+    """The deepsdf phase (see the module docstring): emits its lines and adds
+    the wide instances to ``kernels``."""
+    from benchmark import drive
+    from difusion_tpu_torch.data.production import mesh_error_stats
+    from difusion_tpu_torch.ops import _build
+    from difusion_tpu_torch.slam import load_prior
+    cfg = json.loads(DEEPSDF_CFG.read_text())
+    root = Path(__file__).resolve().parent
+    dec, _, spec = load_prior(root / cfg["training_hypers"], int(cfg["using_epoch"]), device=dev)
+    if not fused_mod.supports_spec(spec, dev):
+        fail(f"deepsdf: the fused kernels do not take {spec}")
+    packed = fused_mod.pack_fused_decoder(dec)
+    wide = check_wide(dec, packed, fused_mod, build_info, dev)
+    emit({"phase": "deepsdf_kernels", "kernels": wide})
+    kernels.extend(wide)
+    del packed, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the export of the lap's map under both priors, on one seed
+    traffic = json.loads((root / "benchmark/traffic/export-r8.json").read_text())
+    exports = {}
+    for name, path in (("lrkt-dense", DENSE_CFG), ("lrkt-deepsdf", DEEPSDF_CFG)):
+        c = json.loads(path.read_text())
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        drv = drive.ExportDriver(c, traffic, DEEPSDF_SEED, dev, drive.Spans())
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv._one()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        tris = drv.mesher.triangles()[0]
+        counts = _build.launch_counts()
+        merr = mesh_error_stats(tris)
+        exports[name] = {"setup_s": setup_s, "extract_ms": ms, **merr,
+                         "launches": {k: v for k, v in counts.items() if "decode" in k},
+                         **drv.mesher.last_stats}
+        want = "decode_fwd_wide" if name == "lrkt-deepsdf" else "decode_fused"
+        others = {k: v for k, v in counts.items()
+                  if k.startswith("decode") and k != want and v}
+        if drv.mesher.last_stats.get("decode_instance") != want or not counts.get(want) or others:
+            fail(f"deepsdf export {name}: decoded by {drv.mesher.last_stats.get('decode_instance')}"
+                 f", launches {counts}")
+        check_mesh(f"deepsdf export {name}", tris, merr)
+        drv.free()
+        del drv
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "deepsdf_export", "seed": DEEPSDF_SEED, "r": traffic["resolution"],
+          **exports})
+
+    # DEEPSDF_FRAMES frames of the lap through run_sequence(chunk=12)
+    lap = drive.render_lap(cfg, DEEPSDF_SEED, dev)
+    system, calib = drive.build_system(cfg, dev, meshing=False)
+    if system.tracker.packed is None or not system.tracker.sdf_fused:
+        fail("deepsdf: the tracker does not take the fused route")
+    system.first_iso = drive.gt_pose(lap, 0)
+    _build.reset_launch_counts()
+    run = run_chunked(system, drive.LapStream(lap, calib, 0, DEEPSDF_FRAMES), DEEPSDF_FRAMES)
+    counts = _build.launch_counts()
+    prog = next(iter(system.tracker.programs.values())).program
+    passes = prog.loop_passes()
+    Rs, ts = system.tracker.pose_history()
+    ts = ts.double().cpu().numpy()
+    gt = np.stack([lap.t[lap.index(k)] for k in range(len(ts))])
+    ate = float(np.sqrt(((ts - gt) ** 2).sum(1).mean()))
+    tracked = len(ts) - 1
+    line = {"phase": "deepsdf_track", "frames": len(ts), "chunk": CHUNK,
+            "ms_per_frame": run["ms_per_frame"], "run_s": run["run_s"],
+            "loop_passes": passes, "gn_passes_per_frame": sum(passes) / max(tracked, 1),
+            "launches": {k: v for k, v in counts.items() if "decode" in k or "window" in k},
+            "ate_rmse_m": ate, "n_occupied": int(system.state.n_occupied)
+            if hasattr(system.state, "n_occupied") else None}
+    emit(line)
+    if counts.get("decode_grad_fused", 0) or counts.get("decode_grad_bf16", 0):
+        fail(f"deepsdf track: a 128-wide kernel-1 launch: {counts}")
+    if counts.get("decode_grad_wide", 0) < 2 * tracked:
+        fail(f"deepsdf track: {counts.get('decode_grad_wide', 0)} wide kernel-1 launches "
+             f"for {tracked} tracked frames")
+    if not ate <= MAX_ATE:
+        fail(f"deepsdf track: ATE {ate:.4f} m > {MAX_ATE} m")
+    next(k for k in kernels if k["name"] == "decode_grad_wide")["launches_deepsdf_track"] = \
+        counts.get("decode_grad_wide", 0)
 
 
 # kernel 2's edge shapes: (H, W, window).  The 32 x 4R tile's edges (whole
@@ -2399,6 +2616,13 @@ def main() -> int:
     _build.reset_launch_counts()
     emit(xprof_check(slam_mod))
     kernels[4]["launches_xprof"] = _build.launch_counts().get("decode_fwd_bf16", 0)
+
+    # ---- deepsdf: the wide kernels, the export and tracking at DeepSDF's widths ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    deepsdf_phase(dev, kernels, fused_mod, info)
+    kernels[4]["launches_deepsdf"] = _build.launch_counts().get("decode_fwd_bf16", 0)
 
     # kernel 3's bf16 mode is on no path: every phase's count must be 0
     stray = {key: n for key, n in kernels[4].items() if key.startswith("launches") and n}

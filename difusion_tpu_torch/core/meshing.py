@@ -320,7 +320,8 @@ class _MeshExtractorBase:
                  max_eval_points: int = 1 << 20, shard: bool = False):
         self.decoder = decoder
         self.packed = (_fused.pack_fused_decoder(decoder)
-                       if _fused.supports_spec(decoder.spec) else None)
+                       if _fused.supports_spec(decoder.spec,
+                                               decoder.uncertainty.weight.device) else None)
         self.r = int(voxel_resolution)
         self.max_triangles = int(max_triangles)
         self.interpolate = interpolate
@@ -458,6 +459,8 @@ class _MeshExtractorBase:
         n_sub = self.r ** 3
         C_mc = min(_next_bucket(max(self.max_eval_points // (4 * n_sub), 64)), B)
         self.last_stats.update(bucket=B, sites_per_dispatch=C * per_block,
+                               decode_instance=_fused.instance_name(
+                                   self.packed, state.latents.shape[1], dev),
                                decode_dispatches=B // C, decode_devices=max(len(shards), 1),
                                mc_chunks=B // C_mc,
                                decoder_evals=B * evals_per_block)

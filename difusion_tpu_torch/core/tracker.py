@@ -202,10 +202,10 @@ def resolve_sdf_fused(tcfg: TrackerConfig, spec, device) -> bool:
     if tcfg.sdf_fused == "off":
         return False
     if tcfg.sdf_fused == "on":
-        if not supports_spec(spec):
+        if not supports_spec(spec, device):
             raise ValueError(f"sdf_fused='on' but {spec} is unsupported")
         return True
-    return supports_spec(spec) and torch.device(device).type == "cuda"
+    return supports_spec(spec, device) and torch.device(device).type == "cuda"
 
 
 class ProcessedFrame(NamedTuple):

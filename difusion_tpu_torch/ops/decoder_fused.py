@@ -32,11 +32,25 @@ by ``w_stack.dtype``: the inputs and every hidden activation are rounded to
 bf16, each backward ``dz`` after its relu mask too, and every product sums
 in f32.  The bf16 instances count their launches as ``decode_grad_bf16``
 and ``decode_fwd_bf16``.
+
+Decoders too wide for shared memory take the wide instances
+(``csrc/decoder_wide.cu``): any di_decoder whose hidden layers share one
+width H, a multiple of 64 up to 512, with the input fed again at one layer
+(:func:`wide_layout`), DeepSDF's 8 x 512 at code 256 among them.  Their
+pack (:class:`WideLayout`) holds each layer's ``W^T`` zero-padded to tile
+multiples, the biases, heads and xyz columns, then the kernels' f32
+fragments of every forward and backward matrix (:func:`_wide_frag`), after
+a head ``meta`` = (L, H, D, J).  The wrappers tell it from the 128-wide
+packs by that head on the CPU and by its size on the card (each compiled
+instance's is known), launch the instance ``WIDE_INSTANCES`` names and
+count it as ``decode_grad_wide`` / ``decode_fwd_wide``.  f32 only
+(3xTF32).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,9 +79,220 @@ FWD_MACS = DIN * HID + HID * HID + HID * H2 + HID * HID + 2 * HID
 BWD_MACS = HID * H2 + H2 * HID + HID * HID + 2 * HID * 3
 
 
-def supports_spec(spec: DecoderSpec) -> bool:
+def _is_narrow(spec: DecoderSpec) -> bool:
+    """The 128-wide kernels' decoder (``csrc/decoder_grad.cu``)."""
     return (tuple(spec.dims) == (HID,) * 4 and tuple(spec.latent_in) == (3,)
             and spec.latent_size == LAT)
+
+
+def supports_spec(spec: DecoderSpec, device=None) -> bool:
+    """Whether the fused kernels take the decoder: the 128-wide one, or one
+    of the wide family (:func:`wide_layout`).  With a CUDA ``device``, a
+    wide decoder also needs its compiled instance (``WIDE_INSTANCES``); its
+    plain versions run any member on the CPU."""
+    if _is_narrow(spec):
+        return True
+    lay = wide_layout(spec)
+    if lay is None:
+        return False
+    return device is None or torch.device(device).type != "cuda" or tuple(lay) in WIDE_INSTANCES
+
+
+# ---------------------------------------------------------------------------
+# The wide instances (csrc/decoder_wide.cu)
+# ---------------------------------------------------------------------------
+
+# (code length L, hidden width H, hidden layers D, latent_in layer J) of every
+# instance csrc/decoder_wide.cu compiles: DeepSDF's decoder
+WIDE_INSTANCES = ((256, 512, 8, 4),)
+
+
+def _rup(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class WideLayout(NamedTuple):
+    """A wide decoder's padded widths and its pack's segments, as
+    ``csrc/decoder_wide.cu``'s ``Wide`` lays them out: layer l takes K(l)
+    inputs to N(l) outputs, the input x = [latent | xyz] padded to K0, layer
+    J-1's output to NJ (a multiple of 64), layer J's input [h_{J-1} | x]."""
+    L: int
+    H: int
+    D: int
+    J: int
+
+    @property
+    def IN(self) -> int:
+        return self.L + 3
+
+    @property
+    def K0(self) -> int:
+        return _rup(self.IN, 8)
+
+    @property
+    def NJ(self) -> int:
+        return _rup(self.H - self.IN, 64)
+
+    def K(self, l: int) -> int:
+        return self.K0 if l == 0 else (self.NJ + self.K0 if l == self.J else self.H)
+
+    def N(self, l: int) -> int:
+        return self.NJ if l == self.J - 1 else self.H
+
+    def HK(self, l: int) -> int:
+        """The hidden part of layer l's input (l >= 1): the backward's width."""
+        return self.NJ if l == self.J else self.H
+
+    @property
+    def key(self) -> str:
+        return "_" + "_".join(str(v) for v in self)
+
+    @property
+    def segments(self) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
+        """(name, shape): ``meta`` (L, H, D, J), W_l^T padded, biases, heads,
+        the xyz columns of layers 0 and J, a pad to 16 bytes, and the
+        kernels' fragments (the forward's W_l^T, l = 0 .. D-1, then the
+        backward's W_l[:, hidden], l = D-1 .. 1)."""
+        D, H = self.D, self.H
+        segs = [("meta", (4,))]
+        segs += [(f"f{l}", (self.K(l), self.N(l))) for l in range(D)]
+        segs += [(f"b{l}", (self.N(l),)) for l in range(D)]
+        segs += [("w_sdf", (H,)), ("w_std", (H,)), ("b_head", (4,)),
+                 ("w0_xyz", (self.N(0), 3)), ("wJ_xyz", (H, 3))]
+        head = sum(int(torch.Size(s).numel()) for _, s in segs)
+        frag = (sum(self.K(l) * self.N(l) for l in range(D))
+                + sum(self.N(l) * self.HK(l) for l in range(1, D)))
+        return tuple(segs) + (("pad", (-head % 4,)), ("frag", (frag,)))
+
+    @property
+    def size(self) -> int:
+        return sum(int(torch.Size(s).numel()) for _, s in self.segments)
+
+
+def wide_layout(spec: DecoderSpec) -> Optional[WideLayout]:
+    """The wide family: hidden layers of one width H, a multiple of 64 up to
+    512, the input fed again at one layer 1 <= J < D, and L + 3 < H (so the
+    layer before J has outputs).  None for any other spec."""
+    dims, lin = tuple(spec.dims), tuple(spec.latent_in)
+    if not dims or len(set(dims)) != 1 or len(lin) != 1:
+        return None
+    H, D, J, L = dims[0], len(dims), lin[0], spec.latent_size
+    if H % 64 or H > 512 or not 1 <= J < D or L + 3 >= H:
+        return None
+    return WideLayout(L, H, D, J)
+
+
+# a compiled instance's pack size -> its layout: how a wrapper tells a wide
+# pack on the card, with no read of it
+_WIDE_BY_SIZE = {WideLayout(*i).size: WideLayout(*i) for i in WIDE_INSTANCES}
+
+
+def _wide_of(packed: torch.Tensor, L: int) -> Optional[WideLayout]:
+    """A wide pack's layout for latents of width L; None for the 128-wide
+    packs and for any other.  On the CPU it is read from the pack's
+    ``meta``; on the card only a compiled instance's size names one."""
+    n = packed.numel()
+    if n in (PACKED_SIZE, PACKED_SIZE_BF16):
+        return None
+    if packed.is_cuda:
+        lay = _WIDE_BY_SIZE.get(n)
+    else:
+        meta = packed[:4].tolist()
+        if len(meta) < 4 or not all(math.isfinite(v) and v == int(v) for v in meta):
+            return None
+        _, H, D, J = (int(v) for v in meta)
+        if int(meta[0]) != L or not 0 < D * H * H <= n:
+            return None
+        lay = wide_layout(DecoderSpec(L, (H,) * D, latent_in=(J,)))
+    if lay is None or lay.size != n or lay.L != L:
+        return None
+    return lay
+
+
+def _wide_frag(b: torch.Tensor) -> torch.Tensor:
+    """A (K, N) right-hand matrix of ``act @ b`` -> the wide kernels' f32 B
+    fragments, (K/8, N/8, 32, 2): lane 4g + t of (k-tile kt, n-tile nt)
+    holds b[8kt + 2t, 8nt + g] and b[8kt + 2t + 1, 8nt + g], the rows of
+    :func:`_tc_frag` unsplit (the kernels split them in registers)."""
+    k, n = b.shape
+    v = b.reshape(k // 8, 4, 2, n // 8, 8).permute(0, 3, 4, 1, 2)  # kt nt g t e
+    return v.reshape(k // 8, n // 8, 32, 2)
+
+
+def _pack_wide(decoder: Decoder, lay: WideLayout) -> torch.Tensor:
+    L, H, D, J, IN, NJ = lay.L, lay.H, lay.D, lay.J, lay.IN, lay.NJ
+    w = [lin.weight.detach().float() for lin in decoder.layers]   # (out, in)
+    b = [lin.bias.detach().float() for lin in decoder.layers]
+    dev = w[0].device
+    parts = {}
+    for l in range(D):
+        f = torch.zeros(lay.K(l), lay.N(l), device=dev)
+        out = w[l].shape[0]
+        if l == J:   # rows: the hidden inputs, then x after the padded NJ
+            f[:H - IN, :out] = w[l][:, :H - IN].T
+            f[NJ:NJ + IN, :out] = w[l][:, H - IN:].T
+        else:
+            f[:w[l].shape[1], :out] = w[l].T
+        bias = torch.zeros(lay.N(l), device=dev)
+        bias[:out] = b[l]
+        parts[f"f{l}"], parts[f"b{l}"] = f, bias
+    u = decoder.uncertainty
+    parts["w_sdf"] = w[D][0]
+    parts["w_std"] = u.weight.detach().float()[0]
+    parts["b_head"] = torch.cat([b[D], u.bias.detach().float(), torch.zeros(2, device=dev)])
+    parts["w0_xyz"] = parts["f0"][L:L + 3].T
+    parts["wJ_xyz"] = parts[f"f{J}"][NJ + L:NJ + L + 3].T
+    parts["meta"] = torch.tensor([L, H, D, J], dtype=torch.float32, device=dev)
+    parts["pad"] = torch.zeros(dict(lay.segments)["pad"], device=dev)
+    parts["frag"] = torch.cat(
+        [_wide_frag(parts[f"f{l}"]).reshape(-1) for l in range(D)]
+        + [_wide_frag(parts[f"f{l}"][:lay.HK(l)].T.contiguous()).reshape(-1)
+           for l in range(D - 1, 0, -1)])
+    flat = torch.cat([parts[name].contiguous().reshape(-1) for name, _ in lay.segments])
+    assert flat.numel() == lay.size
+    return flat
+
+
+def unpack_wide(packed: torch.Tensor, lay: WideLayout) -> Dict[str, torch.Tensor]:
+    """Views of a wide pack's segments by name."""
+    out, off = {}, 0
+    for name, shape in lay.segments:
+        size = int(torch.Size(shape).numel())
+        out[name] = packed[off:off + size].view(shape)
+        off += size
+    return out
+
+
+def _wide_forward(p: Dict[str, torch.Tensor], lay: WideLayout, latent: torch.Tensor,
+                  rel: torch.Tensor):
+    """The wide kernels' forward written out over the padded segments: (x,
+    the preactivations z_l, the activations h_l, sdf, std)."""
+    x = F.pad(torch.cat([latent, rel], dim=1), (0, lay.K0 - lay.IN))
+    h, zs, hs = x, [], []
+    for l in range(lay.D):
+        inp = torch.cat([h, x], dim=1) if l == lay.J else h
+        z = inp @ p[f"f{l}"] + p[f"b{l}"]
+        h = torch.relu(z)
+        zs.append(z)
+        hs.append(h)
+    sdf = torch.tanh(h @ p["w_sdf"] + p["b_head"][0])
+    std = 0.05 + 0.5 * F.softplus(h @ p["w_std"] + p["b_head"][1])
+    return x, zs, hs, sdf, std
+
+
+def _wide_grad(p: Dict[str, torch.Tensor], lay: WideLayout, masks,
+               sdf: torch.Tensor) -> torch.Tensor:
+    """The sdf-only backward under the relu masks [h_l > 0]: dz_{D-1} =
+    (1 - sdf^2) w_sdf, each dz_{l-1} = dz_l W_l[:, hidden] masked; d sdf /
+    d xyz = dz_J W_J[:, xyz] + dz_0 W_0[:, xyz]."""
+    zero = torch.zeros((), dtype=sdf.dtype, device=sdf.device)
+    dz = torch.where(masks[-1], (1.0 - sdf * sdf)[:, None] * p["w_sdf"], zero)
+    g_j = None
+    for l in range(lay.D - 1, 0, -1):
+        if l == lay.J:
+            g_j = dz @ p["wJ_xyz"]
+        dz = torch.where(masks[l - 1], dz @ p[f"f{l}"][:lay.HK(l)].T, zero)
+    return g_j + dz @ p["w0_xyz"]
 
 
 def _tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -115,11 +340,17 @@ def pack_fused_decoder(decoder: Decoder, dtype: torch.dtype = torch.float32
     """Folded decoder -> the kernels' flat f32 weight buffer, on the
     decoder's device: (PACKED_SIZE,) for ``dtype`` float32 (3xTF32 products
     at f32 accuracy), (PACKED_SIZE_BF16,) for bfloat16 (the weights rounded
-    to bf16 after the fold, biases f32)."""
-    if not supports_spec(decoder.spec):
-        raise ValueError(f"fused decoder kernel does not support {decoder.spec}")
+    to bf16 after the fold, biases f32).  A wide decoder: its
+    (:attr:`WideLayout.size`,) f32 pack, f32 only."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused decoder kernels compute in float32 or bfloat16, not {dtype}")
+    if not _is_narrow(decoder.spec):
+        lay = wide_layout(decoder.spec)
+        if lay is None:
+            raise ValueError(f"fused decoder kernel does not support {decoder.spec}")
+        if dtype != torch.float32:
+            raise ValueError("the wide kernels compute in float32 (3xTF32) only")
+        return _pack_wide(decoder, lay)
     bf16 = dtype == torch.bfloat16
     rw = bf16_round if bf16 else (lambda t: t)
     w = [rw(lin.weight.detach().float()) for lin in decoder.layers]   # (out, in)
@@ -197,8 +428,12 @@ def _grad(p: Dict[str, torch.Tensor], masks, sdf: torch.Tensor,
 
 def decode_fused_plain(packed: torch.Tensor, latent: torch.Tensor,
                        rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel 3 (either mode, by the pack): the
-    written-out forward."""
+    """Plain PyTorch version of kernel 3 (either mode, by the pack; a wide
+    pack by its layout): the written-out forward."""
+    lay = _wide_of(packed, latent.shape[1])
+    if lay is not None:
+        *_, sdf, std = _wide_forward(unpack_wide(packed, lay), lay, latent, rel)
+        return sdf, std
     *_, sdf, std = _forward(unpack(packed), latent, rel, is_bf16(packed))
     return sdf, std
 
@@ -207,7 +442,13 @@ def decode_grad_plain(packed: torch.Tensor, latent: torch.Tensor,
                       rel: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 1 (either mode, by the pack): the
-    written-out forward and the explicit sdf-only backward recurrence."""
+    written-out forward and the explicit sdf-only backward recurrence (a
+    wide pack by its layout)."""
+    lay = _wide_of(packed, latent.shape[1])
+    if lay is not None:
+        p = unpack_wide(packed, lay)
+        _, _, hs, sdf, std = _wide_forward(p, lay, latent, rel)
+        return sdf, std, _wide_grad(p, lay, [h > 0 for h in hs], sdf)
     p, bf16 = unpack(packed), is_bf16(packed)
     _, _, hs, sdf, std = _forward(p, latent, rel, bf16)
     return sdf, std, _grad(p, [h > 0 for h in hs], sdf, bf16)
@@ -225,27 +466,61 @@ def grad_rows_off(got: torch.Tensor, packed: torch.Tensor, latent: torch.Tensor,
     on the study_mixed prior).  A row whose nearest preactivation is within
     ``kink`` of 0 therefore also passes if it matches, at the same tolerance,
     the other one-sided derivative: the plain gradient with that unit's relu
-    mask flipped."""
-    p, bf16 = unpack(packed), is_bf16(packed)
-    _, zs, hs, sdf, _ = _forward(p, latent, rel, bf16)
-    ref = _grad(p, [h > 0 for h in hs], sdf, bf16)
+    mask flipped.  A wide pack's padding units (preactivation exactly 0,
+    no weight out) are never the nearest."""
+    lay = _wide_of(packed, latent.shape[1])
+    pads = None
+    if lay is not None:
+        p = unpack_wide(packed, lay)
+        _, zs, hs, sdf, _ = _wide_forward(p, lay, latent, rel)
+        pads = [torch.arange(lay.N(l), device=latent.device) >= (lay.H - lay.IN if l == lay.J - 1
+                                                                 else lay.H)
+                for l in range(lay.D)]
+
+        def grad(masks):
+            return _wide_grad(p, lay, masks, sdf)
+    else:
+        p, bf16 = unpack(packed), is_bf16(packed)
+        _, zs, hs, sdf, _ = _forward(p, latent, rel, bf16)
+
+        def grad(masks):
+            return _grad(p, masks, sdf, bf16)
+    ref = grad([h > 0 for h in hs])
     off = ((got - ref).abs() > atol + rtol * ref.abs()).any(dim=1)
     if bool(off.any()):
         z = torch.cat(zs, dim=1)
-        dist, nearest = z.abs().min(dim=1)
+        far = z.abs() if pads is None else torch.where(torch.cat(pads), float("inf"), z.abs())
+        dist, nearest = far.min(dim=1)
         flip = torch.zeros_like(z, dtype=torch.bool)
         flip[torch.arange(z.shape[0], device=z.device), nearest] = True
         flips = flip.split([zl.shape[1] for zl in zs], dim=1)
-        alt = _grad(p, [(h > 0) ^ f for h, f in zip(hs, flips)], sdf, bf16)
+        alt = grad([(h > 0) ^ f for h, f in zip(hs, flips)])
         other_side = ((got - alt).abs() <= atol + rtol * alt.abs()).all(dim=1)
         off &= ~(other_side & (dist < kink))
     return off
 
 
-def _check_inputs(what, packed, latent, rel):
+def instance_name(packed: Optional[torch.Tensor], latent_width: int, device) -> str:
+    """The counter kernel 3 counts its launches under on ``device`` for this
+    pack (``decode_fused``, ``decode_fwd_bf16``, ``decode_fwd_wide``), or
+    ``plain`` where nothing launches (the CPU, or no pack: ``Decoder.decode``)."""
+    if packed is None or torch.device(device).type != "cuda":
+        return "plain"
+    if _wide_of(packed, latent_width) is not None:
+        return "decode_fwd_wide"
+    return "decode_fwd_bf16" if is_bf16(packed) else "decode_fused"
+
+
+def _check_inputs(what, packed, latent, rel) -> Optional["WideLayout"]:
+    """Raise on inputs the kernels do not take; return a wide pack's layout
+    (None for the 128-wide packs)."""
     n = latent.shape[0]
-    size = PACKED_SIZE_BF16 if is_bf16(packed) else PACKED_SIZE
-    for name, t, shape in (("latent", latent, (n, LAT)), ("rel", rel, (n, 3)),
+    lay = _wide_of(packed, latent.shape[1]) if latent.dim() == 2 else None
+    if lay is not None:
+        lat_w, size = lay.L, lay.size
+    else:
+        lat_w, size = LAT, PACKED_SIZE_BF16 if is_bf16(packed) else PACKED_SIZE
+    for name, t, shape in (("latent", latent, (n, lat_w)), ("rel", rel, (n, 3)),
                            ("packed", packed, (size,))):
         if t.device != latent.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -254,12 +529,19 @@ def _check_inputs(what, packed, latent, rel):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if packed.data_ptr() % 16:
         raise ValueError(f"{what}: packed must start on a 16-byte boundary (TMA copies it)")
+    if lay is not None and tuple(lay) not in WIDE_INSTANCES:
+        raise ValueError(f"{what}: no compiled wide instance for {lay}; add it to "
+                         "csrc/decoder_wide.cu and WIDE_INSTANCES")
+    return lay
 
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # library -> its entry points, each with its number of outputs
 _ENTRIES = {"decoder_grad": (("decode_grad_launch", 3), ("decode_fwd_launch", 2)),
-            "decoder_bf16": (("decode_grad_bf16_launch", 3), ("decode_fwd_bf16_launch", 2))}
+            "decoder_bf16": (("decode_grad_bf16_launch", 3), ("decode_fwd_bf16_launch", 2)),
+            "decoder_wide": tuple(e for inst in WIDE_INSTANCES for e in (
+                (f"decode_grad_wide_launch{WideLayout(*inst).key}", 3),
+                (f"decode_fwd_wide_launch{WideLayout(*inst).key}", 2)))}
 
 
 def _load(name: str):
@@ -268,9 +550,13 @@ def _load(name: str):
     lib = _libs.get(name)
     if lib is None:
         lib = _build.load(name)
-        got, want = ((lib.decode_grad_packed_size(), PACKED_SIZE) if name == "decoder_grad"
-                     else (lib.decode_bf16_packed_size(), PACKED_SIZE_BF16))
-        if got != want:
+        if name == "decoder_wide":
+            pairs = [(getattr(lib, f"decode_wide_packed_size{WideLayout(*i).key}")(),
+                      WideLayout(*i).size) for i in WIDE_INSTANCES]
+        else:
+            pairs = [(lib.decode_grad_packed_size(), PACKED_SIZE) if name == "decoder_grad"
+                     else (lib.decode_bf16_packed_size(), PACKED_SIZE_BF16)]
+        if any(got != want for got, want in pairs):
             raise RuntimeError(f"{name}.cu packed layout disagrees with ops/decoder_fused.py")
         for entry, n_out in _ENTRIES[name]:
             fn = getattr(lib, entry)
@@ -293,18 +579,21 @@ def _launch(name, lib, entry, packed, latent, rel, outs):
 def decode_grad_fused(packed: torch.Tensor, latent: torch.Tensor,
                       rel: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(N, 29) latents, (N, 3) voxel-local xyz -> sdf (N,), std (N,),
+    """(N, L) latents, (N, 3) voxel-local xyz -> sdf (N,), std (N,),
     d sdf / d xyz (N, 3).  CUDA tensors launch kernel 1 in the pack's mode
-    (or raise); CPU tensors run :func:`decode_grad_plain`."""
+    or wide instance (or raise); CPU tensors run :func:`decode_grad_plain`."""
     if not latent.is_cuda:
         return decode_grad_plain(packed, latent, rel)
-    _check_inputs("decode_grad_fused", packed, latent, rel)
+    lay = _check_inputs("decode_grad_fused", packed, latent, rel)
     n = latent.shape[0]
     outs = (torch.empty(n, device=latent.device),
             torch.empty(n, device=latent.device),
             torch.empty(n, 3, device=latent.device))
     if n:
-        if is_bf16(packed):
+        if lay is not None:
+            _launch("decode_grad_wide", "decoder_wide", f"decode_grad_wide_launch{lay.key}",
+                    packed, latent, rel, outs)
+        elif is_bf16(packed):
             _launch("decode_grad_bf16", "decoder_bf16", "decode_grad_bf16_launch", packed,
                     latent, rel, outs)
         else:
@@ -315,17 +604,20 @@ def decode_grad_fused(packed: torch.Tensor, latent: torch.Tensor,
 
 def decode_fused(packed: torch.Tensor, latent: torch.Tensor,
                  rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, 29) latents, (N, 3) voxel-local xyz -> sdf (N,), std (N,).  CUDA
-    tensors launch kernel 3 in the pack's mode (or raise); CPU tensors run
-    :func:`decode_fused_plain`.  N = 0 launches nothing."""
+    """(N, L) latents, (N, 3) voxel-local xyz -> sdf (N,), std (N,).  CUDA
+    tensors launch kernel 3 in the pack's mode or wide instance (or raise);
+    CPU tensors run :func:`decode_fused_plain`.  N = 0 launches nothing."""
     if not latent.is_cuda:
         return decode_fused_plain(packed, latent, rel)
-    _check_inputs("decode_fused", packed, latent, rel)
+    lay = _check_inputs("decode_fused", packed, latent, rel)
     n = latent.shape[0]
     outs = (torch.empty(n, device=latent.device),
             torch.empty(n, device=latent.device))
     if n:
-        if is_bf16(packed):
+        if lay is not None:
+            _launch("decode_fwd_wide", "decoder_wide", f"decode_fwd_wide_launch{lay.key}",
+                    packed, latent, rel, outs)
+        elif is_bf16(packed):
             _launch("decode_fwd_bf16", "decoder_bf16", "decode_fwd_bf16_launch", packed,
                     latent, rel, outs)
         else:

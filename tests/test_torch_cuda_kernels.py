@@ -126,6 +126,117 @@ def test_decode_fwd_bf16_kernel_matches_plain(dev, packed_bf16, n):
     torch.testing.assert_close(got[1], ref[1], atol=2e-3, rtol=0)
 
 
+# ---------------------------------------------------------------------------
+# The wide instances (csrc/decoder_wide.cu) at DeepSDF's published widths
+# ---------------------------------------------------------------------------
+
+DEEPSDF = Path(__file__).resolve().parents[1] / "benchmark/configs/lrkt-deepsdf.json"
+# the wide kernels' tolerances: both sides f32 (3xTF32 keeps ~22 bits of
+# each product) summing 512-wide dots in another order through 9 layers
+WIDE_ATOL = 2e-5           # sdf and std
+WIDE_GRAD_TOL = 1e-4       # gradient, atol and rtol, a row at a relu kink either side
+
+
+@pytest.fixture(scope="module")
+def wide(dev):
+    """DeepSDF's decoder, the in-repo prior, and its wide pack."""
+    import json
+    from difusion_tpu_torch.models.weights import load_prior
+    cfg = json.loads(DEEPSDF.read_text())
+    dec, _, spec = load_prior(DEEPSDF.parents[2] / cfg["training_hypers"],
+                              int(cfg["using_epoch"]), device=dev)
+    assert fused.wide_layout(spec) == (256, 512, 8, 4)
+    return dec, fused.pack_fused_decoder(dec)
+
+
+def _wide_inputs(dev, n, seed, spread):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lat = torch.randn(n, 256, generator=gen, device=dev) * 0.3
+    return lat, torch.rand(n, 3, generator=gen, device=dev) * spread - spread / 2
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 777, 8192, 8193])
+def test_decode_grad_wide_kernel_matches_plain(dev, wide, n):
+    """Kernel 1's wide instance against its plain version at the tracker's
+    8192 points and at the edges of the 32-row warp tile and the 64-row
+    block: sdf/std within WIDE_ATOL, the gradient within WIDE_GRAD_TOL
+    (``grad_rows_off``); one launch counted as decode_grad_wide."""
+    _, packed = wide
+    lat, rel = _wide_inputs(dev, n, n, 1.0)
+    before = _build.launch_counts().get("decode_grad_wide", 0)
+    got = fused.decode_grad_fused(packed, lat, rel)
+    ref = fused.decode_grad_plain(packed, lat, rel)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["decode_grad_wide"] == before + 1
+    torch.testing.assert_close(got[0], ref[0], atol=WIDE_ATOL, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=WIDE_ATOL, rtol=0)
+    off = fused.grad_rows_off(got[2], packed, lat, rel, atol=WIDE_GRAD_TOL, rtol=WIDE_GRAD_TOL)
+    assert not bool(off.any()), f"{int(off.sum())} rows off in grad"
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 4097, 1 << 20])
+def test_decode_fwd_wide_kernel_matches_plain(dev, wide, n):
+    """Kernel 3's wide instance against its plain version over the
+    mesher's lattice range, up to one export dispatch (2^20 sites):
+    sdf/std within WIDE_ATOL; one launch counted as decode_fwd_wide, none
+    for N = 0."""
+    _, packed = wide
+    lat, rel = _wide_inputs(dev, n, n, 1.75)
+    before = _build.launch_counts().get("decode_fwd_wide", 0)
+    got = fused.decode_fused(packed, lat, rel)
+    ref = fused.decode_fused_plain(packed, lat, rel)
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get("decode_fwd_wide", 0) == before + (n > 0)
+    torch.testing.assert_close(got[0], ref[0], atol=WIDE_ATOL, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=WIDE_ATOL, rtol=0)
+
+
+def test_wide_tolerances_refuse_the_tf32_reference(dev, wide):
+    """The control: the same plain versions with the products in TF32 (the
+    precision just below the configuration's f32) fail the tolerances the
+    kernels pass, at 8192 points and at one 2^20-site dispatch."""
+    _, packed = wide
+    lat, rel = _wide_inputs(dev, 8192, 8192, 1.0)
+    lat3, rel3 = _wide_inputs(dev, 1 << 20, 1 << 20, 1.75)
+    ref = fused.decode_grad_plain(packed, lat, rel)
+    ref3 = fused.decode_fused_plain(packed, lat3, rel3)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        low = fused.decode_grad_plain(packed, lat, rel)
+        low3 = fused.decode_fused_plain(packed, lat3, rel3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.synchronize()
+    assert float((low[0] - ref[0]).abs().max()) > WIDE_ATOL
+    assert float((low3[0] - ref3[0]).abs().max()) > WIDE_ATOL
+    off = fused.grad_rows_off(low[2], packed, lat, rel, atol=WIDE_GRAD_TOL, rtol=WIDE_GRAD_TOL)
+    assert bool(off.any())
+
+
+def test_deepsdf_system_takes_the_wide_route(dev, wide):
+    """SLAMSystem.from_config on the DeepSDF configuration with its own
+    tracking block (sdf_fused "on"): the tracker and the mesher hold wide
+    packs, and their decodes launch only the wide instances."""
+    import json
+    from benchmark import drive
+    cfg = json.loads(DEEPSDF.read_text())
+    system, _ = drive.build_system(cfg, dev, meshing=False)
+    dec, _ = wide
+    assert system.tracker.sdf_fused
+    lay = fused._wide_of(system.tracker.packed, 256)
+    assert lay == (256, 512, 8, 4)
+    from difusion_tpu_torch.core.meshing import MeshExtractor
+    mesher = MeshExtractor(system.map_cfg, system.decoder, voxel_resolution=8)
+    assert fused._wide_of(mesher.packed, 256) == lay
+    lat, rel = _wide_inputs(dev, 8192, 3, 1.0)
+    _build.reset_launch_counts()
+    fused.decode_grad_fused(system.tracker.packed, lat, rel)
+    fused.decode_fused(mesher.packed, lat, rel)
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    assert counts == {"decode_grad_wide": 1, "decode_fwd_wide": 1}
+
+
 def _stencil_inputs(dev, shape, seed):
     """A (H, W, 3) point map with negative coordinates too, its bool validity
     map, and the four masked planes of the other entry."""

@@ -103,8 +103,16 @@ def test_pack_layout_and_unsupported_spec(prior):
     w3 = t_dec.layers[3].weight
     assert torch.equal(p["f3"], w3.T) and torch.equal(p["g3"], w3[:, :96])
     assert torch.equal(p["w0_xyz"], t_dec.layers[0].weight[:, 29:])
-    assert not fused.supports_spec(DecoderSpec(dims=(64, 64), latent_in=(1,)))
-    assert fused.supports_spec(DecoderSpec())
+    # outside both the 128-wide kernels and the wide family: a width that is
+    # not a multiple of 64, unequal widths, two latent_in layers
+    assert not fused.supports_spec(DecoderSpec(dims=(96, 96), latent_in=(1,)))
+    assert not fused.supports_spec(DecoderSpec(dims=(128, 64), latent_in=(1,)))
+    assert not fused.supports_spec(DecoderSpec(dims=(128,) * 4, latent_in=(1, 3)))
+    # a member of the wide family: its plain versions on the CPU, no instance
+    # compiled for the card
+    assert fused.supports_spec(DecoderSpec(dims=(64, 64), latent_in=(1,)))
+    assert not fused.supports_spec(DecoderSpec(dims=(64, 64), latent_in=(1,)), "cuda")
+    assert fused.supports_spec(DecoderSpec()) and fused.supports_spec(DecoderSpec(), "cuda")
 
 
 def test_grad_rows_off_takes_the_other_side_only_at_a_kink(prior):

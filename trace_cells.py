@@ -11,7 +11,11 @@ is captured with its stamps.  The benchmark itself leaves the recorder off.
 
 The last line of standard output is the benchmark's result line and more
 keys: ``window`` (the first window's own numbers, taken with the recorder
-on), ``spans`` (:func:`readings`; a number the cell has nothing for is
+on), ``launches`` (every kernel's launches by ``_build.launch_counts()``
+from the process's start to the first window's end: the wide instances
+under ``decode_grad_wide`` and ``decode_fwd_wide``), ``decode_instance``
+(the instance the mesher's last decode used, from its ``last_stats``;
+None where the cell meshes nothing), ``spans`` (:func:`readings`; a number the cell has nothing for is
 None), ``by_name`` (:func:`by_name`), ``segment_ms`` (the tracker's
 segments, ms a frame of the first window) and, with ``--trace 1``,
 ``clock_offset_ns``: the profiler's clock less the host's, from the
@@ -27,6 +31,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from difusion_tpu_torch.ops import _build
+
 SUM = {"feed_wait_ms_per_frame": ("slam.wait_feed",),
        "feeder_ms_per_frame": ("slam.feed.pack", "slam.feed.stack", "slam.feed.upload"),
        "upload_ms_per_frame": ("slam.frame.pack", "slam.frame.upload")}
@@ -36,8 +42,10 @@ class Window:
     """One window of a run: its span on the host clock (ns), its numbers
     and the change of the tracker's segment times over it (ns)."""
 
-    def __init__(self, t0: int, t1: int, out: dict, segments: Dict[str, int]):
+    def __init__(self, t0: int, t1: int, out: dict, segments: Dict[str, int],
+                 launches: Optional[Dict[str, int]] = None, instance: Optional[str] = None):
         self.t0, self.t1, self.out, self.segments = t0, t1, out, segments
+        self.launches, self.instance = launches or {}, instance
 
     def items(self) -> int:
         return int(self.out.get("frames", self.out.get("extracts", 0)))
@@ -58,8 +66,13 @@ def watched(cls, windows: List[Window]):
             out = super().window(seconds)
             t1 = time.perf_counter_ns()
             after = _segment_ns(self)
+            mesher = getattr(self, "mesher", None) or getattr(
+                getattr(self, "system", None), "mesher", None)
             windows.append(Window(t0, t1, out, {k: after[k] - before.get(k, 0)
-                                                for k in after}))
+                                                for k in after},
+                                  {k: v for k, v in _build.launch_counts().items() if v},
+                                  mesher.last_stats.get("decode_instance")
+                                  if mesher is not None else None))
             return out
     return Watched
 
@@ -201,6 +214,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device, spec=None
     result["spans"] = readings(spans, windows[0], tr, tr.port_offset_ns if tr else None,
                                threading.get_ident())
     result["window"] = windows[0].out
+    result["launches"] = windows[0].launches
+    result["decode_instance"] = windows[0].instance
     result["by_name"] = by_name(spans, windows[0])
     n = windows[0].items()
     result["segment_ms"] = {k: 1e-6 * v / n for k, v in windows[0].segments.items()} \
