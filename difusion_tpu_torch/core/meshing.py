@@ -17,23 +17,27 @@ Per extract:
    clear the confidence threshold compact to the front with
    ``torch.nonzero`` -- the extract's one count sync -- and their n
    (cell, slot) rows download in one transfer.
-2. Blocks pad to a power-of-two bucket B.  Each block's (2r)^3 lattice is
-   decoded in chunks of at most ``max_eval_points`` sites, with latents
-   gathered on the device.  The production decoder goes through kernel 3
+2. Each of the n live blocks' (2r)^3 lattices is decoded in dispatches of
+   C blocks (a power of two, at most ``max_eval_points`` sites), the last
+   one holding the blocks that are left, with latents gathered on the
+   device.  Only the batch tables and the marching-cubes block list pad to
+   a power-of-two bucket B (one upload of 4 B bytes); no padding block is
+   decoded.  The production decoder goes through kernel 3
    (``ops.decoder_fused.decode_fused``: the CUDA kernel on the card, its
    plain version on the CPU); any other decoder through ``Decoder.decode``.
    With ``fast`` the decode is coarse-to-fine: the r^3 lattice, trilinear
    upsampling to (2r)^3, and an exact decode of each block's ``refine_k``
    sites nearest the surface -- two decodes a dispatch.
-3. Sparse marching cubes runs in block chunks against the full lattice
-   buffers, so chunk seams are exact (``ops.marching_cubes``: three CUDA
-   kernel launches a chunk on the card, its plain version on the CPU); each
-   chunk costs one count read and one download of its packed rows.
+3. Sparse marching cubes runs in chunks of the n live blocks against the
+   full lattice buffers, so chunk seams are exact (``ops.marching_cubes``:
+   three CUDA kernel launches a chunk on the card, its plain version on the
+   CPU); each chunk costs one count read and one download of its packed
+   rows.
 4. The triangles splice into a host-side cache keyed by latent slot: a
    re-meshed slot's old triangles are replaced.
 
 With ``shard`` (the JAX package's ``shard``, ``mesh_tool --shard``) each
-decode chunk whose block count divides by the number of devices splits into
+decode dispatch whose block count divides by the number of devices splits into
 contiguous block slices, one a device (every visible card by default, as
 ``jax.devices()``): each slice decodes on its device (kernel 3 for the
 production decoder; blocks are independent, so the values are the
@@ -151,6 +155,14 @@ def _lattice(r: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(block_lattice(r)).to(device)
 
 
+def _per_site(latents: torch.Tensor, k: int) -> torch.Tensor:
+    """(C, L) -> (C*k, L), each block's latent once a site, contiguous as
+    the kernel takes it (for one block the expanded reshape is only a view
+    with a zero stride)."""
+    C, L = latents.shape
+    return latents[:, None, :].expand(C, k, L).reshape(C * k, L).contiguous()
+
+
 def _decode_lattice(decoder: Decoder, packed: Optional[torch.Tensor],
                     lat: torch.Tensor, xyz: torch.Tensor):
     """Forward-only decode: kernel 3 for the production decoder (``packed``
@@ -167,10 +179,10 @@ def _eval_and_negate(decoder: Decoder, packed: Optional[torch.Tensor],
     inside/outside convention).  The per-site inputs are materialised as
     contiguous (C*K, 29) and (C*K, 3) tensors, as the kernel takes them."""
     latents = table[slot_chunk]
-    C, L = latents.shape
+    C = latents.shape[0]
     lattice = _lattice(r, table.device)                 # (K, 3)
     K = lattice.shape[0]
-    lat = latents[:, None, :].expand(C, K, L).reshape(C * K, L)
+    lat = _per_site(latents, K)
     xyz = lattice[None].expand(C, K, 3).reshape(C * K, 3)
     sdf, std = _decode_lattice(decoder, packed, lat, xyz)
     side = 2 * r
@@ -206,11 +218,11 @@ def _coarse_to_fine(decoder: Decoder, packed: Optional[torch.Tensor],
     """Decode each block's r^3 lattice and upsample it trilinearly to
     (2r)^3 (three contractions with the align-corners matrix): (C, (2r)^3)
     sdf and std."""
-    C, L = latents.shape
+    C = latents.shape[0]
     K = r ** 3
     coarse = _coarse_lattice(r, latents.device)
     sdf_c, std_c = _decode_lattice(decoder, packed,
-                                   latents[:, None, :].expand(C, K, L).reshape(C * K, L),
+                                   _per_site(latents, K),
                                    coarse[None].expand(C, K, 3).reshape(C * K, 3))
     m = _upsample_matrix(r, latents.device)
 
@@ -236,12 +248,12 @@ def _eval_and_negate_fast(decoder: Decoder, packed: Optional[torch.Tensor],
     (:func:`_refine_sites`) decoded exactly over the interpolation.  Decoder
     evaluations a block: r^3 + refine_k against (2r)^3."""
     latents = table[slot_chunk]
-    C, L = latents.shape
+    C = latents.shape[0]
     side = 2 * r
     sdf_f, std_f = _coarse_to_fine(decoder, packed, latents, r)
     idx = _refine_sites(sdf_f, refine_k)
     sdf_r, std_r = _decode_lattice(
-        decoder, packed, latents[:, None, :].expand(C, refine_k, L).reshape(-1, L),
+        decoder, packed, _per_site(latents, refine_k),
         _lattice(r, table.device)[idx.reshape(-1)])
     sdf_f = sdf_f.scatter(1, idx, sdf_r.reshape(C, refine_k))
     std_f = std_f.scatter(1, idx, std_r.reshape(C, refine_k))
@@ -330,7 +342,7 @@ class _MeshExtractorBase:
         self.max_eval_points = int(max_eval_points)
         self.shard = bool(shard)
         # host<->device traffic of the last extract, excluding the triangle
-        # output itself; and its sizes (blocks, bucket, dispatches)
+        # output itself; and its sizes (blocks, bucket, decoded blocks, dispatches)
         self.last_transfer_bytes = 0
         self.last_stats: dict = {}
         self._n_extracts = 0                  # the mesh.extract spans' item
@@ -418,18 +430,19 @@ class _MeshExtractorBase:
         if s >= 0:
             tracing.end(s)
 
-        # decoder evaluation in chunks of <= max_eval_points lattice sites;
-        # with shard, each chunk in contiguous block slices over the devices
-        # (as the JAX package, only when they divide the chunk), which get
+        # decoder evaluation of the n live blocks in dispatches of C blocks
+        # (<= max_eval_points lattice sites), the last one ragged; with shard,
+        # each dispatch in contiguous block slices over the devices (as the
+        # JAX package, only when they divide its block count), which get
         # their copies of the weights and the latent table once an extract
         per_block = (2 * self.r) ** 3
         C = min(_next_bucket(max(self.max_eval_points // per_block, 1)), B)
+        starts = range(0, n, C)
         shards = _shard_devices(dev) if self.shard else []
-        if len(shards) < 2 or C % len(shards):
-            shards = []
+        split = [len(shards) >= 2 and min(C, n - s0) % len(shards) == 0 for s0 in starts]
         copies = {d: (self.decoder if d == dev else copy.deepcopy(self.decoder).to(d),
                       None if self.packed is None else self.packed.to(d),
-                      state.latents.to(d)) for d in set(shards)}
+                      state.latents.to(d)) for d in (set(shards) if any(split) else ())}
 
         s = tracing.begin("mesh.decode") if tracing.ON else -1
 
@@ -439,12 +452,12 @@ class _MeshExtractorBase:
                                              self.refine_k)
             return _eval_and_negate(decoder, packed, table, chunk, self.r)
         parts = []
-        for s0 in range(0, B, C):
-            chunk = slot_pad_d[s0:s0 + C]
-            if not shards:
+        for s0, sliced in zip(starts, split):
+            chunk = slot_pad_d[s0:min(s0 + C, n)]
+            if not sliced:
                 parts.append(decode(self.decoder, self.packed, state.latents, chunk))
                 continue
-            k = C // len(shards)
+            k = chunk.shape[0] // len(shards)
             pieces = [decode(*copies[d], chunk[j * k:(j + 1) * k].to(d))
                       for j, d in enumerate(shards)]
             parts.append(tuple(torch.cat([q[i].to(dev) for q in pieces]) for i in (0, 1)))
@@ -454,23 +467,25 @@ class _MeshExtractorBase:
         if s >= 0:
             tracing.end(s)
 
-        # marching cubes over block chunks; each chunk's corner blending
-        # reads ANY evaluated neighbour through slot_to_batch
+        # marching cubes over chunks of the live blocks; each chunk's corner
+        # blending reads ANY evaluated neighbour through slot_to_batch
         n_sub = self.r ** 3
         C_mc = min(_next_bucket(max(self.max_eval_points // (4 * n_sub), 64)), B)
         self.last_stats.update(bucket=B, sites_per_dispatch=C * per_block,
                                decode_instance=_fused.instance_name(
                                    self.packed, state.latents.shape[1], dev),
-                               decode_dispatches=B // C, decode_devices=max(len(shards), 1),
-                               mc_chunks=B // C_mc,
-                               decoder_evals=B * evals_per_block)
+                               decoded_blocks=cube_sdf.shape[0],
+                               decode_dispatches=len(starts),
+                               decode_devices=len(shards) if any(split) else 1,
+                               mc_chunks=-(-n // C_mc),
+                               decoder_evals=n * evals_per_block)
         tri_parts, std_parts, blk_parts = [], [], []
         emitted = 0
-        for s0 in range(0, B, C_mc):
+        for s0 in range(0, n, C_mc):
             s = tracing.begin("mesh.mc") if tracing.ON else -1
             budget = min(self.max_triangles, 5 * n_sub * C_mc)
             result = marching_cubes_sparse(
-                indexer_d, slot_to_batch_d, valid_blocks_d[s0:s0 + C_mc], cube_sdf,
+                indexer_d, slot_to_batch_d, valid_blocks_d[s0:min(s0 + C_mc, n)], cube_sdf,
                 cube_std, (nxl, nyl, nzl), self.r, budget, max_std=max_std,
                 interpolate=self.interpolate)
             sw = tracing.begin("mesh.mc.download", wait=True) if tracing.ON else -1

@@ -140,9 +140,11 @@ def shard_part(n_cards: int) -> dict:
     emit(row)
     if not equal or len(plain.triangles()[0]) < 1000:
         fail(f"shard: triangles differ or too few: {row}")
-    if shard.last_stats["decode_devices"] != n_cards \
-            or shard_launches != n_cards * shard.last_stats["decode_dispatches"]:
-        fail(f"shard: kernel 3 did not run once a card for each chunk: {row}")
+    # a dispatch splits over the cards where they divide its block count
+    n, c = plain.last_stats["blocks"], plain.last_stats["sites_per_dispatch"] // 16 ** 3
+    want = sum(n_cards if min(c, n - s0) % n_cards == 0 else 1 for s0 in range(0, n, c))
+    if shard.last_stats["decode_devices"] != n_cards or shard_launches != want:
+        fail(f"shard: kernel 3 did not run once a card for each split dispatch: {row}")
     return row
 
 

@@ -571,6 +571,64 @@ def test_full_extract_through_the_kernels_equals_plain(fused_systems, kind, r):
         assert stats["mc_chunks"] >= 2
 
 
+@pytest.mark.parametrize("r,n", [(4, 1234), (8, 173)])
+@pytest.mark.parametrize("instance", ["decode_fused", "decode_fwd_wide"])
+def test_decode_of_live_blocks_equals_bucket_rows(dev, packed, wide, instance, r, n):
+    """Kernel 3 (the 128-wide instance and the wide one) decodes a block's
+    lattice bit for bit alike whatever else the dispatch holds: the mesher's
+    decode of the first n slots equals the first n rows of its decode of the
+    slot list padded with slot 0 to the power-of-two bucket (one 2^20-site
+    dispatch)."""
+    from difusion_tpu_torch.core import meshing
+    dec, pk = wide if instance == "decode_fwd_wide" else (None, packed)
+    width = 256 if instance == "decode_fwd_wide" else 29
+    assert fused.instance_name(pk, width, dev) == instance
+    gen = torch.Generator(device=dev).manual_seed(n)
+    table = torch.randn(4 * n, width, generator=gen, device=dev) * 0.3
+    B = meshing._next_bucket(n)
+    assert B * (2 * r) ** 3 == 1 << 20
+    slot_pad = torch.zeros(B, dtype=torch.int64, device=dev)
+    slot_pad[:n] = torch.randperm(4 * n, generator=gen, device=dev)[:n]
+    full = meshing._eval_and_negate(dec, pk, table, slot_pad, r)
+    live = meshing._eval_and_negate(dec, pk, table, slot_pad[:n], r)
+    torch.cuda.synchronize()
+    for a, b in zip(live, full):
+        assert a.shape[0] == n and torch.equal(a, b[:n])
+
+
+def test_export_equals_bucket_padded_decode(fused_systems, monkeypatch):
+    """An r = 8 no_cache extract of the fused dense map, which decodes only
+    its live blocks (the last dispatch ragged), emits the triangles and stds
+    of the same extract whose every dispatch decodes the slot list padded
+    with slot 0 to a whole dispatch and keeps the live rows: the padding
+    changed nothing the mesh reads."""
+    from difusion_tpu_torch.core import meshing
+    systems, dec = fused_systems
+    system = systems["dense", "kernels"][0]
+
+    def extract():
+        ex = meshing.MeshExtractor(system.map_cfg, dec, voxel_resolution=8)
+        ex.extract(system.state, max_std=0.15, no_cache=True)
+        torch.cuda.synchronize()
+        return ex.triangles(), ex.last_stats
+    (lt, lstd), stats = extract()
+    C = stats["sites_per_dispatch"] // 16 ** 3
+    n = stats["blocks"]
+    assert stats["decoded_blocks"] == n and n % C
+    original, padded_rows = meshing._eval_and_negate, []
+
+    def padded(decoder, packed, table, chunk, r):
+        slot_pad = torch.zeros(C, dtype=chunk.dtype, device=chunk.device)
+        slot_pad[:chunk.shape[0]] = chunk
+        padded_rows.append(C - chunk.shape[0])
+        return tuple(v[:chunk.shape[0]] for v in original(decoder, packed, table, slot_pad, r))
+    monkeypatch.setattr(meshing, "_eval_and_negate", padded)
+    (pt, pstd), _ = extract()
+    assert padded_rows[-1] > 0 and sum(padded_rows) == C * stats["decode_dispatches"] - n
+    assert len(lt) > 100
+    assert np.array_equal(lt, pt) and np.array_equal(lstd, pstd)
+
+
 # ---------------------------------------------------------------------------
 # The graph program: the tracker's frame as one launch with device-side loops
 # ---------------------------------------------------------------------------

@@ -212,13 +212,112 @@ def test_chunked_extract_matches_unchunked(prior):
                             max_eval_points=64 * 6 ** 3)
     chunked.extract(ts, max_std=MAX_STD)
     assert one.last_stats["decode_dispatches"] == 1
-    assert chunked.last_stats["decode_dispatches"] == chunked.last_stats["bucket"] // 64 > 1
+    assert chunked.last_stats["decode_dispatches"] == -(-chunked.last_stats["blocks"] // 64) > 1
     assert chunked.last_stats["mc_chunks"] > 1
     # chunks emit their triangles one after the other: compare them sorted
     a, b = (np.concatenate([t.reshape(len(t), 9), sd], axis=1)
             for t, sd in (one.triangles(), chunked.triangles()))
     assert len(b) == len(a) > 500
     np.testing.assert_allclose(b[np.lexsort(b.T)], a[np.lexsort(a.T)], atol=1e-6)
+
+
+
+@pytest.fixture(scope="module")
+def ragged_states(prior, tmp_path_factory):
+    """Per backend, a fused state of 337 live blocks (odd, not a power of
+    two) and the state after a second, overlapping fusion whose dirty
+    blocks (365 dense, 371 hash: odd again) re-mesh through the cache."""
+    _, enc, _, _ = prior
+    tmp = tmp_path_factory.mktemp("ragged")
+    out = {}
+    for kind, mod, cfg_kw in (("dense", JM, CFG), ("hash", JHM, HCFG)):
+        jcfg = (JM.MapConfig if mod is JM else JHM.HashMapConfig)(**cfg_kw)
+        create = mod.create_map_state if mod is JM else mod.create_hash_map_state
+        js = mod.integrate_keyframe(jcfg, enc, create(jcfg), *_surface(1, 0.1))
+        states = []
+        for k in range(2):
+            mod.save_map(str(tmp / f"{kind}{k}.npz"), jcfg, js)
+            states.append(M.load_map(tmp / f"{kind}{k}.npz", device="cpu"))
+            js = mod.integrate_keyframe(
+                jcfg, enc, js._replace(mesh_dirty=jnp.zeros_like(js.mesh_dirty)),
+                *_surface(11, 0.45))
+        out[kind] = states
+    return out
+
+
+@pytest.mark.parametrize("shard", [False, True], ids=["unsharded", "sharded"])
+@pytest.mark.parametrize("fast", [False, True], ids=["plain", "fast"])
+@pytest.mark.parametrize("kind", ["dense", "hash"])
+def test_ragged_extract_decodes_only_live_blocks(prior, ragged_states, kind, fast, shard,
+                                                 monkeypatch):
+    """n live blocks, not a power of two, under a max_eval_points of 64
+    blocks a decode dispatch and 128 a marching-cubes chunk: the last
+    dispatch and the last chunk hold only the blocks that are left, no
+    padding block is decoded, and the mesh (first extract, then an
+    incremental one through the cache splice) is the one-dispatch
+    extract's.  Sharded over a device list naming the CPU twice, the full
+    dispatches split in two and the odd last one decodes whole."""
+    t_dec = prior[3]
+    cls = MeshExtractor if kind == "dense" else HashMeshExtractor
+    (tcfg, first), (_, second) = ragged_states[kind]
+    monkeypatch.setattr(meshing, "_shard_devices", lambda dev: [dev] * 2)
+    one = cls(tcfg, t_dec, voxel_resolution=3, fast=fast, shard=shard)
+    ragged = cls(tcfg, t_dec, voxel_resolution=3, fast=fast, shard=shard,
+                 max_eval_points=64 * 6 ** 3)
+    for state, want_n in ((first, 337), (second, 365 if kind == "dense" else 371)):
+        one.extract(state, max_std=MAX_STD)
+        ragged.extract(state, max_std=MAX_STD)
+        st = ragged.last_stats
+        assert st["blocks"] == one.last_stats["blocks"] == want_n
+        assert st["decoded_blocks"] == st["blocks"] == one.last_stats["decoded_blocks"]
+        assert st["bucket"] == 512 and st["sites_per_dispatch"] == 64 * 6 ** 3
+        assert st["decode_dispatches"] == -(-want_n // 64)
+        assert st["mc_chunks"] == -(-want_n // 128)
+        assert one.last_stats["decode_dispatches"] == one.last_stats["mc_chunks"] == 1
+        evals = 3 ** 3 + ragged.refine_k if fast else 6 ** 3
+        assert st["decoder_evals"] == want_n * evals
+        assert st["decode_devices"] == (2 if shard else 1)
+        assert one.last_stats["decode_devices"] == 1
+        # a chunk emits its blocks' triangles slab by slab, so the soups differ
+        # in order; a block's own triangles keep theirs (slab, then subcell):
+        # compare them grouped by block, stably
+        a, b = (np.concatenate([t.reshape(len(t), 9), sd], axis=1)[
+                    np.argsort(m._slot, kind="stable")]
+                for m, (t, sd) in ((one, one.triangles()), (ragged, ragged.triangles())))
+        assert len(b) == len(a) > 500
+        np.testing.assert_allclose(b, a, atol=1e-6)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["plain", "fast"])
+def test_one_block_dispatch_hands_the_kernel_contiguous_inputs(prior, fast, monkeypatch):
+    """A dispatch may hold one block (the last of n = 64 k + 1): its
+    per-site latents reach kernel 3 contiguous, as the card's wrapper
+    requires (one row expanded and reshaped is only a view with a zero
+    stride), and its lattice is the first row of a two-block dispatch's."""
+    t_dec = prior[3]
+    packed = fused.pack_fused_decoder(t_dec)
+    table = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 0.3, (8, 29)).astype(np.float32))
+    slots = torch.tensor([5, 2])
+    rows = []
+
+    def checked(packed, lat, rel):
+        assert lat.is_contiguous() and rel.is_contiguous()
+        rows.append(lat.shape[0])
+        return fused.decode_fused_plain(packed, lat, rel)
+    monkeypatch.setattr(fused, "decode_fused", checked)
+    if fast:
+        refine_k = int(0.2 * 6 ** 3)
+        one, two = (meshing._eval_and_negate_fast(t_dec, packed, table, slots[:m], 3,
+                                                  refine_k) for m in (1, 2))
+        assert rows == [3 ** 3, refine_k, 2 * 3 ** 3, 2 * refine_k]
+    else:
+        one, two = (meshing._eval_and_negate(t_dec, packed, table, slots[:m], 3)
+                    for m in (1, 2))
+        assert rows == [6 ** 3, 2 * 6 ** 3]
+    for a, b in zip(one, two):
+        assert a.shape == (1, 6, 6, 6)
+        torch.testing.assert_close(a, b[:1], atol=1e-6, rtol=0)
 
 
 def test_unsupported_decoder_meshes_through_decode(prior, tmp_path):
