@@ -94,7 +94,7 @@ Phases, each printing one JSON line:
               --fast at r = 8.  Decoder evaluations (cut >= 3x), kernel 3
               launches (2 a dispatch), ms, mesh error p95 (<= 0.05 m).
 8. profile -- torch.profiler over 3 more frames on the per-frame path with
-              its host-loop driver (every kernel a GN loop runs is a record
+              its eager program (every kernel a GN loop runs is a record
               of its own), then over the same 3 frames as one chunk on the
               chunked path: device time by kernel, device calls and busy
               share of both.  The profiler sees one pass of each device-side
@@ -2568,7 +2568,7 @@ def main() -> int:
     syncs_before = system.tracker.n_host_syncs
     k1_before = _build.launch_counts().get("decode_grad_fused", 0)
     frame_profile = profiled(profile_frames)
-    emit({"phase": "profile", "path": "per-frame, host-loop driver", "frames": N_PROFILE,
+    emit({"phase": "profile", "path": "per-frame, eager program", "frames": N_PROFILE,
           **frame_profile, "gn_updates_read": system.tracker.n_host_syncs - syncs_before,
           "decode_grad_launches": _build.launch_counts().get("decode_grad_fused", 0)
           - k1_before})

@@ -22,18 +22,18 @@ The map is the dense one (``core/map.py``) or the hash-indexed one
 (``core/hash_map.py``), chosen by the type of its configuration.
 
 One iteration is :func:`gn_step`, a masked step on a carry of tensors: once
-the carry's ``done`` is set, a further step changes nothing.  Two loops
-run it.  :class:`TrackProgram`, the counterpart of the JAX package's
+the carry's ``done`` is set, a further step changes nothing.  One loop runs
+it: :class:`TrackProgram`, the counterpart of the JAX package's
 one-dispatch ``preprocess_and_track``, runs preprocessing, every group's
 loop and the commit of the result as one
-:class:`~..utils.cudagraph.GraphProgram` whose loops end on the device: on
-the card a tracked frame is one graph launch and the host reads no exit
-flag.  Both the chunked and the per-frame path track through it there.
-:func:`gauss_newton` loops on the host and reads ``done`` after every
-update (each read makes the host wait for the device;
-``SDFTracker.n_host_syncs`` counts them): the CPU's per-frame driver, and
+:class:`~..utils.cudagraph.GraphProgram`.  Every tracked frame, on the
+chunked and the per-frame path, runs as that program.  Captured (on the
+card, by default) a frame is one graph launch whose loops end on the
+device, and the host reads no exit flag.  Uncaptured (on the CPU, and
 ``driver="host"`` of :meth:`SDFTracker.track_camera_packed` on the card,
-where the profiler sees every pass of its loops.
+where the profiler sees every pass of the loops) the same segments run one
+by one and the host reads ``done`` after every pass (each read makes the
+host wait for the device; ``SDFTracker.n_host_syncs`` counts them).
 """
 from __future__ import annotations
 
@@ -561,18 +561,8 @@ def _solve_precond(H: torch.Tensor, g: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Gauss-Newton: one masked step, and the per-frame path's host loop
+# Gauss-Newton: one masked step
 # ---------------------------------------------------------------------------
-
-
-class GNResult(NamedTuple):
-    delta: Pose
-    final: Pose                       # last_pose o delta
-    final_energy: torch.Tensor
-    last_group_iters: torch.Tensor    # () int32 accepted updates in the final group
-    n_unstable: torch.Tensor          # () int32 updated divergence counter
-    rgb_weight: torch.Tensor          # () f32 updated weight (fallback clamp applied)
-    host_syncs: int = 0               # exit flags the host waited for
 
 
 class GNInputs(NamedTuple):
@@ -753,52 +743,6 @@ def gn_step(p: GNProblem, n: int, terms, c: GNCarry,
     return GNCarry(*(torch.where(c.done, old, nxt) for old, nxt in zip(c, new)))
 
 
-def gn_finish(last: Pose, c: GNCarry, rgb_weight: torch.Tensor,
-              n_unstable: torch.Tensor) -> GNResult:
-    """The last group's carry -> the frame's result, with the divergence
-    fallback that clamps the RGB weight back up."""
-    n_accept = torch.clamp(c.i - 1, min=0)        # evaluations - 1 = updates
-    n_unstable = n_unstable + (n_accept >= 10).to(n_unstable.dtype)
-    rgb_weight = torch.where(n_unstable >= 3, torch.clamp(rgb_weight, min=500.0),
-                             rgb_weight)
-    return GNResult(delta=Pose(c.bR, c.bt),
-                    final=Pose(last.R @ c.bR, last.R @ c.bt + last.t),
-                    final_energy=c.bE, last_group_iters=n_accept,
-                    n_unstable=n_unstable, rgb_weight=rgb_weight)
-
-
-def gauss_newton(tcfg: TrackerConfig, map_cfg: M.MapConfig, packed: Optional[torch.Tensor],
-                 cams: Dict[int, LevelCamera], state: M.MapState, last: Pose,
-                 prev: Pyramid, cur: ProcessedFrame, rgb_weight: torch.Tensor,
-                 n_unstable: torch.Tensor, init: Pose,
-                 packed_bf16: Optional[torch.Tensor] = None,
-                 decoder: Optional[Decoder] = None, dcam_scale: float = 0.0) -> GNResult:
-    """Grouped GN schedule with the loop on the host: per group, up to ``n``
-    updates plus a final evaluation-only pass, :func:`gn_step` each,
-    ``gn_unroll`` steps a pass, reading ``done`` after every pass
-    (``host_syncs`` of them).  ``packed=None`` runs the SDF term by autograd
-    through ``decoder``."""
-    p = GNProblem(tcfg, map_cfg, packed, cams, state, last, cur,
-                  gn_prepare(tcfg, state, prev, cur, dcam_scale), rgb_weight,
-                  packed_bf16, decoder)
-    c = gn_group_init(init)
-    syncs = 0
-    for gi, (n, terms) in enumerate(tcfg.iter_config):
-        c = gn_group_init(Pose(c.bR, c.bt))
-        is_last = gi == len(tcfg.iter_config) - 1
-        i = 0
-        while True:
-            for _ in range(tcfg.gn_unroll):
-                c = gn_step(p, n, terms, c, is_last)
-            i += tcfg.gn_unroll
-            if i > n:
-                break
-            syncs += 1
-            if bool(c.done):
-                break
-    return gn_finish(last, c, rgb_weight, n_unstable)._replace(host_syncs=syncs)
-
-
 # ---------------------------------------------------------------------------
 # One tracked frame as one graph launch
 # ---------------------------------------------------------------------------
@@ -827,12 +771,13 @@ class TrackProgram:
     energy), ``cur`` (the frame's :class:`ProcessedFrame`), ``world`` (its
     point cloud under the tracked pose: points, normals, mask).
 
-    The stages run the per-frame path's own functions (:func:`gn_prepare`,
-    :func:`gn_step`, :func:`gn_finish`) in its order, so both paths compute
-    the same values."""
+    ``captured``: whether the program is captured on the card (see
+    :meth:`SDFTracker.program`); uncaptured, its segments run one by one."""
 
-    def __init__(self, tracker: "SDFTracker", packed_shape: Tuple[int, int], w: int):
+    def __init__(self, tracker: "SDFTracker", packed_shape: Tuple[int, int], w: int,
+                 captured: bool):
         self.tr = tracker
+        self.captured = captured
         self.w = w
         dev = tracker.device
         self.packed = torch.zeros(packed_shape, dtype=torch.uint8, device=dev)
@@ -878,8 +823,8 @@ class TrackProgram:
 
     def preprocess_and_track(self, packed: torch.Tensor) -> None:
         """Track one :func:`pack_frame` buffer (on the device) from the
-        loaded state, and advance it.  The first call builds the program (on
-        the card: captures it, on this frame)."""
+        loaded state, and advance it.  The first call builds the program
+        (captured: captures it, on this frame)."""
         self.packed.copy_(packed)
         if self.program is None:
             self._build()
@@ -913,19 +858,26 @@ class TrackProgram:
             self._set_carry(gn_step(self._problem, n, terms, self.carry, is_last_group))
 
     def _finish(self) -> None:
-        res = gn_finish(self.last, self.carry, self.rgb_weight, self.n_unstable)
-        self.world = world_points(self.cur, res.final)
-        self.out.copy_(torch.cat([res.final.R.reshape(-1), res.final.t,
-                                  res.final_energy.reshape(1)]))
+        """Commit the last group's carry: the pose (last o delta), the
+        divergence fallback that clamps the RGB weight back up, and the
+        temporal state."""
+        c, last = self.carry, self.last
+        n_accept = torch.clamp(c.i - 1, min=0)        # evaluations - 1 = updates
+        n_unstable = self.n_unstable + (n_accept >= 10).to(self.n_unstable.dtype)
+        rgb_weight = torch.where(n_unstable >= 3, torch.clamp(self.rgb_weight, min=500.0),
+                                 self.rgb_weight)
+        final = Pose(last.R @ c.bR, last.R @ c.bt + last.t)
+        self.world = world_points(self.cur, final)
+        self.out.copy_(torch.cat([final.R.reshape(-1), final.t, c.bE.reshape(1)]))
         for dst, src in zip(
                 _tensors((self.last, self.delta, self.prev)) + [self.rgb_weight,
                                                                  self.n_unstable],
-                _tensors((res.final, res.delta, self.cur.pyramid)) + [res.rgb_weight,
-                                                                      res.n_unstable]):
+                _tensors((final, Pose(c.bR, c.bt), self.cur.pyramid)) + [rgb_weight,
+                                                                         n_unstable]):
             dst.copy_(src)
 
     def _build(self) -> None:
-        prog = GraphProgram(self.tr.device)
+        prog = GraphProgram(self.tr.device, capture=self.captured)
         prog.add(self._pre, name="pre")
         groups = self.tr.tcfg.iter_config
         for gi, (n, terms) in enumerate(groups):
@@ -955,10 +907,9 @@ class SDFTracker:
     as stacked chunks ((K, 3, 3), (K, 3)), one per commit, and become
     :class:`Isometry` only on export (:attr:`all_pd_pose`, :meth:`pose_at`).
 
-    ``n_host_syncs`` counts the exit flags of the GN loop that the host
-    waited for: one per update of the host loop, none where the frame runs
-    as a :class:`TrackProgram` on the card (on the CPU the program's loop
-    reads them)."""
+    ``n_host_syncs`` counts the exit flags of the GN loops that the host
+    waited for: one a pass of an uncaptured :class:`TrackProgram`, none for
+    a captured one."""
 
     def __init__(self, map_cfg: M.MapConfig, tcfg: TrackerConfig,
                  decoder: Decoder, calib: Intrinsic, device: torch.device):
@@ -984,8 +935,8 @@ class SDFTracker:
         self.last_pose: Optional[Pose] = None
         self.last_pyramid: Optional[Pyramid] = None
         self.last_processed: Optional[ProcessedFrame] = None
-        # the last program-tracked frame's world-space cloud (points,
-        # normals, mask), None after a frame tracked otherwise
+        # the last tracked frame's world-space cloud (points, normals, mask),
+        # its program's own; None after a set_pose frame
         self.last_world: Optional[Tuple[torch.Tensor, ...]] = None
         self.n_unstable = torch.zeros((), dtype=torch.int32, device=device)
         self.rgb_weight = torch.tensor(tcfg.rgb_weight, dtype=torch.float32,
@@ -993,7 +944,9 @@ class SDFTracker:
         self._identity = Pose.identity(device)
         self.last_delta = self._identity
         self.n_host_syncs = 0
-        self.programs: Dict[tuple, TrackProgram] = {}    # by frame shape
+        # by frame shape and whether captured: an uncaptured run rebinds
+        # tensors that a captured graph's pool owns, so the two never share
+        self.programs: Dict[tuple, TrackProgram] = {}
 
     @property
     def n_tracked(self) -> int:
@@ -1029,11 +982,6 @@ class SDFTracker:
         return [Isometry.from_matrix(R, t, ortho=True)
                 for R, t in zip(*self._history_arrays())]
 
-    def _gn_init(self) -> Pose:
-        if self.tcfg.motion_prior == "constant_velocity":
-            return self.last_delta
-        return self._identity
-
     def track_camera(self, state, rgb, depth, set_pose: Optional[Isometry] = None,
                      driver: Optional[str] = None) -> Pose:
         """Track one frame as a camera gives it: ``rgb`` (H, W, 3) uint8 or
@@ -1051,19 +999,24 @@ class SDFTracker:
                             set_pose: Optional[Isometry] = None,
                             driver: Optional[str] = None) -> Pose:
         """Track one :func:`pack_frame` buffer (a uint8 tensor on the
-        tracker's device).  ``set_pose`` fixes the pose instead (frame 0, or a
-        ground-truth pose).  ``driver``: ``"program"`` runs the frame as this
-        shape's :class:`TrackProgram` (one graph launch on the card),
-        ``"host"`` runs :func:`gauss_newton`'s host loop; by default the
-        program on the card and the host loop on the CPU.  Both give the
-        same pose."""
-        if driver is None:
-            driver = "program" if self.device.type == "cuda" else "host"
-        if driver not in ("program", "host"):
+        tracker's device) as this shape's :class:`TrackProgram`.
+        ``set_pose`` fixes the pose instead (frame 0, or a ground-truth
+        pose).  ``driver``: ``"program"`` (the default) captures the program
+        on the card, one graph launch a frame; ``"host"`` runs it uncaptured,
+        the host reading each loop's exit flag after every pass.  On the CPU
+        both run it uncaptured.  Both give the same pose."""
+        if driver not in (None, "program", "host"):
             raise ValueError(f"driver {driver!r} (use 'program' or 'host')")
-        self.last_world = None
-        if set_pose is None and driver == "program":
-            prog = self.program(packed.shape, w)
+        if set_pose is not None:
+            pose = Pose(torch.tensor(set_pose.q.rotation_matrix, dtype=torch.float32,
+                                     device=self.device),
+                        torch.tensor(set_pose.t, dtype=torch.float32,
+                                     device=self.device))
+            self.last_processed = preprocess_packed(self.tcfg, self.calib, packed, w)
+            self.last_pyramid = self.last_processed.pyramid
+            self.last_world = None
+        else:
+            prog = self.program(packed.shape, w, driver)
             prog.load_state(state)
             prog.preprocess_and_track(packed)
             pose = Pose(prog.out[:9].reshape(3, 3).clone(), prog.out[9:12].clone())
@@ -1072,45 +1025,26 @@ class SDFTracker:
             self.rgb_weight, self.n_unstable = prog.rgb_weight, prog.n_unstable
             self.last_processed = prog.cur._replace(pyramid=prog.prev)
             self.last_world = prog.world
-            self.append_pose(pose)
-            return pose
-        processed = preprocess_packed(self.tcfg, self.calib, packed, w)
-        if set_pose is not None:
-            pose = Pose(torch.tensor(set_pose.q.rotation_matrix, dtype=torch.float32,
-                                     device=self.device),
-                        torch.tensor(set_pose.t, dtype=torch.float32,
-                                     device=self.device))
-        else:
-            res = gauss_newton(self.tcfg, self.map_cfg, self.packed, self.cams,
-                               state, self.last_pose, self.last_pyramid,
-                               processed, self.rgb_weight, self.n_unstable,
-                               self._gn_init(), self.packed_bf16, self.decoder,
-                               self.calib.dcam_scale)
-            pose = res.final
-            self.last_delta = res.delta
-            self.n_unstable = res.n_unstable
-            self.rgb_weight = res.rgb_weight
-            self.n_host_syncs += res.host_syncs
-        self.last_pyramid = processed.pyramid
-        self.last_processed = processed
         self.append_pose(pose)
         return pose
 
-    def program(self, packed_shape, w: int) -> TrackProgram:
-        """The :class:`TrackProgram` of this frame shape, loaded with the
-        tracker's temporal state (built at first use)."""
-        key = (tuple(packed_shape), w)
+    def program(self, packed_shape, w: int, driver: Optional[str] = None) -> TrackProgram:
+        """The :class:`TrackProgram` of this frame shape and ``driver`` (see
+        :meth:`track_camera_packed`; captured if and only if the device is
+        CUDA and the driver is not ``"host"``), loaded with the tracker's
+        temporal state (built at first use)."""
+        key = (tuple(packed_shape), w, self.device.type == "cuda" and driver != "host")
         if key not in self.programs:
-            self.programs[key] = TrackProgram(self, key[0], w)
+            self.programs[key] = TrackProgram(self, *key)
         prog = self.programs[key]
         prog.load()
         return prog
 
     def last_pc_world(self, pose: Pose
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """World-space (points, normals, mask) of the last processed frame
-        under ``pose``, its tracked pose: the program's own cloud where the
-        program tracked it."""
+        """World-space (points, normals, mask) of the last frame: the
+        program's own cloud of a tracked frame, and of a ``set_pose`` frame
+        its points under ``pose``, its given pose."""
         if self.last_world is not None:
             return self.last_world
         return world_points(self.last_processed, pose)

@@ -26,10 +26,10 @@ start of the next fusion, on both paths at the same point of the schedule.
 Two paths run that program.  :meth:`SLAMSystem.process_frame` tracks one
 frame at a time, :func:`track_fuse_scan` / :meth:`SLAMSystem.process_chunk`
 K frames from one stacked upload, with fusion between frames on those the
-schedule names.  On the card both track each frame as one launch of the
-tracker's :class:`~.core.tracker.TrackProgram` (a CUDA graph whose GN loops
-end on the device), so the host reads no exit flag; on the CPU the
-per-frame path runs the host loop.  Both compute the same values.
+schedule names.  Both track each frame as the tracker's
+:class:`~.core.tracker.TrackProgram`: on the card one launch of a CUDA graph
+whose GN loops end on the device, so the host reads no exit flag; on the
+CPU the same segments one by one.  Both compute the same values.
 
 Spans (with the recorder on; each carries its frame's index):
 ``slam.run_sequence`` and, inside it, ``slam.wait_feed`` (the main thread
@@ -97,6 +97,7 @@ class ScanCarry(NamedTuple):
     n_unstable: torch.Tensor
     delta: Pose
     processed: ProcessedFrame        # the chunk's last frame
+    world: _PointCloud               # its world-space cloud
     integrated: _PointCloud          # the last fused frame's world-space cloud
 
 
@@ -157,7 +158,8 @@ def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
             integrated = tuple(t.clone() for t in prog.world)
             _end_stage(s, dev, sync)
     carry = ScanCarry(state, prog.last, prog.prev, prog.rgb_weight, prog.n_unstable,
-                      prog.delta, prog.cur._replace(pyramid=prog.prev), integrated)
+                      prog.delta, prog.cur._replace(pyramid=prog.prev), prog.world,
+                      integrated)
     return carry, (outs[:, :9].reshape(K, 3, 3), outs[:, 9:12], outs[:, 12])
 
 
@@ -393,7 +395,8 @@ class SLAMSystem:
         Returns the device pose.  ``packed``: optionally the frame's
         :func:`~.core.tracker.pack_frame` buffer already on the device.
         ``driver``: :meth:`~.core.tracker.SDFTracker.track_camera_packed`'s
-        (by default the program on the card, the host loop on the CPU)."""
+        (by default the program captured on the card; ``"host"`` runs it
+        uncaptured)."""
         set_pose = None
         if self.use_gt_poses:
             if frame.gt_pose is None:
@@ -467,10 +470,7 @@ class SLAMSystem:
         tr.last_pyramid = carry.pyramid
         tr.rgb_weight, tr.n_unstable = carry.rgb_weight, carry.n_unstable
         tr.last_delta = carry.delta
-        # a later per-frame integrate fuses tracker.last_pc_world, which must
-        # see this chunk's final frame
-        tr.last_processed = carry.processed
-        tr.last_world = None
+        tr.last_processed, tr.last_world = carry.processed, carry.world
         tr.append_pose_chunk(Rs, ts)
         if self.mesher is not None and any(
                 (start + k) % self.meshing_interval == 0 for k in range(K)):

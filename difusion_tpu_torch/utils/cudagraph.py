@@ -4,28 +4,30 @@ many" (the JAX package's ``jax.jit`` around ``preprocess_and_track`` and
 
 A :class:`GraphProgram` is a list of segments.  A segment is a callable
 without arguments that works in place on tensors that outlive it (it may
-also leave new tensors where later segments find them: on the card their
+also leave new tensors where later segments find them: captured, their
 memory belongs to the program and every launch rewrites it).  A *loop*
 segment comes with a bool scalar tensor ``done`` that the callable writes;
 it runs until ``done`` is true, at least once.
 
-On a CUDA device :meth:`GraphProgram.build` runs every segment
-``WARM_UP_PASSES`` times on a side stream (so that libraries load, kernels get their attributes and
-constants are uploaded outside any capture), captures each into a
+On a CUDA device (unless ``capture=False``) :meth:`GraphProgram.build`
+runs every segment ``WARM_UP_PASSES`` times on a side stream (so that
+libraries load, kernels get their attributes and constants are uploaded
+outside any capture), captures each into a
 ``torch.cuda.CUDAGraph`` (one memory pool for all), and joins the graphs
 into one executable graph through ``csrc/graph_loop.cu``: a loop segment
 becomes a conditional WHILE node, so its exit test runs on the device and
 :meth:`run` is one ``cudaGraphLaunch`` that waits for nothing.  A failed
 capture raises; nothing falls back to eager execution.
 
-On the CPU, which the caller asked for, :meth:`run` calls the same callables
-in order and reads ``done`` after every pass of a loop.
+Uncaptured (on the CPU, which the caller asked for, or on the card with
+``capture=False``), :meth:`run` calls the same callables in order and reads
+``done`` after every pass of a loop.
 
 Where the span recorder (:mod:`.tracing`) is on when :meth:`build` runs,
 the program times its segments: on the card a one-thread stamp kernel sits
 before the first segment and after each one, reads ``%globaltimer`` and adds
 the time since the last stamp to that segment's device counter (a loop's
-counter takes all its passes); on the CPU the host clock times each
+counter takes all its passes); uncaptured, the host clock times each
 segment.  :meth:`GraphProgram.segment_ns` reads the sums.  With the
 recorder off the program has no stamps: one node a segment.
 """
@@ -81,13 +83,15 @@ def globaltimer_steps(device, n: int = 4096) -> List[int]:
 
 class GraphProgram:
     """See the module's docstring.  Counters: ``n_replays`` (launches of the
-    whole program), ``n_flag_reads`` (exit flags the host read: none on the
-    card), ``capture_s`` (seconds :meth:`build` took, warm-up included),
-    ``n_nodes`` (nodes of the executable graph's top level, on the card) and,
-    where the recorder was on at :meth:`build`, :meth:`segment_ns`."""
+    whole program), ``n_flag_reads`` (exit flags the host read: none when
+    captured), ``capture_s`` (seconds :meth:`build` took, warm-up included),
+    ``n_nodes`` (nodes of the executable graph's top level, when captured)
+    and, where the recorder was on at :meth:`build`, :meth:`segment_ns`.
+    ``capture``: capture on a CUDA device (a CPU program never is)."""
 
-    def __init__(self, device):
+    def __init__(self, device, capture: bool = True):
         self.device = resolve_device(device)
+        self.captured = capture and self.device.type == "cuda"
         self._segments: List[Tuple[Callable[[], None], Optional[torch.Tensor]]] = []
         self.names: List[str] = []
         self._exec: Optional[ctypes.c_void_p] = None
@@ -116,10 +120,11 @@ class GraphProgram:
         self.names.append(name)
 
     def build(self, keep: Sequence[torch.Tensor] = ()) -> None:
-        """Capture the segments (CUDA only).  ``keep``: the tensors that the
-        segments update in place; they hold the same values afterwards.
-        Everything runs on the program's card, whichever card is current."""
-        if self.device.type != "cuda":
+        """Capture the segments (where :attr:`captured`).  ``keep``: the
+        tensors that the segments update in place; they hold the same values
+        afterwards.  Everything runs on the program's card, whichever card is
+        current."""
+        if not self.captured:
             self._host_ns = [0] * len(self._segments) if tracing.ON else None
             return
         t0 = time.perf_counter()
@@ -172,7 +177,7 @@ class GraphProgram:
         torch.cuda.synchronize(self.device)
 
     def run(self) -> None:
-        if self.device.type == "cuda":
+        if self.captured:
             if self._exec is None:
                 raise RuntimeError("GraphProgram.run before build")
             _build.check(_build.launch_on(self.device.index, _lib.graph_program_launch,

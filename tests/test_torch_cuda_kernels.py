@@ -694,9 +694,9 @@ def tracked(dev):
 
 def test_graph_replay_of_gn_step_equals_eager(tracked):
     """The chunked path (graph replays, the loops on the card) gives the
-    per-frame path's host-loop driver's poses and map bit for bit, reads no
-    exit flag, and launches kernels 1 and 2 from inside the captured
-    graphs."""
+    poses and map of the per-frame path's ``driver="host"`` (the same
+    program uncaptured) bit for bit, reads no exit flag, and launches
+    kernels 1 and 2 from inside the captured graphs."""
     make, frames, packed = tracked
     eager, graphed = make(), make()
     for frame in frames[1:]:
@@ -708,7 +708,9 @@ def test_graph_replay_of_gn_step_equals_eager(tracked):
         assert torch.equal(a, b), (a - b).abs().max()
     assert torch.equal(graphed.state.latents, eager.state.latents)
     assert graphed.tracker.n_host_syncs == 0 < eager.tracker.n_host_syncs
+    assert not next(iter(eager.tracker.programs.values())).program.captured
     prog = next(iter(graphed.tracker.programs.values()))
+    assert prog.program.captured
     from difusion_tpu_torch.utils.cudagraph import WARM_UP_PASSES
     assert prog.program.n_replays == 3
     assert counts["window_stat_sums"] == 3 + WARM_UP_PASSES

@@ -1,9 +1,10 @@
 """The port's chunked path (``track_fuse_scan`` / ``process_chunk`` /
-``run_sequence``) and its per-frame path's two drivers on the CPU: against
-each other, which they must reproduce exactly, and against the JAX package
-at 120x160 with the in-repo prior, on the dense and the hash map and under
-each ``solve_dtype``.  On the CPU the tracker's program runs the same stage
-functions eagerly that the card replays as one CUDA graph."""
+``run_sequence``) and its per-frame path (``process_frame``, both drivers)
+on the CPU: against each other, which they must reproduce exactly, and
+against the JAX package at 120x160 with the in-repo prior, on the dense and
+the hash map and under each ``solve_dtype``.  On the CPU the tracker's
+program runs the same stage functions eagerly that the card replays as one
+CUDA graph."""
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +30,7 @@ from difusion_tpu_torch.data.production import SyntheticSequence
 from difusion_tpu_torch.ops.imgproc import Intrinsic
 from difusion_tpu_torch.ops.se3 import Pose
 from difusion_tpu_torch.slam import SLAMSystem, load_prior, track_fuse_scan
+from difusion_tpu_torch.utils.motion import Isometry
 
 HYPER = Path(__file__).resolve().parents[1] / "di-checkpoints/study_mixed/hyper.json"
 CALIB = (300.0, 300.0, 79.5, 59.5, 5000.0)
@@ -115,30 +117,39 @@ def _assert_poses_close(got, ref):
         assert angle < 1e-4, (k, angle)
 
 
-def test_program_matches_host_loop_on_one_frame(port):
-    """The masked-step program (``TrackProgram``) against the host-loop
-    ``gauss_newton`` on frame 1: every ``GNResult`` field ``torch.equal``."""
+def test_program_matches_host_loop_on_one_frame(port, jax_prior):
+    """The tracker's program (``TrackProgram``) against the JAX package's
+    host-called ``gauss_newton`` on frame 1, each from its own package's
+    frame 0: the pose within 1e-4 m and 1e-4 rad, and ``n_unstable``,
+    ``rgb_weight`` and the last group's updates equal; the program's
+    preprocessed frame ``torch.equal`` to ``preprocess_packed``'s."""
     frames, make = port
     system = make()
     system.process_frame(frames[0])
     tr = system.tracker
-    packed = torch.from_numpy(_pack(frames[1:2])[0])
-    cur = T.preprocess_packed(tr.tcfg, tr.calib, packed, W)
-    ref = T.gauss_newton(tr.tcfg, tr.map_cfg, tr.packed, tr.cams, system.state,
-                         tr.last_pose, tr.last_pyramid, cur, tr.rgb_weight,
-                         tr.n_unstable, tr._identity)
+    packed = _pack(frames[1:2])[0]
     prog = tr.program(packed.shape, W)
     prog.load_state(system.state)
-    prog.preprocess_and_track(packed)
-    assert torch.equal(prog.out[:9].reshape(3, 3), ref.final.R)
-    assert torch.equal(prog.out[9:12], ref.final.t)
-    assert torch.equal(prog.out[12], ref.final_energy)
-    assert torch.equal(prog.delta.R, ref.delta.R) and torch.equal(prog.delta.t, ref.delta.t)
-    assert torch.equal(torch.clamp(prog.carry.i - 1, min=0), ref.last_group_iters)
-    assert torch.equal(prog.n_unstable, ref.n_unstable)
-    assert torch.equal(prog.rgb_weight, ref.rgb_weight)
-    assert ref.last_group_iters.dtype == torch.int32 and ref.rgb_weight.dtype == torch.float32
-    assert 0 < ref.host_syncs <= sum(n for n, _ in ITERS)
+    prog.preprocess_and_track(torch.from_numpy(packed))
+    jsys = _jax_system(jax_prior)
+    jsys.process_frame(next(iter(_sequence(cls=JSequence, intrinsic=JIntrinsic))))
+    jtr = jsys.tracker
+    init = jtr._gn_init()
+    ref = JT.gauss_newton(jtr.tcfg, jtr.map_cfg, jtr.spec, jtr.calib, jtr.dec_params,
+                          jsys.state, jtr.last_pose.R, jtr.last_pose.t, jtr.last_pyramid,
+                          JT.preprocess_frame_packed(jtr.tcfg, jtr.calib,
+                                                     jnp.asarray(packed), H, W),
+                          jtr.rgb_weight, jtr.n_unstable, init.R, init.t)
+    out = prog.out.double().numpy()
+    _assert_poses_close(
+        [Isometry.from_matrix(out[:9].reshape(3, 3), out[9:12], ortho=True)],
+        [Isometry.from_matrix(np.asarray(ref.final_R, np.float64),
+                              np.asarray(ref.final_t, np.float64), ortho=True)])
+    assert int(torch.clamp(prog.carry.i - 1, min=0)) == int(ref.last_group_iters)
+    assert int(prog.n_unstable) == int(ref.n_unstable)
+    assert float(prog.rgb_weight) == float(ref.rgb_weight)
+    assert prog.n_unstable.dtype == torch.int32 and prog.rgb_weight.dtype == torch.float32
+    cur = T.preprocess_packed(tr.tcfg, tr.calib, torch.from_numpy(packed), W)
     for a, b in zip(T._tensors(prog.cur), T._tensors(cur)):
         assert torch.equal(a, b)
 
@@ -304,28 +315,29 @@ def test_gt_pose_mapping_only_matches_jax(port, jax_prior):
 
 @pytest.mark.parametrize("mode", ["f32", "compensated", "blocked"])
 def test_program_driver_matches_host_loop(port, mode):
-    """``process_frame`` over 5 tracked frames (fusions on 0, 2, 4) with
-    ``driver="program"`` (the card's per-frame route: one program run a
-    frame, its own world cloud fused) against ``driver="host"`` (the host
-    loop): poses, latents and the temporal state ``torch.equal`` under each
-    ``solve_dtype``; the program reads the map again only after a fusion."""
+    """``process_frame`` over 5 tracked frames (fusions on 0, 2, 4; one
+    program run a frame, its own world cloud fused) against frame 0 and one
+    ``process_chunk`` of 5: poses, latents and the temporal state
+    ``torch.equal`` under each ``solve_dtype``; the per-frame program reads
+    the map again only after a fusion, and an unknown driver raises."""
     frames, make = port
-    prog, host = make(solve_dtype=mode), make(solve_dtype=mode)
+    stepwise, chunked = make(solve_dtype=mode), make(solve_dtype=mode)
     loads = []
     for frame in frames:
-        prog.process_frame(frame, driver="program")
-        host.process_frame(frame, driver="host")
-        p = next(iter(prog.tracker.programs.values()), None)
+        stepwise.process_frame(frame, driver="program")
+        p = next(iter(stepwise.tracker.programs.values()), None)
         loads.append(None if p is None else p._loaded[1])
-    for a, b in zip(_poses(prog), _poses(host)):
+    chunked.process_frame(frames[0])
+    chunked.process_chunk(torch.from_numpy(_pack(frames[1:])), W)
+    for a, b in zip(_poses(stepwise), _poses(chunked)):
         np.testing.assert_array_equal(a, b)
-    assert torch.equal(prog.state.latents, host.state.latents)
-    assert torch.equal(prog.tracker.rgb_weight, host.tracker.rgb_weight)
-    assert torch.equal(prog.tracker.last_delta.t, host.tracker.last_delta.t)
+    assert torch.equal(stepwise.state.latents, chunked.state.latents)
+    assert torch.equal(stepwise.tracker.rgb_weight, chunked.tracker.rgb_weight)
+    assert torch.equal(stepwise.tracker.last_delta.t, chunked.tracker.last_delta.t)
     # map tables loaded on frames 1 (after frame 0's fusion), 3 and 5
     assert len({id(t) for t in loads[1:]}) == 3
     with pytest.raises(ValueError):
-        prog.process_frame(frames[0], driver="graph")
+        stepwise.process_frame(frames[0], driver="graph")
 
 
 def test_compensated_step_ignores_point_order(port):

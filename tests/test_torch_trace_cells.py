@@ -118,7 +118,13 @@ def _spec(workload):
     if traffic["entry"] == "chunk":
         traffic.update(chunk=4, warm_frames=5)
     if traffic["entry"] == "frame":
-        spec["cfg"]["integrate_interval"] = 5         # fusion and mesh frames in 1.5 s
+        # frame k fuses and meshes where k % integrate_interval == 0.  The
+        # window opens on the tracked frame before such a frame: it holds a
+        # meshing frame unless that one tracked frame outlasts it, and a
+        # tracked frame, whose latencies the harness's window reads (a
+        # window of fusion frames alone has none); the traced window after
+        # it opens on a tracked frame unless the first held 21 frames
+        traffic["warm_frames"] = spec["cfg"]["integrate_interval"] - 1
     return spec
 
 

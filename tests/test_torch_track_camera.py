@@ -129,8 +129,8 @@ def test_track_camera_matches_jax(frames, jax_poses, driver):
     JAX package's (``tests/test_torch_slam.py``'s tolerance for a tracked
     frame), and within 1 cm / 0.01 rad of the true pose
     (``tests/test_tracker.py:346-349``); equal to ``track_camera_packed`` on
-    the lossless pack of the converted arrays.  ``program`` runs the
-    frame's ``TrackProgram`` stages eagerly, as on the CPU."""
+    the lossless pack of the converted arrays.  On the CPU both drivers run
+    the frame's one ``TrackProgram`` uncaptured."""
     dec, enc, _ = load_prior(HYPER, 300, device="cpu")
     cfg = M.MapConfig(**small_cfg(prune_min_vox_obs=4, ignore_count_th=1.0)._asdict())
     tcfg = T.TrackerConfig(point_budget=4096, iter_config=ITERS)
@@ -154,8 +154,8 @@ def test_track_camera_matches_jax(frames, jax_poses, driver):
         state = M.integrate_keyframe(cfg, enc, state, *tr.last_pc_world(p0))
         track(state, f1)
         poses.append(tr.pose_history())
-        if driver == "program":
-            assert len(tr.programs) == 1
+        assert len(tr.programs) == 1
+        assert not next(iter(tr.programs.values())).program.captured
     assert all(torch.equal(a, b) for a, b in zip(*poses))
     got = Isometry.from_matrix(poses[0][0][-1].double().numpy(),
                                poses[0][1][-1].double().numpy(), ortho=True)

@@ -15,9 +15,9 @@ port's ``speed`` runs kernel 1's bf16 mode where the JAX package, whose
 ``gn_unroll=2`` (two masked GN steps a loop pass) and the gather cache
 (accepted; the port gathers every step, which the JAX cache's values equal)
 change no value: poses ``torch.equal`` to the runs without them, on the
-per-frame host loop and on the chunked path (``TrackProgram``, run eagerly
-on the CPU), dense and hash map.  Each mode gives the same poses on both
-paths, on both maps."""
+per-frame and on the chunked path (both through ``TrackProgram``, run
+eagerly on the CPU), dense and hash map.  Each mode gives the same poses on
+both paths, on both maps."""
 from pathlib import Path
 
 import numpy as np
@@ -173,8 +173,9 @@ def _per_frame_equals_chunked(setup, variant, map_cfg=None):
 
 @pytest.mark.parametrize("variant", list(PATH_MODES))
 def test_variant_per_frame_equals_chunked(setup, variant):
-    """Each mode runs on both paths with the same values: the per-frame host
-    loop and the chunked path's ``TrackProgram`` give poses torch.equal."""
+    """Each mode runs on both paths with the same values: the per-frame
+    path, one program run a frame, and the chunked path give poses
+    torch.equal."""
     _per_frame_equals_chunked(setup, variant)
 
 
