@@ -19,20 +19,26 @@ Phases, each printing one JSON line:
               back-to-back launches), the wrapper's host time per call, and
               its bounds.  The bf16 entries also give their kernels'
               ptxas registers and spills, and fail on a spill or on ptxas
-              serializing a wgmma chain.
+              serializing a wgmma chain.  The frame pack (csrc/frame_pack.cu)
+              on the rendered frames staged as the SLAM loop stages them,
+              one frame and a chunk of 12, torch.equal to its plain version
+              and to numpy's pack_frame.
 4. main    -- SLAMSystem.process_frame on the card at bench.py's
               configuration: a 640x480 SyntheticSequence, a dense 70x70x40
               map of 0.1 m voxels, point budget 8192, fusion every 20 frames,
               meshing off, the in-repo study_mixed prior at epoch 300.  41
-              frames (fusions at 0, 20, 40), every tracked frame one launch
+              frames (fusions at 0, 20, 40), each handed over as the
+              camera's uint8 / uint16 arrays and packed on the card (one
+              frame_pack launch a frame), every tracked frame one launch
               of the tracker's CUDA graph; launch counts, ms/frame (<= 33.3),
               exit flags read (0), n_occupied and ATE.
 5. chunk   -- the normal entry point on the same frames: SLAMSystem.from_config
               on a dictionary that mirrors configs/fusion-synthetic.yaml, then
               run_sequence(chunk=12): frame 0 alone, then chunks of 12, 12, 12
-              and 4 frames, every tracked frame one CUDA-graph launch whose
-              GN loops end on the device.  Its poses must equal the main
-              phase's bit for bit; the host must have read no exit flag.
+              and 4 frames (one frame_pack launch each), every tracked frame
+              one CUDA-graph launch whose GN loops end on the device.  Its
+              poses must equal the main phase's bit for bit; the host must
+              have read no exit flag.
    compensated -- the 41 frames under solve_dtype "compensated" through
               run_sequence(chunk=12), then again with perturb_points=7 (the
               SDF points in another order): ms/frame, each chunk's host and
@@ -845,6 +851,54 @@ def check_stencil(frame, tcfg, calib, stencil_mod, tracker_mod, imgproc, build_i
 
 
 MC_KERNELS = ("mc_classify", "mc_scan", "mc_emit")
+
+
+def check_frame_pack(frames, calib, tracker_mod, fp_mod, dev) -> dict:
+    """csrc/frame_pack.cu on the rendered 480x640 frames, staged as the SLAM
+    loop stages them (one pinned RawFrames buffer, uploaded and packed) for
+    K = 1 (a frame alone) and K = CHUNK (a chunk): torch.equal to the plain
+    version on the same uploaded arrays and to numpy's pack_frame (fails
+    otherwise); the kernel's device time by CUDA-graph replay on the
+    uploaded arrays, the route's (pinned upload and launch) by CUDA events,
+    the wrapper's host time, the plain version's on the card; the bound: 5
+    bytes a pixel read and 3 written at 3.35 TB/s."""
+    h, w = frames[0].depth.shape
+    rows = {}
+    for k in (1, CHUNK):
+        staged = fp_mod.RawFrames(k, h, w, pin=True)
+        for i in range(k):
+            staged.put(i, frames[i].rgb, frames[i].depth)
+        got = staged.pack(dev)
+        rgb = torch.from_numpy(np.stack([f.rgb for f in frames[:k]])).to(dev)
+        depth = torch.from_numpy(np.stack([f.depth for f in frames[:k]]).view(np.int16)).to(dev)
+        plain = fp_mod.frame_pack_plain(rgb, depth)
+        ref = torch.from_numpy(np.stack([tracker_mod.pack_frame(f.rgb, f.depth, calib.dcam_scale)
+                                         for f in frames[:k]]))
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain) and torch.equal(got.cpu(), ref)):
+            fail(f"frame_pack (K={k}): the kernel's planes are not torch.equal to the "
+                 f"plain version's and numpy's pack_frame")
+        nbytes = 8.0 * k * h * w
+
+        def call():
+            return fp_mod.frame_pack(rgb, depth)
+        ms = graph_ms(call, 50)
+        rows[f"k{k}"] = {"frames": k, "h": h, "w": w, "ms": ms, "ms_per_frame": ms / k,
+                         "route_ms": time_ms(lambda: staged.pack(dev), 10),
+                         "host_us": host_us(call),
+                         "plain_ms": time_ms(lambda: fp_mod.frame_pack_plain(rgb, depth), 10),
+                         "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                         "torch_equal": True}
+    one = rows["k1"]
+    return {"name": "frame_pack", "route": "cuda",
+            "source": "difusion_tpu_torch/csrc/frame_pack.cu",
+            "replaces": "difusion_tpu/core/tracker.py pack_frame (numpy on the host)",
+            "max_abs_err": 0, "ms": one["ms"], "host_us": one["host_us"],
+            "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": "no single PyTorch call packs the planes from RGB and depth",
+            "shape": f"K frames of {h}x{w} uint8 RGB and uint16 depth -> (K, {h}, {3 * w}) "
+                     f"uint8", "chunks": rows}
 
 
 @contextlib.contextmanager
@@ -1956,6 +2010,7 @@ def main() -> int:
     from difusion_tpu_torch.ops import _build, imgproc
     from difusion_tpu_torch.ops import decoder_fused as fused_mod
     from difusion_tpu_torch.ops import marching_cubes as mc_mod
+    from difusion_tpu_torch.ops import frame_pack as fp_mod
     from difusion_tpu_torch.ops import stencil as stencil_mod
     from difusion_tpu_torch.ops.imgproc import Intrinsic
     from difusion_tpu_torch.slam import SLAMSystem, load_prior
@@ -2002,10 +2057,13 @@ def main() -> int:
                              tracker_mod, imgproc, info, dev),
                check_decode_fused(system.tracker.packed, fused_mod, dev),
                check_decoder_bf16(packed_bf16, fused_mod, info, dev),
-               check_decode_fused_bf16(packed_bf16, fused_mod, info, dev)]
+               check_decode_fused_bf16(packed_bf16, fused_mod, info, dev),
+               check_frame_pack(frames, calib, tracker_mod, fp_mod, dev)]
     emit({"phase": "kernels", "checked": [k["name"] for k in kernels]})
 
-    # ---- main path: counts reset just before, read just after ----
+    # ---- main path: counts reset just before, read just after; each frame
+    # handed over as the camera's arrays, packed on the card (the phases that
+    # pass packed= take these numpy packs) ----
     uploads = [torch.from_numpy(tracker_mod.pack_frame(
         f.rgb, f.depth, calib.dcam_scale)).pin_memory() for f in frames]
     # the kernels phase's garbage and cached blocks (the N = 2^20 checks)
@@ -2020,7 +2078,7 @@ def main() -> int:
             torch.cuda.synchronize()
             t_steady = time.perf_counter()
         t0 = time.perf_counter()
-        system.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
+        system.process_frame(frames[k])
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     steady_s = time.perf_counter() - t_steady
@@ -2054,6 +2112,9 @@ def main() -> int:
     if counts.get("decode_grad_fused", 0) < 2 * n_tracked:
         fail(f"decode_grad_fused launched {counts.get('decode_grad_fused', 0)} "
              f"times, expected >= {2 * n_tracked}")
+    if counts.get("frame_pack", 0) != N_MAIN:
+        fail(f"frame_pack launched {counts.get('frame_pack', 0)} times on the main path, "
+             f"expected one a frame ({N_MAIN})")
     if n_occ <= 0:
         fail("the map allocated no voxels")
     if not finite:
@@ -2064,6 +2125,8 @@ def main() -> int:
         k["launches"] = counts.get(k["name"], 0)
         k["path"] = "main"
     kernels[4]["launches_main"] = counts.get("decode_fwd_bf16", 0)
+    kernels[5]["launches"] = counts.get("frame_pack", 0)
+    kernels[5]["path"] = "main (process_frame on the camera's arrays: one a frame)"
 
     # ---- chunk phase: the normal entry point, the GN loops on the card ----
     def Rendered(n):
@@ -2157,6 +2220,10 @@ def main() -> int:
              f"times on the chunked path, expected >= {2 * n_tracked}")
     if csys.tracker.n_host_syncs != 0:
         fail(f"the host read {csys.tracker.n_host_syncs} exit flags on the chunked path")
+    # frame 0 alone, then one launch a chunk
+    if ccounts.get("frame_pack", 0) != 1 + len(chunk_done):
+        fail(f"frame_pack launched {ccounts.get('frame_pack', 0)} times on the chunked "
+             f"path, expected {1 + len(chunk_done)}: frame 0 and one a chunk")
     for k in kernels:
         k["launches_chunk"] = ccounts.get(k["name"], 0)
 
@@ -2239,7 +2306,7 @@ def main() -> int:
     hframe_ms = []
     for k in range(N_MAIN):
         t0 = time.perf_counter()
-        fsys.process_frame(frames[k], packed=uploads[k].to(dev, non_blocking=True))
+        fsys.process_frame(frames[k])
         torch.cuda.synchronize()
         hframe_ms.append((time.perf_counter() - t0) * 1e3)
     hist_c, hist_f = hsys.tracker.pose_history(), fsys.tracker.pose_history()

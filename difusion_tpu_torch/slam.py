@@ -31,14 +31,22 @@ schedule names.  Both track each frame as the tracker's
 whose GN loops end on the device, so the host reads no exit flag; on the
 CPU the same segments one by one.  Both compute the same values.
 
+Both paths take the tracker's (h, 3w) packed frame.  Where the camera's
+uint8 RGB and uint16 depth arrive (:func:`.ops.frame_pack.takes`), the
+frames' raw arrays are copied into one pinned buffer, uploaded and packed on
+the card by one launch of ``csrc/frame_pack.cu`` (:mod:`.ops.frame_pack`);
+float frames and ``lossless_packing`` pack in numpy on the host
+(:func:`~.core.tracker.pack_frame`) and upload the packed bytes.
+
 Spans (with the recorder on; each carries its frame's index):
 ``slam.run_sequence`` and, inside it, ``slam.wait_feed`` (the main thread
-waiting for the feeder); on the feeder thread ``slam.feed.pack``,
-``slam.feed.stack`` and ``slam.feed.upload`` (pin and copy);
-``slam.process_chunk`` and ``slam.process_frame``, the latter holding
-``slam.frame.pack`` and ``slam.frame.upload`` (a pageable copy: the host
-waits for the card); and on both paths ``slam.track``, ``slam.fuse`` and
-``slam.mesh``.
+waiting for the feeder); on the feeder thread ``slam.feed.pack`` (a
+frame's copy into the pinned buffer, or its numpy pack), ``slam.feed.stack``
+(numpy packs only) and ``slam.feed.upload`` (the copy, and the pack's launch
+or the pin); ``slam.process_chunk`` and ``slam.process_frame``, the latter
+holding ``slam.frame.pack`` and ``slam.frame.upload`` (the same, the numpy
+route's copy pageable: the host waits for the card there); and on both paths
+``slam.track``, ``slam.fuse`` and ``slam.mesh``.
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ from .device import resolve_device
 from .models.decoder import Decoder
 from .models.encoder import Encoder
 from .models.weights import load_prior
+from .ops import frame_pack
 from .ops.imgproc import Intrinsic, Pyramid
 from .ops.se3 import Pose
 from .utils import tracing
@@ -161,6 +170,31 @@ def track_fuse_scan(tracker: SDFTracker, encoder: Encoder, state: M.MapState,
                       prog.delta, prog.cur._replace(pyramid=prog.prev), prog.world,
                       integrated)
     return carry, (outs[:, :9].reshape(K, 3, 3), outs[:, 9:12], outs[:, 12])
+
+
+class _FeedUpload:
+    """The frames of one upload of :meth:`SLAMSystem.run_sequence`'s
+    feeder: a frame alone or a chunk.  Where :func:`.ops.frame_pack.takes`
+    the frames (``raw``), their arrays are copied into one pinned buffer to
+    be uploaded and packed on the card; else each is packed by numpy."""
+
+    def __init__(self, frame: FrameData, item: int, alone: bool, size: int, raw: bool,
+                 pin: bool):
+        self.frame, self.item, self.alone, self.size, self.raw = frame, item, alone, size, raw
+        self.n = 0
+        self.packs: List[np.ndarray] = []
+        self.staged = frame_pack.RawFrames(size, *frame.depth.shape, pin=pin) if raw else None
+
+    def put(self, frame: FrameData, item: int, dcam_scale: float, lossless: bool) -> None:
+        s = tracing.begin("slam.feed.pack", item) if tracing.ON else -1
+        if self.raw:
+            self.staged.put(self.n, frame.rgb, frame.depth)
+        else:
+            self.packs.append(tracker_mod.pack_frame(frame.rgb, frame.depth, dcam_scale,
+                                                     lossless=lossless))
+        self.n += 1
+        if s >= 0:
+            tracing.end(s)
 
 
 class SLAMSystem:
@@ -408,15 +442,7 @@ class SLAMSystem:
         tr = self.tracker
         sf = tracing.begin("slam.process_frame", tr.n_tracked) if tracing.ON else -1
         if packed is None:
-            s = tracing.begin("slam.frame.pack") if tracing.ON else -1
-            buf = tracker_mod.pack_frame(frame.rgb, frame.depth, tr.calib.dcam_scale,
-                                         lossless=tr.tcfg.lossless_packing)
-            if s >= 0:
-                tracing.end(s)
-            s = tracing.begin("slam.frame.upload", wait=True) if tracing.ON else -1
-            packed = torch.from_numpy(buf).to(self.device)
-            if s >= 0:
-                tracing.end(s)
+            packed = self._pack_frame(frame)
         s = tracing.begin("slam.track") if tracing.ON else -1
         pose = tr.track_camera_packed(self.state, packed, frame.depth.shape[1],
                                       set_pose, driver=driver)
@@ -430,6 +456,29 @@ class SLAMSystem:
         if sf >= 0:
             tracing.end(sf)
         return pose
+
+    def _pack_frame(self, frame: FrameData) -> torch.Tensor:
+        """The frame's (h, 3w) packed buffer on the device: packed there on
+        the current stream after a non-blocking upload of its staged arrays
+        where :func:`.ops.frame_pack.takes` them, else packed by numpy and
+        uploaded from pageable memory."""
+        tcfg = self.tracker.tcfg
+        raw = frame_pack.takes(frame.rgb, frame.depth, tcfg.lossless_packing)
+        s = tracing.begin("slam.frame.pack") if tracing.ON else -1
+        if raw:
+            staged = frame_pack.RawFrames(1, *frame.depth.shape,
+                                          pin=self.device.type == "cuda")
+            staged.put(0, frame.rgb, frame.depth)
+        else:
+            buf = tracker_mod.pack_frame(frame.rgb, frame.depth, self.tracker.calib.dcam_scale,
+                                         lossless=tcfg.lossless_packing)
+        if s >= 0:
+            tracing.end(s)
+        s = tracing.begin("slam.frame.upload", wait=not raw) if tracing.ON else -1
+        packed = staged.pack(self.device)[0] if raw else torch.from_numpy(buf).to(self.device)
+        if s >= 0:
+            tracing.end(s)
+        return packed
 
     # -- chunked step ----------------------------------------------------------
 
@@ -484,16 +533,18 @@ class SLAMSystem:
 
     # -- offline runner --------------------------------------------------------
 
-    def _upload(self, array: np.ndarray, item: int):
-        """Host array -> (device tensor, the event its copy ends with).  On
-        the card the copy leaves pinned memory on a stream of its own.
+    def _upload(self, fill, item: int):
+        """``fill()`` -> (its device tensor, the event its work ends with).
+        On the card ``fill`` runs on a stream of its own: a copy from pinned
+        memory and, where the frames' raw arrays go up, their pack.
         ``item``: the index of its (first) frame."""
         s = tracing.begin("slam.feed.upload", item) if tracing.ON else -1
-        t = torch.from_numpy(array)
-        out, done = t, None
-        if self._copy_stream is not None:
+        done = None
+        if self._copy_stream is None:
+            out = fill()
+        else:
             with torch.cuda.stream(self._copy_stream):
-                out = t.pin_memory().to(self.device, non_blocking=True)
+                out = fill()
                 done = torch.cuda.Event()
                 done.record()
         if s >= 0:
@@ -503,12 +554,15 @@ class SLAMSystem:
     def run_sequence(self, sequence: RGBDSequence, max_frames: int = -1,
                      prefetch: int = 3, chunk: int = 0) -> Dict[str, Any]:
         """Run the sequence with a background load + upload pipeline: a side
-        thread renders or decodes frames, packs them and uploads them while
-        the device works on earlier ones.
+        thread renders or decodes frames, stages or packs them and uploads
+        them while the device works on earlier ones.
 
         ``chunk > 1`` stacks that many frames into one upload and one
         :meth:`process_chunk` (the first frame goes alone, the tail may be
-        shorter); poses are identical to the per-frame path's.  With
+        shorter); poses are identical to the per-frame path's.  The call's
+        first frame chooses how every frame goes up: packed on the card where
+        :func:`.ops.frame_pack.takes` it (a later frame it does not take
+        raises), else packed by numpy.  With
         :attr:`profile` the result holds each stage's median and first time
         (``track_ms``, ``track_first_ms``, ``integrate_ms``, ...)."""
         n = len(sequence) if max_frames < 0 else min(max_frames, len(sequence))
@@ -516,39 +570,54 @@ class SLAMSystem:
         start = self.tracker.n_tracked      # this call's slice of the history
         use_chunk = chunk if (chunk > 1 and not self.use_gt_poses) else 0
         tcfg, dcam = self.tracker.tcfg, self.tracker.calib.dcam_scale
+        pin = self._copy_stream is not None
         q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
         sr = tracing.begin("slam.run_sequence", start) if tracing.ON else -1
 
-        def stacked(batch: list, item: int):
-            s = tracing.begin("slam.feed.stack", item) if tracing.ON else -1
-            out = np.stack(batch)
-            if s >= 0:
-                tracing.end(s)
-            return self._upload(out, item)
+        def send(up: _FeedUpload) -> None:
+            """Upload ``up`` and queue (kind, frame, (packed, event), w)."""
+            if up.raw:
+                packed, done = self._upload(lambda: up.staged.pack(self.device, up.n), up.item)
+                if up.alone:
+                    packed = packed[0]
+            else:
+                array = up.packs[0]
+                if not up.alone:
+                    s = tracing.begin("slam.feed.stack", up.item) if tracing.ON else -1
+                    array = np.stack(up.packs)
+                    if s >= 0:
+                        tracing.end(s)
+                t = torch.from_numpy(array)
+                packed, done = self._upload(
+                    lambda: t.pin_memory().to(self.device, non_blocking=True) if pin else t,
+                    up.item)
+            q.put(("frame" if up.alone else "chunk", up.frame, (packed, done),
+                   up.frame.depth.shape[1]))
 
         def feeder():
             try:
-                batch: list = []
+                up, raw = None, None        # the upload being filled; the route, from frame 0
                 for i, frame in enumerate(sequence):
                     if i >= n:
                         break
-                    w = frame.depth.shape[1]
-                    s = tracing.begin("slam.feed.pack", start + i) if tracing.ON else -1
-                    pk = tracker_mod.pack_frame(frame.rgb, frame.depth, dcam,
-                                                lossless=tcfg.lossless_packing)
-                    if s >= 0:
-                        tracing.end(s)
-                    if not use_chunk or (i == 0 and start == 0):
-                        q.put(("frame", frame, self._upload(pk, start + i), w))
-                        continue
-                    if not batch:
-                        k0 = start + i
-                    batch.append(pk)
-                    if len(batch) == use_chunk:
-                        q.put(("chunk", None, stacked(batch, k0), w))
-                        batch = []
-                if batch:
-                    q.put(("chunk", None, stacked(batch, k0), w))
+                    takes = frame_pack.takes(frame.rgb, frame.depth, tcfg.lossless_packing)
+                    if raw is None:
+                        raw = takes
+                    elif raw and not takes:
+                        raise ValueError(
+                            f"run_sequence: frame {start + i} is not the camera's uint8 RGB "
+                            f"and uint16 depth that the call's first frame was: got "
+                            f"{frame.rgb.dtype} RGB, {frame.depth.dtype} depth")
+                    if up is None:
+                        alone = not use_chunk or (i == 0 and start == 0)
+                        up = _FeedUpload(frame, start + i, alone, 1 if alone else use_chunk,
+                                         raw, pin)
+                    up.put(frame, start + i, dcam, tcfg.lossless_packing)
+                    if up.n == up.size:
+                        send(up)
+                        up = None
+                if up is not None:
+                    send(up)
             except Exception as e:          # surface loader errors downstream
                 q.put(e)
             q.put(None)

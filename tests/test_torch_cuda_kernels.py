@@ -630,6 +630,148 @@ def test_export_equals_bucket_padded_decode(fused_systems, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# Frame packing: csrc/frame_pack.cu against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _camera_frames(k, h, w, seed):
+    """K random uint8 RGB and uint16 depth frames, the depth's edge values
+    (0, 255, 256, 65535) at its first pixels and every r + g + b sum early on."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (k, h, w, 3), dtype=np.uint8)
+    depth = rng.integers(0, 1 << 16, (k, h, w), dtype=np.uint16)
+    edges = np.array([0, 255, 256, 65535], np.uint16)
+    depth.reshape(-1)[:min(4, depth.size)] = edges[:min(4, depth.size)]
+    s = np.arange(min(766, k * h * w))
+    flat = rgb.reshape(-1, 3)
+    flat[:len(s)] = np.stack([np.minimum(s, 255), np.clip(s - 255, 0, 255),
+                              np.clip(s - 510, 0, 255)], -1)
+    return rgb, depth
+
+
+@pytest.mark.parametrize("k,h,w", [(1, 480, 640), (12, 480, 640), (3, 7, 5), (2, 4, 12),
+                                   (1, 1, 1), (2, 3, 20), (5, 33, 48)])
+def test_frame_pack_kernel_equals_pack_frame(dev, k, h, w):
+    """K frames staged in one pinned buffer, uploaded and packed by the
+    kernel: the (K, h, 3w) planes equal the plain version's on the CPU
+    byte for byte (which the CPU tests hold to the JAX package's
+    ``pack_frame``, edge values included), at 480x640 for K = 1 and 12 (16
+    pixels a thread) and at widths that are no multiple of 16 (1 pixel a
+    thread); one counted launch a call."""
+    from difusion_tpu_torch.ops import frame_pack as FP
+    rgb, depth = _camera_frames(k, h, w, seed=k * h * w)
+    staged = FP.RawFrames(k, h, w, pin=True)
+    for i in range(k):
+        staged.put(i, rgb[i], depth[i])
+    before = _build.launch_counts().get("frame_pack", 0)
+    got = staged.pack(dev)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["frame_pack"] == before + 1
+    ref = FP.frame_pack_plain(torch.from_numpy(rgb), torch.from_numpy(depth.view(np.int16)))
+    assert got.is_cuda and torch.equal(got.cpu(), ref)
+    assert torch.equal(staged.pack(dev, 1).cpu(), ref[:1])
+
+
+def test_frame_pack_kernel_on_unaligned_views(dev):
+    """RGB one byte into its buffer, at a width of 32, takes the kernel's
+    byte-wise path: the same planes as the plain version; a wrong dtype or
+    shape raises."""
+    from difusion_tpu_torch.ops import frame_pack as FP
+    k, h, w = 2, 8, 32
+    n = k * h * w
+    rgb_np, depth_np = _camera_frames(k, h, w, seed=7)
+    buf = torch.zeros(1 + 3 * n, dtype=torch.uint8, device=dev)
+    buf[1:].copy_(torch.from_numpy(rgb_np.reshape(-1)))
+    rgb = buf[1:].view(k, h, w, 3)
+    depth = torch.from_numpy(depth_np.view(np.int16)).to(dev)
+    assert rgb.data_ptr() % 4 == 1
+    got = FP.frame_pack(rgb, depth)
+    ref = FP.frame_pack_plain(rgb.cpu(), depth.cpu())
+    assert torch.equal(got.cpu(), ref)
+    with pytest.raises(ValueError):
+        FP.frame_pack(rgb, depth.to(torch.int32))
+    with pytest.raises(ValueError):
+        FP.frame_pack(rgb[:, :, :-1], depth)
+
+
+@pytest.fixture(scope="module")
+def small_slam(dev):
+    """A factory of small systems on the card (fusion every 2, meshing off)
+    and 16 synthetic 120x160 frames."""
+    from difusion_tpu_torch.core import map as M
+    from difusion_tpu_torch.core import tracker as T
+    from difusion_tpu_torch.data.production import SyntheticSequence
+    from difusion_tpu_torch.models.weights import load_prior
+    from difusion_tpu_torch.ops.imgproc import Intrinsic
+    from difusion_tpu_torch.slam import SLAMSystem
+    calib = Intrinsic(300.0, 300.0, 79.5, 59.5, 5000.0)
+    dec, enc, _ = load_prior(HYPER, 300, device=dev)
+    cfg = M.MapConfig(bound_min=(-2.0, -2.0, -0.5), n_xyz=(40, 40, 40), voxel_size=0.1,
+                      latent_dim=29, capacity=1 << 14, prune_min_vox_obs=4,
+                      ignore_count_th=1.0, encoder_count_th=600.0)
+
+    class Frames(list):
+        first_iso = None
+        gt_trajectory = None
+    frames = Frames(SyntheticSequence(n_frames=16, h=120, w=160, calib=calib,
+                                      corrugation=0.1, motion_scale=0.6))
+
+    def make(lossless=False):
+        return SLAMSystem(cfg, T.TrackerConfig(point_budget=4096, lossless_packing=lossless),
+                          dec, enc, calib, integrate_interval=2, meshing=False, device=dev)
+    return make, frames
+
+
+@pytest.mark.parametrize("path", ["chunk12", "per_frame", "process_frame"])
+def test_slam_loop_packs_on_the_card_as_numpy_did(small_slam, monkeypatch, path):
+    """16 frames through ``run_sequence(chunk=12)`` (frame 0 alone, then
+    chunks of 12 and 3), ``run_sequence()`` or ``process_frame`` one by one:
+    one ``frame_pack`` launch an upload (3, 16, 16), and poses and latents
+    ``torch.equal`` to the numpy route's (``pack_frame`` on the host, the
+    packed frames uploaded), which launches none."""
+    from difusion_tpu_torch.ops import frame_pack as FP
+    make, frames = small_slam
+
+    def run():
+        system = make()
+        _build.reset_launch_counts()
+        if path == "process_frame":
+            for frame in frames:
+                system.process_frame(frame)
+        else:
+            system.run_sequence(frames, chunk=12 if path == "chunk12" else 0)
+        torch.cuda.synchronize()
+        return system, _build.launch_counts().get("frame_pack", 0)
+    card, n_card = run()
+    monkeypatch.setattr(FP, "takes", lambda *a, **k: False)
+    host, n_host = run()
+    assert (n_card, n_host) == ({"chunk12": 3}.get(path, 16), 0)
+    for a, b in zip(card.tracker.pose_history(), host.tracker.pose_history()):
+        assert torch.equal(a, b), (a - b).abs().max()
+    assert torch.equal(card.state.latents, host.state.latents)
+
+
+@pytest.mark.parametrize("route", ["float", "lossless"])
+def test_float_frames_and_lossless_packing_launch_no_frame_pack(small_slam, route):
+    """Float frames, or ``lossless_packing``, pack in numpy: no
+    ``frame_pack`` launch on the chunked path or per frame."""
+    from difusion_tpu_torch.data.production import FrameData
+    make, frames = small_slam
+    if route == "float":
+        frames = type(frames)(FrameData(f.rgb.astype(np.float32) / 255,
+                                        f.depth.astype(np.float32) / 5000.0, f.depth_ok,
+                                        f.calib, f.gt_pose, f.frame_id) for f in frames)
+    system = make(lossless=route == "lossless")
+    _build.reset_launch_counts()
+    system.run_sequence(type(frames)(frames[:8]), chunk=3)
+    for frame in frames[8:]:
+        system.process_frame(frame)
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get("frame_pack", 0) == 0
+    assert len(system.tracker.pose_history()[0]) == len(frames)
+
+
+# ---------------------------------------------------------------------------
 # The graph program: the tracker's frame as one launch with device-side loops
 # ---------------------------------------------------------------------------
 

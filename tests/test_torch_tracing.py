@@ -98,15 +98,17 @@ def test_off_records_nothing_and_on_changes_no_value(make, path):
 
 def test_spans_nest_with_their_frames(make):
     """``run_sequence(chunk=3)`` with meshing: every name of the SLAM loop and
-    the mesher appears, each child in its parent's interval with its item;
-    the feeder's spans are on the feeder thread, one pack a frame."""
+    the mesher appears (the frames are the camera's uint8 / uint16 arrays,
+    so the feeder packs them on the device and stacks nothing), each child
+    in its parent's interval with its item; the feeder's spans are on the
+    feeder thread, one pack a frame."""
     tracing.enable()
     system = make()
     system.run_sequence(_sequence(), chunk=3)
     spans = tracing.spans()
     main = threading.get_ident()
-    assert {s.name for s in spans} == SLAM_SPANS - {"slam.frame.pack",
-                                                    "slam.frame.upload"} | MESH_SPANS
+    assert {s.name for s in spans} == SLAM_SPANS - {"slam.frame.pack", "slam.frame.upload",
+                                                    "slam.feed.stack"} | MESH_SPANS
     assert all(s.end_ns >= s.start_ns for s in spans)
     for k, s in enumerate(spans):
         assert s.wait == (s.name in WAITS)
@@ -125,7 +127,7 @@ def test_spans_nest_with_their_frames(make):
     assert sorted(s.item for s in feed if s.name == "slam.feed.pack") == list(range(N))
     # chunks start at frames 1, 4, 7; each frame tracked once, frame 0 by process_frame
     assert [s.item for s in spans if s.name == "slam.process_chunk"] == [1, 4, 7]
-    assert [s.item for s in spans if s.name == "slam.feed.stack"] == [1, 4, 7]
+    assert [s.item for s in spans if s.name == "slam.feed.upload"] == [0, 1, 4, 7]
     tracks = [s for s in spans if s.name == "slam.track"]
     assert [s.item for s in tracks] == list(range(N))
     assert {spans[s.parent].name for s in tracks} == {"slam.process_frame",
