@@ -1,7 +1,12 @@
-"""Kernel 3 (decoder forward over the meshing lattice, ``decode_fwd_kernel``)
-as a share of its roofline: the bound of the sites the extracts need (the
-live blocks' (2r)^3 lattices, not the bucket's padding) over the time of
-the launches the profiler records."""
+"""Kernel 3 (decoder forward over the meshing lattice) as a share of its
+roofline: the bound of the sites the extracts need (the live blocks'
+(2r)^3 lattices, not the bucket's padding; FLOPs and bytes by the prior's
+decoder family, :mod:`benchmark.flops`) over the time of the launches the
+profiler records.
+
+The kernel-name rule: every launch whose name holds ``decode_fwd_kernel``
+counts, the 128-wide instance, the wide ones (``decode_fwd_kernel_wide``)
+and any kernel 3 of a new decoder family, whose name holds the stem too."""
 
 
 def read(ctx):

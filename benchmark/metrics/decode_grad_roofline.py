@@ -1,9 +1,13 @@
-"""Kernel 1 (decoder forward + d sdf/d xyz, ``decode_grad_kernel``) as a
-share of its roofline: each recorded launch's bound at the point budget
-(the model's FLOPs counted once, bytes read and written once) over the time
-the profiler gives the launches it records.  Inside the tracker's graph the
-profiler records one pass of each WHILE loop; each record is still one
-whole launch."""
+"""Kernel 1 (decoder forward + d sdf/d xyz) as a share of its roofline:
+each recorded launch's bound at the point budget (the model's FLOPs counted
+once, bytes read and written once, both by the prior's decoder family,
+:mod:`benchmark.flops`) over the time the profiler gives the launches it
+records.  Inside the tracker's graph the profiler records one pass of each
+WHILE loop; each record is still one whole launch.
+
+The kernel-name rule: every launch whose name holds ``decode_grad_kernel``
+counts, the 128-wide instance, the wide ones (``decode_grad_kernel_wide``)
+and any kernel 1 of a new decoder family, whose name holds the stem too."""
 
 
 def read(ctx):
