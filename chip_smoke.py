@@ -188,6 +188,24 @@ Phases, each printing one JSON line:
               configuration's own tracking block (sdf_fused "on"): ms/frame,
               the GN loops' device-counted passes, kernel 1's wide launches
               (>= 2 a tracked frame, none of the 128-wide instance), ATE.
+13. onet -- Occupancy Networks' conditional-batch-norm decoder
+              (benchmark/configs/lrkt-onet.json: code 256, 5 residual
+              blocks x 256, 11 CBNs; the in-repo prior di-checkpoints/
+              onet_mixed): the three kernels of csrc/decoder_cbn.cu against
+              their plain versions, timed by graph replay beside the port's
+              plain path (CbnDecoder, each row conditioned for itself, f32
+              with TF32 off; autograd for the gradient), with ptxas's
+              registers and spills: cbn_cond_kernel at ONET_COND_N codes
+              (an export's live blocks; and 1, 63), kernel 1's instance at
+              8192 points (and 1, 8191) from ONET_ROWS codes, kernel 3's at
+              2^20 sites (and 1, 524,287) in blocks of 4,096 sites a code;
+              the export of the lap's map under lrkt-onet beside lrkt-dense
+              (vertices within 2%, mesh error p95, the instances launched:
+              decode_fwd_cbn and cbn_cond once, none of another decoder);
+              then DEEPSDF_FRAMES frames through run_sequence(chunk=12) with
+              sdf_fused "on" (kernel 1's cbn instance >= 2 a tracked frame,
+              cbn_cond once a fusion, none of another decoder; ATE under
+              ONET_MAX_ATE).
 
 Then one line {"kernels": [...]} with every kernel's launches on its path
 (and as each phase's counts read them: launches_<phase>), error against its
@@ -230,6 +248,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_INSTR_PER_S = 132 * 128 * 1.98e9
 HYPER = Path(__file__).resolve().parent / "di-checkpoints/study_mixed/hyper.json"
 DEEPSDF_CFG = Path(__file__).resolve().parent / "benchmark/configs/lrkt-deepsdf.json"
+ONET_CFG = Path(__file__).resolve().parent / "benchmark/configs/lrkt-onet.json"
+ONET_COND_N = (4700, 1, 63)            # an export's live blocks, and ragged
+ONET_ROWS = 600                        # conditioning rows the tracker's points read
+ONET_MAX_ATE = 0.035
+ONET_MAX_VERTEX_GAP = 0.02             # the export's vertices against lrkt-dense's
 DENSE_CFG = Path(__file__).resolve().parent / "benchmark/configs/lrkt-dense.json"
 DEEPSDF_FRAMES = 240
 DEEPSDF_SEED = 2718281828
@@ -718,6 +741,259 @@ def deepsdf_phase(dev, kernels, fused_mod, build_info) -> None:
         fail(f"deepsdf track: ATE {ate:.4f} m > {MAX_ATE} m")
     next(k for k in kernels if k["name"] == "decode_grad_wide")["launches_deepsdf_track"] = \
         counts.get("decode_grad_wide", 0)
+
+
+def check_cbn(dec, pack, fused_mod, build_info, dev) -> list:
+    """onet_cbn's three kernels against their plain versions, and timed by
+    graph replay beside the port's plain path (CbnDecoder.decode: every row
+    conditioned for itself, f32 with TF32 off; autograd for the gradient).
+    Tolerances, both f32 (3xTF32 keeps ~22 bits of each product) summing
+    256-wide dots in another order: the conditioning atol 1e-5 + rtol
+    1e-5; sdf/std atol 2e-5 through the 11 CBNs; the gradient atol 1e-4 +
+    rtol 1e-4, a row at a relu kink either side
+    (``decoder_fused.cbn_grad_rows_off``)."""
+    from benchmark.reference.decoders import onet_cbn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hyper = {"code_length": dec.spec.latent_size,
+             "network_specs": {"hidden_size": dec.spec.hidden, "n_blocks": dec.spec.blocks}}
+    lay = pack.layout
+    gen = torch.Generator(device=dev).manual_seed(5)
+    codes_of = {}
+
+    def codes(m):
+        if m not in codes_of:
+            codes_of[m] = torch.randn(m, lay.L, generator=gen, device=dev) * 0.3
+        return codes_of[m]
+    out = []
+    # the conditioning
+    worst, main = 0.0, None
+    for m in ONET_COND_N:
+        c = codes(m)
+        before = _build_counts("cbn_cond")
+        got = fused_mod.cbn_condition(pack, c)
+        ref = fused_mod.cbn_condition_plain(pack, c)
+        torch.cuda.synchronize()
+        if _build_counts("cbn_cond") != before + 1:
+            fail(f"cbn_cond at M={m}: not one counted launch")
+        err = (got - ref).abs()
+        if not torch.isfinite(got).all() or bool((err > 1e-5 + 1e-5 * ref.abs()).any()):
+            fail(f"cbn_cond at M={m}: max abs err {err.max().item():.3g}")
+        worst = max(worst, err.max().item())
+        if main is None:
+            main = c
+    # a row list and a device count: only the first `count` listed rows
+    rows = torch.randperm(ONET_COND_N[0], generator=gen, device=dev)[:1000].to(torch.int32)
+    count = torch.tensor(700, dtype=torch.int32, device=dev)
+    table = torch.zeros(ONET_COND_N[0], lay.NC, 2, lay.H, device=dev)
+    fused_mod.cbn_condition(pack, main, rows, count, out=table)
+    want = torch.zeros_like(table)
+    want[rows[:700].long()] = fused_mod.cbn_condition_plain(pack, main[rows[:700].long()])
+    if bool(((table - want).abs() > 1e-5 + 1e-5 * want.abs()).any()):
+        fail("cbn_cond with rows and a device count: rows off")
+    flops = float(onet_cbn.cond_flops(hyper)) * main.shape[0]
+    nbytes = 4.0 * main.shape[0] * onet_cbn.cond_row_floats(hyper)
+    out.append({"name": "cbn_cond", "route": "cuda",
+                "source": "difusion_tpu_torch/csrc/decoder_cbn.cu", "replaces": None,
+                "max_abs_err": worst,
+                "ms": graph_ms(lambda: fused_mod.cbn_condition(pack, main), 20),
+                "eager_ms": time_ms(lambda: fused_mod.cbn_condition(pack, main), 10,
+                                    per_batch=3),
+                "host_us": host_us(lambda: fused_mod.cbn_condition(pack, main), 20),
+                "plain_path_ms": graph_ms(lambda: dec.condition(main), 20),
+                "plain_ms": graph_ms(lambda: fused_mod.cbn_condition_plain(pack, main), 20),
+                **decoder_bounds(flops, nbytes),
+                "bound_once_ms": bound_ms(flops, nbytes, PEAK_TF32_FLOPS)[0],
+                **ptxas_of(build_info, "decoder_cbn", "cbn_cond_kernel"),
+                "library_ms": None, "library_note": "the plain version is two torch calls",
+                "shape": f"M={main.shape[0]} codes of {lay.L}, 11 x 2 x {lay.H} out, 3xTF32",
+                "flops": flops, "bytes": nbytes})
+    # kernels 1 and 3
+    for name, counter, sizes, make_rel, per_code in (
+            ("decode_grad_cbn", "decode_grad_kernel_cbn", WIDE_GRAD_N,
+             lambda n: torch.rand(n, 3, generator=gen, device=dev) - 0.5, None),
+            ("decode_fwd_cbn", "decode_fwd_kernel_cbn", WIDE_FWD_N,
+             lambda n: torch.rand(n, 3, generator=gen, device=dev) * 1.75 - 1.0, 4096)):
+        grad = name == "decode_grad_cbn"
+        cond = fused_mod.cbn_condition(pack, codes(ONET_ROWS if grad else 256))
+        worst, kink_rows, main_inputs = 0.0, 0, None
+        for n in sizes:
+            idx = (torch.randint(0, cond.shape[0], (n,), generator=gen, device=dev)
+                   if per_code is None else torch.arange(n, device=dev) // per_code
+                   ).to(torch.int32)
+            rel = make_rel(n)
+            before = _build_counts(name)
+            got = (fused_mod.decode_grad_cbn if grad else fused_mod.decode_fwd_cbn)(
+                pack, cond, idx, rel)
+            ref = (fused_mod.decode_grad_cbn_plain if grad else fused_mod.decode_fwd_cbn_plain)(
+                pack, cond, idx, rel)
+            torch.cuda.synchronize()
+            if _build_counts(name) != before + 1:
+                fail(f"{name} at N={n}: not one counted launch")
+            for what, g, r in (("sdf", got[0], ref[0]), ("std", got[1], ref[1])):
+                err = (g - r).abs()
+                if not torch.isfinite(g).all() or bool((err > 2e-5).any()):
+                    fail(f"{name} {what} at N={n}: max abs err {err.max().item():.3g}")
+                worst = max(worst, err.max().item())
+            if grad:
+                if not torch.isfinite(got[2]).all():
+                    fail(f"{name} grad at N={n}: not finite")
+                off = fused_mod.cbn_grad_rows_off(got[2], pack, cond, idx, rel)
+                if bool(off.any()):
+                    fail(f"{name} grad at N={n}: {int(off.sum())} rows off")
+                err = (got[2] - ref[2]).abs()
+                beyond = (err > 1e-4 + 1e-4 * ref[2].abs()).any(dim=1)
+                kink_rows += int(beyond.sum())
+                if not bool(beyond.all()):
+                    worst = max(worst, err[~beyond].max().item())
+            if main_inputs is None:
+                main_inputs = (idx, rel)
+        idx, rel = main_inputs
+        n = idx.shape[0]
+        lat = codes(ONET_ROWS if grad else 256)[idx.long()]
+
+        def call():
+            return (fused_mod.decode_grad_cbn if grad else fused_mod.decode_fwd_cbn)(
+                pack, cond, idx, rel)
+
+        def plain_path():
+            if not grad:
+                return dec.decode(lat, rel)
+            x = rel.detach().requires_grad_(True)
+            with torch.enable_grad():
+                sdf, std = dec.decode(lat, x)
+                g, = torch.autograd.grad(sdf, x, grad_outputs=torch.ones_like(sdf))
+            return sdf, std, g
+        reps = 50 if grad else 3
+        flops = float((onet_cbn.grad_flops if grad else onet_cbn.fwd_flops)(hyper)) * n
+        nbytes = 4.0 * n * (onet_cbn.grad_point_floats if grad else
+                            onet_cbn.fwd_point_floats)(hyper) + onet_cbn.param_bytes(hyper)
+        out.append({"name": name, "route": "cuda",
+                    "source": "difusion_tpu_torch/csrc/decoder_cbn.cu",
+                    "replaces": None,
+                    "max_abs_err": worst, "grad_rows_at_relu_kink": kink_rows,
+                    "ms": graph_ms(call, reps), "eager_ms": time_ms(call, 10, per_batch=3),
+                    "host_us": host_us(call, 20),
+                    "plain_path_ms": graph_ms(plain_path, reps),
+                    "plain_ms": graph_ms(lambda: (fused_mod.decode_grad_cbn_plain if grad else
+                                                  fused_mod.decode_fwd_cbn_plain)(
+                                                      pack, cond, idx, rel), reps),
+                    **decoder_bounds(flops, nbytes),
+                    "bound_once_ms": bound_ms(flops, nbytes, PEAK_TF32_FLOPS)[0],
+                    **ptxas_of(build_info, "decoder_cbn", counter),
+                    "library_ms": None,
+                    "library_note": "no single PyTorch call computes the decoder's trunk",
+                    "shape": f"N={n} from {cond.shape[0]} conditioning rows, ONet 5 x 256, "
+                             f"code {lay.L}, f32 in and out, 3xTF32",
+                    "flops": flops, "bytes": nbytes})
+    return out
+
+
+def onet_phase(dev, kernels, fused_mod, build_info, frames: int = DEEPSDF_FRAMES) -> None:
+    """The onet phase (see the module docstring): emits its lines and adds
+    the three onet_cbn kernels to ``kernels``."""
+    from benchmark import drive
+    from difusion_tpu_torch.data.production import mesh_error_stats
+    from difusion_tpu_torch.ops import _build
+    from difusion_tpu_torch.slam import load_prior
+    cfg = json.loads(ONET_CFG.read_text())
+    root = Path(__file__).resolve().parent
+    dec, _, spec = load_prior(root / cfg["training_hypers"], int(cfg["using_epoch"]), device=dev)
+    if not fused_mod.supports_spec(spec, dev):
+        fail(f"onet: the fused kernels do not take {spec}")
+    pack = fused_mod.pack_fused_decoder(dec)
+    cbn = check_cbn(dec, pack, fused_mod, build_info, dev)
+    emit({"phase": "onet_kernels", "kernels": cbn})
+    kernels.extend(cbn)
+    del pack, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the export of the lap's map under lrkt-onet, beside lrkt-dense's
+    traffic = json.loads((root / "benchmark/traffic/export-r8.json").read_text())
+    exports = {}
+    for name, path in (("lrkt-dense", DENSE_CFG), ("lrkt-onet", ONET_CFG)):
+        c = json.loads(path.read_text())
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        drv = drive.ExportDriver(c, traffic, DEEPSDF_SEED, dev, drive.Spans())
+        setup_s = time.perf_counter() - t0
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv._one()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        tris = drv.mesher.triangles()[0]
+        counts = _build.launch_counts()
+        merr = mesh_error_stats(tris)
+        exports[name] = {"setup_s": setup_s, "extract_ms": ms, **merr, "vertices": 3 * len(tris),
+                         "launches": {k: v for k, v in counts.items()
+                                      if "decode" in k or "cbn" in k},
+                         **drv.mesher.last_stats}
+        want = {"decode_fwd_cbn", "cbn_cond"} if name == "lrkt-onet" else {"decode_fused"}
+        others = {k: v for k, v in counts.items()
+                  if (k.startswith("decode") or "cbn" in k) and k not in want and v}
+        if name == "lrkt-onet" and (counts.get("cbn_cond") != 1
+                                    or drv.mesher.last_stats.get("decode_instance")
+                                    != "decode_fwd_cbn"):
+            fail(f"onet export: conditioned {counts.get('cbn_cond')} times, decoded by "
+                 f"{drv.mesher.last_stats.get('decode_instance')}")
+        if not all(counts.get(k) for k in want) or others:
+            fail(f"onet export {name}: launches {counts}")
+        check_mesh(f"onet export {name}", tris, merr)
+        drv.free()
+        del drv
+        gc.collect()
+        torch.cuda.empty_cache()
+    gap = exports["lrkt-onet"]["vertices"] / exports["lrkt-dense"]["vertices"] - 1.0
+    emit({"phase": "onet_export", "seed": DEEPSDF_SEED, "r": traffic["resolution"],
+          "vertex_gap": gap, **exports})
+    if not abs(gap) <= ONET_MAX_VERTEX_GAP:
+        fail(f"onet export: vertices {gap:+.2%} off lrkt-dense's")
+
+    # frames of the lap through run_sequence(chunk=12)
+    lap = drive.render_lap(cfg, DEEPSDF_SEED, dev)
+    system, calib = drive.build_system(cfg, dev, meshing=False)
+    if not isinstance(system.tracker.packed, fused_mod.CbnPack) or not system.tracker.sdf_fused:
+        fail("onet: the tracker does not take the fused route")
+    system.first_iso = drive.gt_pose(lap, 0)
+    _build.reset_launch_counts()
+    rows0 = system.tracker.cond.cond_rows()
+    run = run_chunked(system, drive.LapStream(lap, calib, 0, frames), frames)
+    counts = _build.launch_counts()
+    prog = next(iter(system.tracker.programs.values())).program
+    passes = prog.loop_passes()
+    Rs, ts = system.tracker.pose_history()
+    ts = ts.double().cpu().numpy()
+    gt = np.stack([lap.t[lap.index(k)] for k in range(len(ts))])
+    ate = float(np.sqrt(((ts - gt) ** 2).sum(1).mean()))
+    tracked = len(ts) - 1
+    fusions = -(-len(ts) // int(cfg["integrate_interval"]))
+    line = {"phase": "onet_track", "frames": len(ts), "chunk": CHUNK,
+            "ms_per_frame": run["ms_per_frame"], "run_s": run["run_s"],
+            "loop_passes": passes, "gn_passes_per_frame": sum(passes) / max(tracked, 1),
+            "launches": {k: v for k, v in counts.items()
+                         if "decode" in k or "window" in k or "cbn" in k},
+            "fusions": fusions, "cond_rows": system.tracker.cond.cond_rows() - rows0,
+            "ate_rmse_m": ate, "n_occupied": int(system.state.n_occupied)}
+    emit(line)
+    stray = {k: v for k, v in counts.items()
+             if k.startswith("decode") and k != "decode_grad_cbn" and v}
+    if stray:
+        fail(f"onet track: another decoder's launches: {counts}")
+    if counts.get("decode_grad_cbn", 0) < 2 * tracked:
+        fail(f"onet track: {counts.get('decode_grad_cbn', 0)} kernel-1 launches "
+             f"for {tracked} tracked frames")
+    if counts.get("cbn_cond", 0) != fusions:
+        fail(f"onet track: {counts.get('cbn_cond', 0)} conditionings for {fusions} fusions")
+    if not ate <= ONET_MAX_ATE:
+        fail(f"onet track: ATE {ate:.4f} m > {ONET_MAX_ATE} m")
+    next(k for k in kernels if k["name"] == "decode_grad_cbn")["launches_onet_track"] = \
+        counts.get("decode_grad_cbn", 0)
+    next(k for k in kernels if k["name"] == "cbn_cond")["launches_onet_track"] = \
+        counts.get("cbn_cond", 0)
+    next(k for k in kernels if k["name"] == "decode_fwd_cbn")["launches_onet_export"] = \
+        exports["lrkt-onet"]["launches"].get("decode_fwd_cbn", 0)
 
 
 # kernel 2's edge shapes: (H, W, window).  The 32 x 4R tile's edges (whole
@@ -2692,6 +2968,13 @@ def main() -> int:
     _build.reset_launch_counts()
     deepsdf_phase(dev, kernels, fused_mod, info)
     kernels[4]["launches_deepsdf"] = _build.launch_counts().get("decode_fwd_bf16", 0)
+
+    # ---- onet: the onet_cbn kernels, the export and tracking under ONet's decoder ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    onet_phase(dev, kernels, fused_mod, info)
+    kernels[4]["launches_onet"] = _build.launch_counts().get("decode_fwd_bf16", 0)
 
     # kernel 3's bf16 mode is on no path: every phase's count must be 0
     stray = {key: n for key, n in kernels[4].items() if key.startswith("launches") and n}

@@ -267,24 +267,43 @@ def latent_count_table(state: MapState) -> torch.Tensor:
     return torch.cat([state.latents, state.obs_count[:, None]], dim=1)
 
 
+def _voxel_lookup(cfg: MapConfig, state: MapState, xyz: torch.Tensor):
+    """World points -> (normalized points, cell, inside the bounds, slot
+    (-1 free), slot clamped to the table as int64)."""
+    pn = normalize_points(cfg, xyz)
+    cell = cell_of(pn)
+    inside = in_bounds(cfg, cell)
+    lin = torch.clamp(linearize(cfg, cell), 0, cfg.n_cells - 1)
+    slot = state.indexer[lin]
+    return pn, cell, inside, slot, torch.clamp(slot, 0, cfg.capacity - 1).to(torch.int64)
+
+
 def gather_latent_rel(cfg: MapConfig, state: MapState, xyz: torch.Tensor,
                       aug_table: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Voxel lookup + latent gather + voxel-local coordinates of world
     points.  Returns (latent (N, L), rel (N, 3), valid (N,));
     ``d rel / d xyz = 1 / voxel_size``."""
-    pn = normalize_points(cfg, xyz)
-    cell = cell_of(pn)
-    inside = in_bounds(cfg, cell)
-    lin = torch.clamp(linearize(cfg, cell), 0, cfg.n_cells - 1)
-    slot = state.indexer[lin]
-    slot_safe = torch.clamp(slot, 0, cfg.capacity - 1).to(torch.int64)
+    pn, cell, inside, slot, slot_safe = _voxel_lookup(cfg, state, xyz)
     row = aug_table[slot_safe]
     valid = inside & (slot >= 0) & (row[:, -1] > cfg.ignore_count_th)
     latent = torch.where(valid[:, None], row[:, :-1],
                          torch.zeros((), dtype=row.dtype, device=row.device))
     rel = pn - cell.to(pn.dtype) - 0.5
     return latent, rel, valid
+
+
+def gather_slot_rel(cfg: MapConfig, state: MapState, xyz: torch.Tensor,
+                    aug_table: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`gather_latent_rel` with each point's latent slot in place of
+    its latent: (slot (N,) int32, 0 where the point is invalid, rel (N, 3),
+    valid (N,)), for a decoder that reads a per-slot table (onet_cbn's
+    conditioning)."""
+    pn, cell, inside, slot, slot_safe = _voxel_lookup(cfg, state, xyz)
+    valid = inside & (slot >= 0) & (aug_table[slot_safe, -1] > cfg.ignore_count_th)
+    rel = pn - cell.to(pn.dtype) - 0.5
+    return torch.where(valid, slot_safe, 0).to(torch.int32), rel, valid
 
 
 def query_sdf(cfg: MapConfig, decoder: Decoder, state: MapState, xyz: torch.Tensor,

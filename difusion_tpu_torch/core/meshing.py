@@ -50,7 +50,8 @@ Spans (:mod:`..utils.tracing`), one set for both backends: ``mesh.extract``
 (its item the extractor's extract number) holds ``mesh.prep`` (1; its count
 read and its download are the device waits ``mesh.prep.sync``),
 ``mesh.grid`` (the batch tables, the backend's grid and the blocks' upload),
-``mesh.decode`` (the decode dispatches), ``mesh.mc`` a chunk (3; its count
+``mesh.cond`` (an onet_cbn decoder's conditioning of the live blocks, once
+an extract), ``mesh.decode`` (the decode dispatches), ``mesh.mc`` a chunk (3; its count
 read and download, ``mesh.mc.download``, a device wait) and ``mesh.splice``
 (4).
 """
@@ -170,6 +171,22 @@ def _decode_lattice(decoder: Decoder, packed: Optional[torch.Tensor],
     if packed is not None:
         return _fused.decode_fused(packed, lat, xyz)
     return decoder.decode(lat, xyz)
+
+
+def _eval_and_negate_cbn(pack: "_fused.CbnPack", cond: torch.Tensor,
+                         blocks: torch.Tensor, r: int):
+    """:func:`_eval_and_negate` for an onet_cbn decoder: ``cond`` holds the
+    extract's live blocks' conditioning, ``blocks`` (C,) int32 the rows of
+    this dispatch's blocks, each of whose (2r)^3 sites reads its block's
+    row (kernel 3's onet_cbn instance)."""
+    C = blocks.shape[0]
+    lattice = _lattice(r, cond.device)                  # (K, 3)
+    K = lattice.shape[0]
+    idx = blocks[:, None].expand(C, K).reshape(C * K).contiguous()
+    xyz = lattice[None].expand(C, K, 3).reshape(C * K, 3)
+    sdf, std = _fused.decode_fwd_cbn(pack, cond, idx, xyz)
+    side = 2 * r
+    return (-sdf).reshape(C, side, side, side), std.reshape(C, side, side, side)
 
 
 def _eval_and_negate(decoder: Decoder, packed: Optional[torch.Tensor],
@@ -334,6 +351,9 @@ class _MeshExtractorBase:
         self.packed = (_fused.pack_fused_decoder(decoder)
                        if _fused.supports_spec(decoder.spec,
                                                decoder.uncertainty.weight.device) else None)
+        if isinstance(self.packed, _fused.CbnPack) and fast:
+            raise NotImplementedError("the coarse-to-fine mesher (fast) is not written for "
+                                      "onet_cbn decoders")
         self.r = int(voxel_resolution)
         self.max_triangles = int(max_triangles)
         self.interpolate = interpolate
@@ -346,6 +366,7 @@ class _MeshExtractorBase:
         self.last_transfer_bytes = 0
         self.last_stats: dict = {}
         self._n_extracts = 0                  # the mesh.extract spans' item
+        self.cond_rows = 0                    # blocks conditioned (onet_cbn)
         self.clear_cache()
 
     # -- cache ---------------------------------------------------------------
@@ -440,22 +461,35 @@ class _MeshExtractorBase:
         starts = range(0, n, C)
         shards = _shard_devices(dev) if self.shard else []
         split = [len(shards) >= 2 and min(C, n - s0) % len(shards) == 0 for s0 in starts]
+        # what a dispatch's blocks read: the latent table by slot, or (onet_cbn)
+        # the live blocks' conditioning, made once an extract, by block
+        cbn = isinstance(self.packed, _fused.CbnPack)
+        table, order = state.latents, slot_pad_d
+        if cbn:
+            s = tracing.begin("mesh.cond") if tracing.ON else -1
+            table = _fused.cbn_condition(self.packed, state.latents[slots_d.long()].contiguous())
+            order = torch.arange(n, dtype=torch.int32, device=dev)
+            self.cond_rows += n
+            if s >= 0:
+                tracing.end(s)
         copies = {d: (self.decoder if d == dev else copy.deepcopy(self.decoder).to(d),
                       None if self.packed is None else self.packed.to(d),
-                      state.latents.to(d)) for d in (set(shards) if any(split) else ())}
+                      table.to(d)) for d in (set(shards) if any(split) else ())}
 
         s = tracing.begin("mesh.decode") if tracing.ON else -1
 
         def decode(decoder, packed, table, chunk):
+            if cbn:
+                return _eval_and_negate_cbn(packed, table, chunk, self.r)
             if self.fast:
                 return _eval_and_negate_fast(decoder, packed, table, chunk, self.r,
                                              self.refine_k)
             return _eval_and_negate(decoder, packed, table, chunk, self.r)
         parts = []
         for s0, sliced in zip(starts, split):
-            chunk = slot_pad_d[s0:min(s0 + C, n)]
+            chunk = order[s0:min(s0 + C, n)]
             if not sliced:
-                parts.append(decode(self.decoder, self.packed, state.latents, chunk))
+                parts.append(decode(self.decoder, self.packed, table, chunk))
                 continue
             k = chunk.shape[0] // len(shards)
             pieces = [decode(*copies[d], chunk[j * k:(j + 1) * k].to(d))
@@ -475,6 +509,7 @@ class _MeshExtractorBase:
                                decode_instance=_fused.instance_name(
                                    self.packed, state.latents.shape[1], dev),
                                decoded_blocks=cube_sdf.shape[0],
+                               conditioned_blocks=n if cbn else 0,
                                decode_dispatches=len(starts),
                                decode_devices=len(shards) if any(split) else 1,
                                mc_chunks=-(-n // C_mc),

@@ -9,8 +9,10 @@ a (2w+1)^2 window per pixel for radius-outlier counts and PCA normals
 (kernel 2, ``ops/stencil.py``), voxel-filter the point cloud to the point budget, then
 run the grouped Gauss-Newton schedule over se(3): an SDF term (decoder
 forward + d sdf/d xyz in one kernel, kernel 1, ``ops/decoder_fused.py``, in
-f32 or, under ``sdf_compute_dtype="bfloat16"``, in its bf16 mode; or with
-``sdf_fused="off"`` autograd through ``Decoder.decode``) and a photometric
+f32 or, under ``sdf_compute_dtype="bfloat16"``, in its bf16 mode; for an
+``onet_cbn`` decoder its instance reading each point's voxel's row of the
+conditioning table :class:`CondTable`; or with ``sdf_fused="off"``
+autograd through ``Decoder.decode``) and a photometric
 term (the per-pixel bilinear warp, the block-tiled warp of
 ``warp_tiled=True`` or the round-to-nearest warp of ``rgb_bilinear=False``),
 a Jacobi-preconditioned 6x6 solve and energy rejection.  ``solve_dtype``
@@ -44,13 +46,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.decoder import Decoder
+from ..models.decoder import Decoder, is_cbn
 from ..ops import compsum, imgproc
-from ..ops.decoder_fused import decode_grad_fused, pack_fused_decoder, supports_spec
+from ..ops.decoder_fused import (CbnPack, cbn_condition, decode_grad_cbn, decode_grad_fused,
+                                 pack_fused_decoder, supports_spec)
 from ..ops.imgproc import Intrinsic, Pyramid
 from ..ops.pcproc import point_box_filter
 from ..ops.se3 import Pose, exp_twist
 from ..ops.stencil import window_stat_sums_map
+from ..utils import tracing
 from ..utils.cudagraph import GraphProgram
 from ..utils.motion import Isometry
 from . import hash_map as HM
@@ -194,18 +198,21 @@ def check_supported(tcfg: TrackerConfig) -> None:
             "the PyTorch port (supported: an int >= 1)")
 
 
-def resolve_sdf_fused(tcfg: TrackerConfig, spec, device) -> bool:
+def resolve_sdf_fused(tcfg: TrackerConfig, spec, device, hash_map: bool = False) -> bool:
     """Whether the SDF term runs the fused kernel: ``"on"`` (raises on a
     decoder the kernel does not take), ``"off"``, or ``"auto"``: on for a
     CUDA device when the kernel takes the decoder (the JAX package's rule
-    for its TPU, tracker.py:162-174)."""
+    for its TPU, tracker.py:162-174).  An ``onet_cbn`` decoder takes it on
+    the dense map only (``hash_map``: its slot lookup is not written)."""
+    takes = supports_spec(spec, device) and not (hash_map and is_cbn(spec))
     if tcfg.sdf_fused == "off":
         return False
     if tcfg.sdf_fused == "on":
-        if not supports_spec(spec, device):
-            raise ValueError(f"sdf_fused='on' but {spec} is unsupported")
+        if not takes:
+            raise ValueError(f"sdf_fused='on' but {spec} is unsupported"
+                             + (" on the hash map" if hash_map and is_cbn(spec) else ""))
         return True
-    return supports_spec(spec, device) and torch.device(device).type == "cuda"
+    return takes and torch.device(device).type == "cuda"
 
 
 class ProcessedFrame(NamedTuple):
@@ -434,23 +441,33 @@ def _normal_equations(J: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     return H, g, torch.sum(w * r * r) * scale
 
 
-def _sdf_term(map_cfg: M.MapConfig, packed: Optional[torch.Tensor], state: M.MapState,
+def _sdf_term(map_cfg: M.MapConfig, packed, state: M.MapState,
               last: Pose, delta: Pose, pts: torch.Tensor, mask: torch.Tensor,
               robust_kernel: str, robust_k: float, aug_table: torch.Tensor,
               gram_mode: str = "f32", decoder: Optional[Decoder] = None,
-              compute_dtype: torch.dtype = torch.float32):
+              compute_dtype: torch.dtype = torch.float32,
+              cond: Optional[torch.Tensor] = None):
     """SDF residual r = sdf(last o delta y)/std with Jacobian [G | y x G].
 
     With a ``packed`` decoder, through the fused decode + position-gradient
     kernel in the pack's mode (f32 or bf16): the chain factors
     ``d rel/d x = 1/voxel_size`` and ``d x/d y = R_last`` turn the kernel's
     d sdf/d rel into dr/dy (std is held constant, as the JAX vjp route
-    stop-gradients it).  With ``packed=None`` (``sdf_fused`` off), the JAX
+    stop-gradients it).  An onet_cbn pack (:class:`CbnPack`) gathers each
+    point's voxel slot, whose row of ``cond`` (:class:`CondTable`) the
+    kernel reads, in place of its latent.  With ``packed=None``
+    (``sdf_fused`` off), the JAX
     package's vjp route (tracker.py:209-235): autograd of
     ``sdf / std.detach()`` with respect to the points through
     ``decoder.decode(..., compute_dtype)``, the latent held constant."""
     y = delta.apply(pts)
-    if packed is not None:
+    if isinstance(packed, CbnPack):
+        x = last.apply(y)
+        slot, rel, valid = M.gather_slot_rel(map_cfg, state, x, aug_table)
+        sdf, std, grel = decode_grad_cbn(packed, cond, slot, rel.contiguous())
+        r = sdf / std
+        G = (grel / (std[:, None] * map_cfg.voxel_size)) @ last.R
+    elif packed is not None:
         x = last.apply(y)
         latent, rel, valid = HM.map_module(map_cfg).gather_latent_rel(
             map_cfg, state, x, aug_table)
@@ -590,6 +607,7 @@ class GNProblem(NamedTuple):
     rgb_weight: torch.Tensor
     packed_bf16: Optional[torch.Tensor] = None   # the bf16 mode's pack
     decoder: Optional[Decoder] = None
+    cond: Optional[torch.Tensor] = None   # an onet_cbn pack's conditioning table
 
 
 class GNCarry(NamedTuple):
@@ -690,7 +708,8 @@ def _eval_Hg(p: GNProblem, delta: Pose, terms, is_last_group: bool = False):
                             p.inputs.sdf_pts, p.inputs.sdf_mask,
                             tcfg.sdf_robust_kernel, tcfg.sdf_robust_k,
                             p.inputs.aug_table, tcfg.solve_dtype, decoder=p.decoder,
-                            compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+                            compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+                            cond=p.cond)
         elif term[0] == "rgb":
             lvl = int(term[1])
             tH, tg, tE = _rgb_term(tcfg, p.cams[lvl], _rgb_stride(tcfg, lvl),
@@ -799,7 +818,10 @@ class TrackProgram:
     def load_state(self, state) -> None:
         """Copy in what tracking reads of the map, unless the program holds
         these very tensors already (a fusion makes new ones; a mesh extract
-        keeps them)."""
+        keeps them), and bring an onet_cbn conditioning table up to the
+        state's latents."""
+        if self.tr.cond is not None:
+            self.tr.cond.refresh(state.latents)
         fields = HM.map_module(self.tr.map_cfg).TRACKED_FIELDS
         src = tuple(getattr(state, f) for f in fields)
         if len(src) == len(self._loaded) and all(
@@ -844,7 +866,8 @@ class TrackProgram:
         self._problem = GNProblem(
             tr.tcfg, tr.map_cfg, tr.packed, tr.cams, self.state, self.last, self.cur,
             gn_prepare(tr.tcfg, self.state, self.prev, self.cur, tr.calib.dcam_scale),
-            self.rgb_weight, tr.packed_bf16, tr.decoder)
+            self.rgb_weight, tr.packed_bf16, tr.decoder,
+            tr.cond.table if tr.cond is not None else None)
         init = (self.delta if tr.tcfg.motion_prior == "constant_velocity"
                 else tr._identity)
         self._set_carry(gn_group_init(init))
@@ -896,6 +919,50 @@ def world_points(p: ProcessedFrame, pose: Pose
     return p.pts_cam @ pose.R.T + pose.t, p.normals_cam @ pose.R.T, p.pc_mask
 
 
+class CondTable:
+    """The conditioning of every map slot's latent for an onet_cbn pack:
+    ``table`` (capacity, NC, 2, H), one fixed tensor that the captured
+    programs read.  :meth:`refresh` brings it up to a state's latents: it
+    conditions the slots whose latent differs from the one their row was
+    made from (a fusion's touched slots, an optimizer's result, a loaded
+    map), with no host read: the changed slots compact on the device and
+    ``cbn_cond_kernel`` reads their count there.  Its span is ``map.cond``;
+    :meth:`cond_rows` counts the rows conditioned since it was built."""
+
+    def __init__(self, pack: CbnPack, capacity: int, device):
+        lay = pack.layout
+        self.pack = pack
+        zero = cbn_condition(pack, torch.zeros(1, lay.L, device=device))
+        self.table = zero.expand(capacity, -1, -1, -1).contiguous()
+        self.latents = torch.zeros(capacity, lay.L, device=device)
+        self._iota = torch.arange(capacity, dtype=torch.int32, device=device)
+        self._rows = torch.zeros((), dtype=torch.int64, device=device)
+        self._src: Optional[torch.Tensor] = None
+
+    def refresh(self, latents: torch.Tensor) -> None:
+        """Condition the slots whose latent changed (nothing for the
+        latents tensor of the last call)."""
+        if latents is self._src:
+            return
+        s = tracing.begin("map.cond") if tracing.ON else -1
+        cap = self.latents.shape[0]
+        changed = (latents != self.latents).any(dim=1)
+        count = changed.sum(dtype=torch.int32)
+        pos = torch.cumsum(changed, 0, dtype=torch.int32) - 1
+        rows = torch.zeros(cap + 1, dtype=torch.int32, device=latents.device).scatter_(
+            0, torch.where(changed, pos, cap).long(), self._iota)[:cap]
+        cbn_condition(self.pack, latents.contiguous(), rows, count, out=self.table)
+        self.latents.copy_(latents)
+        self._rows += count
+        self._src = latents
+        if s >= 0:
+            tracing.end(s)
+
+    def cond_rows(self) -> int:
+        """Rows conditioned since the table was built (reads the device)."""
+        return int(self._rows)
+
+
 # ---------------------------------------------------------------------------
 # Host-side tracker (temporal state, divergence fallback)
 # ---------------------------------------------------------------------------
@@ -923,11 +990,16 @@ class SDFTracker:
         # the SDF term's route: the fused kernel over the packed weights (in
         # bf16 too where sdf_compute_dtype asks for it), or autograd
         # through the decoder (packed None)
-        self.sdf_fused = resolve_sdf_fused(tcfg, decoder.spec, device)
+        self.sdf_fused = resolve_sdf_fused(tcfg, decoder.spec, device,
+                                           hash_map=HM.map_module(map_cfg) is HM)
         self.packed = pack_fused_decoder(decoder) if self.sdf_fused else None
         self.packed_bf16 = (pack_fused_decoder(decoder, torch.bfloat16)
                             if self.sdf_fused and tcfg.sdf_compute_dtype == "bfloat16"
                             else None)
+        # onet_cbn's kernel 1 reads each map slot's conditioning from a table
+        # that follows the map's latents (refreshed where the map changes)
+        self.cond = (CondTable(self.packed, map_cfg.capacity, device)
+                     if isinstance(self.packed, CbnPack) else None)
         self.cams = {lvl: level_camera(tcfg, calib, lvl, device)
                      for lvl in range(tcfg.pyramid_levels)}
         self._pose_chunks: list = []      # device (Rs (K, 3, 3), ts (K, 3))

@@ -1,6 +1,7 @@
-"""Probabilistic-SDF decoder (counterpart of difusion_tpu/models/decoder.py).
+"""Probabilistic-SDF decoders: the families a prior's ``network_name``
+names (:func:`spec_from_hyper`; a hyper without one is ``di_decoder``'s).
 
-Input is ``concat(latent, xyz)`` of width ``L+3``; hidden dims ``[128]*4``;
+``di_decoder`` (counterpart of difusion_tpu/models/decoder.py): input is ``concat(latent, xyz)`` of width ``L+3``; hidden dims ``[128]*4``;
 the layer listed in ``latent_in`` re-concatenates the input; the std head
 reads the last hidden activation and maps through ``0.05 + 0.5*softplus``;
 the SDF output goes through ``tanh``.  Two forms:
@@ -15,6 +16,12 @@ the SDF output goes through ``tanh``.  Two forms:
   constructor takes, and :meth:`DecoderTrain.to_params` gives back, the JAX
   package's parameter tree of numpy arrays, which
   :func:`fold_decoder_params` folds for :class:`Decoder`.
+
+``onet_cbn`` (the JAX package has none): Occupancy Networks'
+conditional-batch-norm decoder with DI-Fusion's sdf and std heads, its
+inference form :class:`CbnDecoder` and train form :class:`CbnDecoderTrain`
+(the section below says how).  :func:`init_params`, :func:`train_decoder`
+and :func:`inference_decoder` dispatch on the spec's family.
 """
 from __future__ import annotations
 
@@ -275,3 +282,264 @@ class DecoderTrain(nn.Module):
                     # XLA turns the JAX package's x / keep into x * (1 / keep)
                     x = torch.where(m, x * inv_keep, 0.0)
         return torch.tanh(x), std
+
+
+# ---------------------------------------------------------------------------
+# onet_cbn: Occupancy Networks' conditional-batch-norm decoder
+# ---------------------------------------------------------------------------
+#
+# ``DecoderCBatchNorm`` (Mescheder et al., CVPR 2019, arXiv:1812.03828;
+# im2mesh/onet/models/decoder.py and im2mesh/layers.py) with z_dim 0, the
+# code c the voxel's latent:
+#
+#   net = fc_p(xyz)                                          (3 -> H)
+#   net = net + fc_1(relu(CBN_{2i+1}(fc_0(relu(CBN_{2i}(net, c))), c)))
+#                                                            (i = 0 .. blocks-1)
+#   h = relu(CBN_{2 blocks}(net, c))
+#   sdf = tanh(fc_out(h)),  std = 0.05 + 0.5 softplus(uncertainty(h))
+#
+# CBN_j(x, c) = (W_g c + b_g) * BN(x) + (W_b c + b_b), BN without affine
+# (batch statistics in training, running statistics at inference).  The
+# sdf head and the std head on ``h`` are DI-Fusion's probabilistic output in
+# place of ONet's occupancy logit.  The parameter tree: ``fc_p``,
+# ``blocks[i].fc_0`` / ``.fc_1``, ``cbn[j]`` (``gamma_w``, ``gamma_b``,
+# ``beta_w``, ``beta_b``, ``mean``, ``var``), ``fc_out``, ``uncertainty``;
+# linears as ``{w (out, in), b}``.
+
+ONET_CBN = "onet_cbn"
+CBN_EPS = 1e-5
+CBN_MOMENTUM = 0.1
+
+
+class CbnSpec(NamedTuple):
+    """onet_cbn's widths: the code (``c_dim``), the hidden width
+    (``hidden_size``) and the number of residual blocks."""
+    latent_size: int = 256
+    hidden: int = 256
+    blocks: int = 5
+
+    @property
+    def n_cbn(self) -> int:
+        """Two conditional batch norms a block, and the head's."""
+        return 2 * self.blocks + 1
+
+    @classmethod
+    def from_hyper(cls, hyper: dict) -> "CbnSpec":
+        spec = hyper.get("network_specs") or {}
+        return cls(latent_size=int(hyper["code_length"]),
+                   hidden=int(spec.get("hidden_size", 256)),
+                   blocks=int(spec.get("n_blocks", 5)))
+
+
+def spec_from_hyper(hyper: dict):
+    """The decoder spec of the family the hyper's ``network_name`` names (a
+    hyper without one is ``di_decoder``'s)."""
+    name = hyper.get("network_name") or "di_decoder"
+    if name == "di_decoder":
+        return DecoderSpec.from_hyper(hyper)
+    if name == ONET_CBN:
+        return CbnSpec.from_hyper(hyper)
+    raise ValueError(f"unknown decoder family network_name={name!r} "
+                     f"(the port has di_decoder and {ONET_CBN})")
+
+
+def is_cbn(spec) -> bool:
+    return isinstance(spec, CbnSpec)
+
+
+def init_cbn_params(spec: CbnSpec, generator: torch.Generator) -> Dict[str, Any]:
+    """Train-form parameters (numpy f32) drawn from ``generator`` with
+    torch's ``Linear`` bounds U(-k, k), k = 1/sqrt(fan_in), and ONet's own
+    initialisation on top: ``fc_1`` weights zero, each CBN's gamma map 0 c
+    + 1 and beta map 0 c + 0, so that every block starts as the identity.
+    Running statistics start at mean 0, variance 1."""
+    def uniform(shape, k):
+        return ((torch.rand(shape, generator=generator) * 2 - 1) * k).numpy()
+
+    def linear(din, dout):
+        k = 1.0 / np.sqrt(din)
+        return {"w": uniform((dout, din), k), "b": uniform((dout,), k)}
+
+    H, L = spec.hidden, spec.latent_size
+    fc_p = linear(3, H)
+    blocks = []
+    for _ in range(spec.blocks):
+        fc_0, fc_1 = linear(H, H), linear(H, H)
+        fc_1["w"] = np.zeros((H, H), np.float32)
+        blocks.append({"fc_0": fc_0, "fc_1": fc_1})
+    cbn = [{"gamma_w": np.zeros((H, L), np.float32), "gamma_b": np.ones(H, np.float32),
+            "beta_w": np.zeros((H, L), np.float32), "beta_b": np.zeros(H, np.float32),
+            "mean": np.zeros(H, np.float32), "var": np.ones(H, np.float32)}
+           for _ in range(spec.n_cbn)]
+    return {"fc_p": fc_p, "blocks": blocks, "cbn": cbn, "fc_out": linear(H, 1),
+            "uncertainty": linear(H, 1)}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32)).clone()
+
+
+class CbnDecoder(nn.Module):
+    """onet_cbn's inference form.  BN's running statistics fold into the
+    conditioning: with s = 1/sqrt(var + eps) and t = -mean s, CBN_j(x, c) =
+    gamma'_j(c) x + beta'_j(c), gamma' = (W_g c + b_g) s, beta' = (W_g c +
+    b_g) t + (W_b c + b_b) (:meth:`condition`).  :meth:`decode` has
+    :meth:`Decoder.decode`'s interface and conditions every row for itself;
+    the kernels condition each code once (``ops/decoder_fused``)."""
+
+    def __init__(self, spec: CbnSpec, params: Dict[str, Any]):
+        super().__init__()
+        self.spec = spec
+        H, L, n = spec.hidden, spec.latent_size, spec.n_cbn
+
+        def linear(p, din, dout):
+            lin = nn.Linear(din, dout)
+            with torch.no_grad():
+                lin.weight.copy_(_t(p["w"]))
+                lin.bias.copy_(_t(p["b"]))
+            return lin
+        self.fc_p = linear(params["fc_p"], 3, H)
+        self.fc_0 = nn.ModuleList(linear(b["fc_0"], H, H) for b in params["blocks"])
+        self.fc_1 = nn.ModuleList(linear(b["fc_1"], H, H) for b in params["blocks"])
+        self.fc_out = linear(params["fc_out"], H, 1)
+        self.uncertainty = linear(params["uncertainty"], H, 1)
+        cbn = params["cbn"]
+        # (n, 2, H, L) / (n, 2, H): each CBN's gamma map, then its beta map
+        self.cond_w = nn.Parameter(torch.stack([torch.stack([_t(c["gamma_w"]), _t(c["beta_w"])])
+                                                for c in cbn]))
+        self.cond_b = nn.Parameter(torch.stack([torch.stack([_t(c["gamma_b"]), _t(c["beta_b"])])
+                                                for c in cbn]))
+        s = 1.0 / torch.sqrt(torch.stack([_t(c["var"]) for c in cbn]) + CBN_EPS)
+        self.bn_s = nn.Parameter(s)                                           # (n, H)
+        self.bn_t = nn.Parameter(-torch.stack([_t(c["mean"]) for c in cbn]) * s)
+        assert self.cond_w.shape == (n, 2, H, L)
+        self.requires_grad_(False)
+
+    def cbn_layer(self, codes: torch.Tensor, j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(M, L) codes -> CBN j's folded (gamma', beta'), each (M, H)."""
+        g = codes @ self.cond_w[j, 0].T + self.cond_b[j, 0]
+        b = codes @ self.cond_w[j, 1].T + self.cond_b[j, 1]
+        return g * self.bn_s[j], g * self.bn_t[j] + b
+
+    def condition(self, codes: torch.Tensor) -> torch.Tensor:
+        """(M, L) codes -> (M, n_cbn, 2, H): every CBN's folded gamma' and
+        beta' (the table the kernels read)."""
+        return torch.stack([torch.stack(self.cbn_layer(codes, j), dim=1)
+                            for j in range(self.spec.n_cbn)], dim=1)
+
+    def trunk(self, xyz: torch.Tensor, cbn) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The residual trunk and heads; ``cbn(j)`` gives CBN j's (gamma',
+        beta') per row."""
+        net = self.fc_p(xyz)
+        for i in range(self.spec.blocks):
+            g, b = cbn(2 * i)
+            a = self.fc_0[i](torch.relu(g * net + b))
+            g, b = cbn(2 * i + 1)
+            net = net + self.fc_1[i](torch.relu(g * a + b))
+        g, b = cbn(2 * self.spec.blocks)
+        h = torch.relu(g * net + b)
+        sdf = torch.tanh(self.fc_out(h))[:, 0]
+        std = 0.05 + 0.5 * F.softplus(self.uncertainty(h))[:, 0]
+        return sdf, std
+
+    def decode(self, latent: torch.Tensor, xyz: torch.Tensor,
+               compute_dtype: torch.dtype = torch.float32
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, L), (N, 3) -> sdf (N,), std (N,) in f32, each row conditioned
+        on its own latent (differentiable in both)."""
+        if compute_dtype != torch.float32:
+            raise ValueError(f"{ONET_CBN} computes in float32 only (its bf16 mode "
+                             f"is not written), not {compute_dtype}")
+        return self.trunk(xyz, lambda j: self.cbn_layer(latent, j))
+
+    forward = decode
+
+
+class CbnDecoderTrain(nn.Module):
+    """onet_cbn's train form: the parameters by the tree's names
+    (``fc_p.w``, ``blocks.2.fc_0.b``, ``cbn.4.gamma_w``), each CBN's running
+    ``mean`` and ``var`` as buffers.  BN takes its statistics over every
+    sample of the batch and moves the running ones as
+    ``torch.nn.BatchNorm1d`` does (momentum 0.1, eps 1e-5, the unbiased
+    variance)."""
+
+    def __init__(self, spec: CbnSpec, params: Dict[str, Any]):
+        super().__init__()
+        self.spec = spec
+
+        def pdict(p):
+            return nn.ParameterDict({k: _param(v) for k, v in p.items()})
+        self.fc_p = pdict(params["fc_p"])
+        self.blocks = nn.ModuleList(nn.ModuleDict({k: pdict(v) for k, v in b.items()})
+                                    for b in params["blocks"])
+        self.cbn = nn.ModuleList()
+        for c in params["cbn"]:
+            m = pdict({k: v for k, v in c.items() if k not in ("mean", "var")})
+            mod = nn.Module()
+            mod.p = m
+            mod.register_buffer("mean", _t(c["mean"]))
+            mod.register_buffer("var", _t(c["var"]))
+            self.cbn.append(mod)
+        self.fc_out = pdict(params["fc_out"])
+        self.uncertainty = pdict(params["uncertainty"])
+
+    def to_params(self) -> Dict[str, Any]:
+        def leaf(p):
+            return p.detach().cpu().numpy().copy()
+
+        def tree(pd):
+            return {k: leaf(v) for k, v in pd.items()}
+        return {"fc_p": tree(self.fc_p),
+                "blocks": [{k: tree(v) for k, v in b.items()} for b in self.blocks],
+                "cbn": [{**tree(c.p), "mean": leaf(c.mean), "var": leaf(c.var)}
+                        for c in self.cbn],
+                "fc_out": tree(self.fc_out), "uncertainty": tree(self.uncertainty)}
+
+    def _cbn(self, j: int, x: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+        """CBN j of x (B, S, H) under codes (B, L): one conditioning a code,
+        broadcast over its S samples; BN over all B S samples."""
+        c = self.cbn[j]
+        B, S, H = x.shape
+        xn = F.batch_norm(x.reshape(B * S, H), c.mean, c.var, training=True,
+                          momentum=CBN_MOMENTUM, eps=CBN_EPS).reshape(B, S, H)
+        gamma = codes @ c.p["gamma_w"].T + c.p["gamma_b"]
+        beta = codes @ c.p["beta_w"].T + c.p["beta_b"]
+        return gamma[:, None, :] * xn + beta[:, None, :]
+
+    def forward(self, codes: torch.Tensor, xyz: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """codes (B, L), xyz (B S, 3), the S samples of code b at rows b S ..
+        (b + 1) S - 1 -> sdf (B S, 1), std (B S, 1)."""
+        B = codes.shape[0]
+        x = xyz.reshape(B, -1, 3)
+
+        def lin(p, v):
+            return v @ p["w"].T + p["b"]
+        net = lin(self.fc_p, x)
+        for i, blk in enumerate(self.blocks):
+            a = lin(blk["fc_0"], torch.relu(self._cbn(2 * i, net, codes)))
+            net = net + lin(blk["fc_1"], torch.relu(self._cbn(2 * i + 1, a, codes)))
+        h = torch.relu(self._cbn(len(self.cbn) - 1, net, codes)).reshape(-1, self.spec.hidden)
+        sdf = torch.tanh(lin(self.fc_out, h))
+        std = 0.05 + 0.5 * F.softplus(lin(self.uncertainty, h))
+        return sdf, std
+
+
+def init_params(spec, generator: torch.Generator) -> Dict[str, Any]:
+    """A fresh train-form tree of the spec's family."""
+    if is_cbn(spec):
+        return init_cbn_params(spec, generator)
+    return init_decoder_params(spec, generator)
+
+
+def train_decoder(spec, params: Dict[str, Any]) -> nn.Module:
+    """The train form of the spec's family over a parameter tree."""
+    return CbnDecoderTrain(spec, params) if is_cbn(spec) else DecoderTrain(spec, params)
+
+
+def inference_decoder(spec, params: Dict[str, Any]) -> nn.Module:
+    """The inference form of the spec's family from a train-form tree
+    (a ``di_decoder``'s weight norm folded; folded trees pass through)."""
+    if is_cbn(spec):
+        return CbnDecoder(spec, params)
+    return Decoder(spec, fold_decoder_params(params))

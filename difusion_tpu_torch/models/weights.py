@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .decoder import Decoder, DecoderSpec, fold_decoder_params
+from .decoder import DecoderSpec, inference_decoder, spec_from_hyper
 from .encoder import Encoder, EncoderSpec, fold_encoder_params
 
 
@@ -85,22 +85,24 @@ def load_params_npz(path) -> Dict[str, Any]:
 
 
 def from_jax_params(dec_np: Dict[str, Any], enc_np: Dict[str, Any],
-                    spec: DecoderSpec, enc_spec: Optional[EncoderSpec] = None,
-                    device="cuda") -> Tuple[Decoder, Encoder]:
-    """JAX parameter trees (numpy leaves; folded or train form) -> the
-    port's folded :class:`Decoder` and :class:`Encoder` on ``device``."""
+                    spec, enc_spec: Optional[EncoderSpec] = None,
+                    device="cuda") -> Tuple[Any, Encoder]:
+    """Parameter trees (numpy leaves; folded or train form) -> the port's
+    inference decoder of the spec's family (``Decoder`` or ``CbnDecoder``)
+    and :class:`Encoder` on ``device``."""
     dev = resolve_device(device)
     enc_spec = enc_spec or EncoderSpec(latent_size=spec.latent_size)
-    dec = Decoder(spec, fold_decoder_params(dec_np)).to(dev)
+    dec = inference_decoder(spec, dec_np).to(dev)
     enc = Encoder(enc_spec, fold_encoder_params(enc_np)).to(dev)
     return dec, enc
 
 
-def load_prior(hyper_path, use_epoch: int = 300, device="cuda"
-               ) -> Tuple[Decoder, Encoder, DecoderSpec]:
+def load_prior(hyper_path, use_epoch: int = 300, device="cuda") -> Tuple[Any, Encoder, Any]:
     """Read ``prior_{use_epoch}.npz`` beside ``hyper_path``, or where there
-    is none the reference's ``model_`` / ``encoder_{use_epoch}.pth.tar``,
-    and build the port's modules on ``device``."""
+    is none the reference's ``model_`` / ``encoder_{use_epoch}.pth.tar``
+    (``di_decoder`` only), and build the port's modules on ``device``: the
+    decoder of the family the hyper's ``network_name`` names
+    (:func:`~.decoder.spec_from_hyper`), its spec and the encoder."""
     hyper_path = Path(hyper_path)
     hyper = json.loads(hyper_path.read_text())
     npz = hyper_path.parent / f"prior_{use_epoch}.npz"
@@ -112,7 +114,7 @@ def load_prior(hyper_path, use_epoch: int = 300, device="cuda"
     else:
         raise FileNotFoundError(f"neither {npz} nor model_{use_epoch}.pth.tar "
                                 f"in {hyper_path.parent}")
-    spec = DecoderSpec.from_hyper(hyper)
+    spec = spec_from_hyper(hyper)
     enc_spec = EncoderSpec.from_hyper(hyper)
     dec, enc = from_jax_params(dec_t, enc_t, spec, enc_spec, device=device)
     return dec, enc, spec

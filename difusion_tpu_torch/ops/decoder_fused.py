@@ -45,6 +45,14 @@ packs by that head on the CPU and by its size on the card (each compiled
 instance's is known), launch the instance ``WIDE_INSTANCES`` names and
 count it as ``decode_grad_wide`` / ``decode_fwd_wide``.  f32 only
 (3xTF32).
+
+An ``onet_cbn`` decoder (Occupancy Networks' conditional batch norm) takes
+three kernels of its own (``csrc/decoder_cbn.cu``, the section at the end):
+the conditioning of codes once each (:func:`cbn_condition`, counted as
+``cbn_cond``), and kernels 1 and 3 over sites that carry a row index into
+that conditioning (:func:`decode_grad_cbn`, :func:`decode_fwd_cbn`, counted
+as ``decode_grad_cbn`` / ``decode_fwd_cbn``); its pack is a type of its own,
+:class:`CbnPack`.  f32 only (3xTF32).
 """
 from __future__ import annotations
 
@@ -55,7 +63,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.decoder import Decoder, DecoderSpec, bf16_round
+from ..models.decoder import Decoder, DecoderSpec, bf16_round, is_cbn
 from . import _build
 
 LAT, DIN, HID, H2 = 29, 32, 128, 96
@@ -85,17 +93,21 @@ def _is_narrow(spec: DecoderSpec) -> bool:
             and spec.latent_size == LAT)
 
 
-def supports_spec(spec: DecoderSpec, device=None) -> bool:
-    """Whether the fused kernels take the decoder: the 128-wide one, or one
-    of the wide family (:func:`wide_layout`).  With a CUDA ``device``, a
-    wide decoder also needs its compiled instance (``WIDE_INSTANCES``); its
-    plain versions run any member on the CPU."""
+def supports_spec(spec, device=None) -> bool:
+    """Whether the fused kernels take the decoder: the 128-wide one, one of
+    the wide family (:func:`wide_layout`), or an ``onet_cbn`` decoder
+    (:func:`cbn_layout`).  With a CUDA ``device``, a wide or onet_cbn
+    decoder also needs its compiled instance (``WIDE_INSTANCES``,
+    ``CBN_INSTANCES``); their plain versions run any member on the CPU."""
+    on_card = device is not None and torch.device(device).type == "cuda"
+    if is_cbn(spec):
+        return not on_card or tuple(cbn_layout(spec)) in CBN_INSTANCES
     if _is_narrow(spec):
         return True
     lay = wide_layout(spec)
     if lay is None:
         return False
-    return device is None or torch.device(device).type != "cuda" or tuple(lay) in WIDE_INSTANCES
+    return not on_card or tuple(lay) in WIDE_INSTANCES
 
 
 # ---------------------------------------------------------------------------
@@ -335,15 +347,20 @@ def is_bf16(packed: torch.Tensor) -> bool:
     return packed.numel() == PACKED_SIZE_BF16
 
 
-def pack_fused_decoder(decoder: Decoder, dtype: torch.dtype = torch.float32
-                       ) -> torch.Tensor:
+def pack_fused_decoder(decoder, dtype: torch.dtype = torch.float32):
     """Folded decoder -> the kernels' flat f32 weight buffer, on the
     decoder's device: (PACKED_SIZE,) for ``dtype`` float32 (3xTF32 products
     at f32 accuracy), (PACKED_SIZE_BF16,) for bfloat16 (the weights rounded
     to bf16 after the fold, biases f32).  A wide decoder: its
-    (:attr:`WideLayout.size`,) f32 pack, f32 only."""
+    (:attr:`WideLayout.size`,) f32 pack, f32 only.  An ``onet_cbn``
+    decoder: its :class:`CbnPack`, f32 only."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused decoder kernels compute in float32 or bfloat16, not {dtype}")
+    if is_cbn(decoder.spec):
+        if dtype != torch.float32:
+            raise ValueError("the onet_cbn kernels compute in float32 (3xTF32) only: "
+                             "its bf16 mode is not written")
+        return _pack_cbn(decoder)
     if not _is_narrow(decoder.spec):
         lay = wide_layout(decoder.spec)
         if lay is None:
@@ -485,7 +502,14 @@ def grad_rows_off(got: torch.Tensor, packed: torch.Tensor, latent: torch.Tensor,
 
         def grad(masks):
             return _grad(p, masks, sdf, bf16)
-    ref = grad([h > 0 for h in hs])
+    return _rows_off(got, zs, [h > 0 for h in hs], grad, atol, rtol, kink, pads)
+
+
+def _rows_off(got, zs, masks, grad, atol, rtol, kink, pads=None) -> torch.Tensor:
+    """The rows of ``got`` off ``grad(masks)`` unless, their nearest
+    preactivation (of ``zs``, none of the ``pads``) within ``kink`` of 0,
+    they match the gradient with that unit's mask flipped."""
+    ref = grad(masks)
     off = ((got - ref).abs() > atol + rtol * ref.abs()).any(dim=1)
     if bool(off.any()):
         z = torch.cat(zs, dim=1)
@@ -494,18 +518,21 @@ def grad_rows_off(got: torch.Tensor, packed: torch.Tensor, latent: torch.Tensor,
         flip = torch.zeros_like(z, dtype=torch.bool)
         flip[torch.arange(z.shape[0], device=z.device), nearest] = True
         flips = flip.split([zl.shape[1] for zl in zs], dim=1)
-        alt = grad([(h > 0) ^ f for h, f in zip(hs, flips)])
+        alt = grad([m ^ f for m, f in zip(masks, flips)])
         other_side = ((got - alt).abs() <= atol + rtol * alt.abs()).all(dim=1)
         off &= ~(other_side & (dist < kink))
     return off
 
 
-def instance_name(packed: Optional[torch.Tensor], latent_width: int, device) -> str:
+def instance_name(packed, latent_width: int, device) -> str:
     """The counter kernel 3 counts its launches under on ``device`` for this
-    pack (``decode_fused``, ``decode_fwd_bf16``, ``decode_fwd_wide``), or
-    ``plain`` where nothing launches (the CPU, or no pack: ``Decoder.decode``)."""
+    pack (``decode_fused``, ``decode_fwd_bf16``, ``decode_fwd_wide``,
+    ``decode_fwd_cbn``), or ``plain`` where nothing launches (the CPU, or no
+    pack: ``Decoder.decode``)."""
     if packed is None or torch.device(device).type != "cuda":
         return "plain"
+    if isinstance(packed, CbnPack):
+        return "decode_fwd_cbn"
     if _wide_of(packed, latent_width) is not None:
         return "decode_fwd_wide"
     return "decode_fwd_bf16" if is_bf16(packed) else "decode_fused"
@@ -550,6 +577,10 @@ def _load(name: str):
     lib = _libs.get(name)
     if lib is None:
         lib = _build.load(name)
+        if name == "decoder_cbn":
+            _type_cbn(lib)
+            _libs[name] = lib
+            return lib
         if name == "decoder_wide":
             pairs = [(getattr(lib, f"decode_wide_packed_size{WideLayout(*i).key}")(),
                       WideLayout(*i).size) for i in WIDE_INSTANCES]
@@ -625,3 +656,320 @@ def decode_fused(packed: torch.Tensor, latent: torch.Tensor,
                     outs)
     return outs
 
+
+# ---------------------------------------------------------------------------
+# onet_cbn (csrc/decoder_cbn.cu): the conditioning kernel, kernels 1 and 3
+# ---------------------------------------------------------------------------
+#
+# The conditioning depends on the code alone: ``cbn_condition`` turns codes
+# into rows of every CBN's folded (gamma', beta') (``CbnDecoder.condition``),
+# once a code; kernels 1 and 3 take sites with a row index into such a table
+# (``decode_grad_cbn``, ``decode_fwd_cbn``).  The pack (:class:`CbnPack`, a
+# type of its own) holds the plain weights the plain versions read, then
+# the kernels' f32 fragments: the trunk's forward W0_i^T, W1_i^T (i = 0 ..
+# NB-1), its backward W1_i, W0_i (i = NB-1 .. 0), and each CBN's stacked
+# (gamma | beta) map, its columns interleaved eight by eight
+# (:func:`_cond_interleave`) so that a lane holds a column's gamma and beta
+# side by side for the BN fold.
+
+# (code L, hidden H, residual blocks NB) of every instance
+# csrc/decoder_cbn.cu compiles: Occupancy Networks' published widths
+CBN_INSTANCES = ((256, 256, 5),)
+
+
+class CbnLayout(NamedTuple):
+    """An onet_cbn pack's widths and segments, as ``csrc/decoder_cbn.cu``'s
+    ``Cbn`` lays them out."""
+    L: int
+    H: int
+    NB: int
+
+    @property
+    def NC(self) -> int:
+        return 2 * self.NB + 1
+
+    @property
+    def cond_width(self) -> int:
+        """Floats of one code's conditioning: NC x (gamma', beta') x H."""
+        return self.NC * 2 * self.H
+
+    @property
+    def key(self) -> str:
+        return "_" + "_".join(str(v) for v in self)
+
+    @property
+    def segments(self) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
+        L, H, NB, NC = self.L, self.H, self.NB, self.NC
+        segs = [("meta", (4,)), ("wp", (H, 4)), ("w0", (NB, H, H)), ("b0", (NB, H)),
+                ("w1", (NB, H, H)), ("b1", (NB, H)), ("w_sdf", (H,)), ("w_std", (H,)),
+                ("b_head", (4,)), ("cw", (NC, 2, H, L)), ("cb", (NC, 2, H)),
+                ("bn_s", (NC, H)), ("bn_t", (NC, H))]
+        head = sum(int(torch.Size(s).numel()) for _, s in segs)
+        return tuple(segs) + (("pad", (-head % 4,)), ("frag", (4 * NB * H * H,)),
+                              ("cfrag", (NC * L * 2 * H,)))
+
+    @property
+    def size(self) -> int:
+        return sum(int(torch.Size(s).numel()) for _, s in self.segments)
+
+
+def cbn_layout(spec) -> CbnLayout:
+    return CbnLayout(spec.latent_size, spec.hidden, spec.blocks)
+
+
+class CbnPack(NamedTuple):
+    """onet_cbn's packed weights: the flat f32 buffer (``layout.size``) on
+    the decoder's device, and its layout."""
+    flat: torch.Tensor
+    layout: CbnLayout
+
+    def to(self, device) -> "CbnPack":
+        return CbnPack(self.flat.to(device), self.layout)
+
+
+def _cond_interleave(m: torch.Tensor) -> torch.Tensor:
+    """One CBN's (2, H, L) maps (gamma's, beta's; rows by output) -> the
+    (L, 2H) right-hand matrix of ``codes @ b`` whose n-tile 2q holds gamma's
+    columns 8q .. 8q + 7 and n-tile 2q + 1 beta's."""
+    _, H, L = m.shape
+    return m.reshape(2, H // 8, 8, L).permute(3, 1, 0, 2).reshape(L, 2 * H)
+
+
+def _pack_cbn(decoder) -> CbnPack:
+    lay = cbn_layout(decoder.spec)
+    dev = decoder.fc_p.weight.device
+
+    def w(lin):
+        return lin.weight.detach().float()
+
+    def b(lin):
+        return lin.bias.detach().float()
+    parts = {
+        "meta": torch.tensor([lay.L, lay.H, lay.NB, lay.NC], dtype=torch.float32, device=dev),
+        "wp": torch.cat([w(decoder.fc_p), b(decoder.fc_p)[:, None]], dim=1),
+        "w0": torch.stack([w(x) for x in decoder.fc_0]),
+        "b0": torch.stack([b(x) for x in decoder.fc_0]),
+        "w1": torch.stack([w(x) for x in decoder.fc_1]),
+        "b1": torch.stack([b(x) for x in decoder.fc_1]),
+        "w_sdf": w(decoder.fc_out)[0], "w_std": w(decoder.uncertainty)[0],
+        "b_head": torch.cat([b(decoder.fc_out), b(decoder.uncertainty),
+                             torch.zeros(2, device=dev)]),
+        "cw": decoder.cond_w.detach().float(), "cb": decoder.cond_b.detach().float(),
+        "bn_s": decoder.bn_s.detach().float(), "bn_t": decoder.bn_t.detach().float(),
+    }
+    parts["pad"] = torch.zeros(dict(lay.segments)["pad"], device=dev)
+    parts["frag"] = torch.cat(
+        [_wide_frag(m.T.contiguous()).reshape(-1) for i in range(lay.NB)
+         for m in (parts["w0"][i], parts["w1"][i])]
+        + [_wide_frag(m.contiguous()).reshape(-1) for i in range(lay.NB - 1, -1, -1)
+           for m in (parts["w1"][i], parts["w0"][i])])
+    parts["cfrag"] = torch.cat([_wide_frag(_cond_interleave(parts["cw"][j])).reshape(-1)
+                                for j in range(lay.NC)])
+    flat = torch.cat([parts[name].contiguous().reshape(-1) for name, _ in lay.segments])
+    assert flat.numel() == lay.size
+    return CbnPack(flat, lay)
+
+
+def unpack_cbn(pack: CbnPack) -> Dict[str, torch.Tensor]:
+    """Views of an onet_cbn pack's segments by name."""
+    out, off = {}, 0
+    for name, shape in pack.layout.segments:
+        size = int(torch.Size(shape).numel())
+        out[name] = pack.flat[off:off + size].view(shape)
+        off += size
+    return out
+
+
+def cbn_condition_plain(pack: CbnPack, codes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the conditioning kernel: (M, L) codes ->
+    (M, NC, 2, H), gamma' = (W_g c + b_g) s, beta' = (W_g c + b_g) t +
+    (W_b c + b_b)."""
+    p, lay = unpack_cbn(pack), pack.layout
+    raw = (codes @ p["cw"].reshape(-1, lay.L).T).view(-1, lay.NC, 2, lay.H) + p["cb"]
+    g, b = raw[:, :, 0], raw[:, :, 1]
+    return torch.stack([g * p["bn_s"], g * p["bn_t"] + b], dim=2)
+
+
+def _cbn_forward(p: Dict[str, torch.Tensor], lay: CbnLayout, cond: torch.Tensor,
+                 idx: torch.Tensor, rel: torch.Tensor):
+    """The trunk and heads written out: (the preactivations v_j = G_j x +
+    B_j of the NC relus, each row's (G_j, B_j) getter, sdf, std)."""
+    rows = idx.long()
+
+    def gb(j):
+        r = cond[rows, j]                              # (N, 2, H)
+        return r[:, 0], r[:, 1]
+    net = rel @ p["wp"][:, :3].T + p["wp"][:, 3]
+    vs = []
+    for i in range(lay.NB):
+        G, B = gb(2 * i)
+        vs.append(G * net + B)
+        a = torch.relu(vs[-1]) @ p["w0"][i].T + p["b0"][i]
+        G, B = gb(2 * i + 1)
+        vs.append(G * a + B)
+        net = net + (torch.relu(vs[-1]) @ p["w1"][i].T + p["b1"][i])
+    G, B = gb(2 * lay.NB)
+    vs.append(G * net + B)
+    h = torch.relu(vs[-1])
+    sdf = torch.tanh(h @ p["w_sdf"] + p["b_head"][0])
+    std = 0.05 + 0.5 * F.softplus(h @ p["w_std"] + p["b_head"][1])
+    return vs, gb, sdf, std
+
+
+def _cbn_grad(p: Dict[str, torch.Tensor], lay: CbnLayout, gb, masks,
+              sdf: torch.Tensor) -> torch.Tensor:
+    """The sdf-only backward under the relu masks [v_j > 0]: dn = (1 -
+    sdf^2) w_sdf [v_NC-1 > 0] G_NC-1; for each block from the last, d =
+    (dn W1_i) [v_2i+1 > 0] G_2i+1, dn += (d W0_i) [v_2i > 0] G_2i; d sdf /
+    d xyz = dn . fc_p's xyz columns."""
+    zero = torch.zeros((), dtype=sdf.dtype, device=sdf.device)
+
+    def through(j, d):
+        return torch.where(masks[j], d * gb(j)[0], zero)
+    dn = through(lay.NC - 1, (1.0 - sdf * sdf)[:, None] * p["w_sdf"])
+    for i in range(lay.NB - 1, -1, -1):
+        d = through(2 * i + 1, dn @ p["w1"][i])
+        dn = dn + through(2 * i, d @ p["w0"][i])
+    return dn @ p["wp"][:, :3]
+
+
+def decode_fwd_cbn_plain(pack: CbnPack, cond: torch.Tensor, idx: torch.Tensor,
+                         rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 3's onet_cbn instance."""
+    *_, sdf, std = _cbn_forward(unpack_cbn(pack), pack.layout, cond, idx, rel)
+    return sdf, std
+
+
+def decode_grad_cbn_plain(pack: CbnPack, cond: torch.Tensor, idx: torch.Tensor,
+                          rel: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 1's onet_cbn instance."""
+    p, lay = unpack_cbn(pack), pack.layout
+    vs, gb, sdf, std = _cbn_forward(p, lay, cond, idx, rel)
+    return sdf, std, _cbn_grad(p, lay, gb, [v > 0 for v in vs], sdf)
+
+
+def cbn_grad_rows_off(got: torch.Tensor, pack: CbnPack, cond: torch.Tensor,
+                      idx: torch.Tensor, rel: torch.Tensor, atol: float = 1e-4,
+                      rtol: float = 1e-4, kink: float = 1e-5) -> torch.Tensor:
+    """:func:`grad_rows_off` for kernel 1's onet_cbn instance: the rows where
+    ``got`` is off the plain gradient, but for a row whose nearest relu
+    preactivation lies within ``kink`` of 0 and that matches the other
+    one-sided derivative (that unit's mask flipped)."""
+    p, lay = unpack_cbn(pack), pack.layout
+    vs, gb, sdf, _ = _cbn_forward(p, lay, cond, idx, rel)
+    return _rows_off(got, vs, [v > 0 for v in vs],
+                     lambda masks: _cbn_grad(p, lay, gb, masks, sdf), atol, rtol, kink)
+
+
+def _type_cbn(lib) -> None:
+    """Check each compiled instance's pack size and type its entry points."""
+    for inst in CBN_INSTANCES:
+        lay = CbnLayout(*inst)
+        if getattr(lib, f"cbn_packed_size{lay.key}")() != lay.size:
+            raise RuntimeError("decoder_cbn.cu packed layout disagrees with ops/decoder_fused.py")
+        for entry, n_ptr in (("cbn_cond_launch", 5), ("decode_grad_cbn_launch", 7),
+                             ("decode_fwd_cbn_launch", 6)):
+            fn = getattr(lib, f"{entry}{lay.key}")
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+
+def _cbn_entry(pack: CbnPack, entry: str, what: str):
+    lay = pack.layout
+    if tuple(lay) not in CBN_INSTANCES:
+        raise ValueError(f"{what}: no compiled onet_cbn instance for {lay}; add it to "
+                         "csrc/decoder_cbn.cu and CBN_INSTANCES")
+    return getattr(_load("decoder_cbn"), f"{entry}{lay.key}")
+
+
+def _check_cuda(what: str, dev, named) -> None:
+    """Raise unless each (name, tensor, dtype, shape) is contiguous, of
+    that dtype and shape, on ``dev``."""
+    for name, t, dtype, shape in named:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} {tuple(shape)} "
+                             f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def cbn_condition(pack: CbnPack, codes: torch.Tensor, rows: Optional[torch.Tensor] = None,
+                  count: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The conditioning of codes (M, L) into ``out`` (M', NC, 2, H) (a new
+    (M, NC, 2, H) tensor by default): row r = ``rows[i]`` of both for i <
+    ``count`` (a 0-d int32 device tensor; the whole list without it), or
+    every row without ``rows``.  CUDA tensors launch ``cbn_cond_kernel``
+    (no host read of ``count``); CPU tensors run
+    :func:`cbn_condition_plain`."""
+    lay = pack.layout
+    M = codes.shape[0]
+    if out is None:
+        out = torch.empty(M, lay.NC, 2, lay.H, device=codes.device)
+    if not codes.is_cuda:
+        sel = torch.arange(M, device=codes.device) if rows is None else rows.long()
+        if count is not None:
+            sel = sel[:int(count)]
+        out[sel] = cbn_condition_plain(pack, codes[sel])
+        return out
+    what = "cbn_condition"
+    n = M if rows is None else rows.shape[0]
+    _check_cuda(what, codes.device, [("codes", codes, torch.float32, (M, lay.L)),
+                                     ("packed", pack.flat, torch.float32, (lay.size,)),
+                                     ("out", out, torch.float32, (out.shape[0], lay.NC, 2, lay.H))]
+                + ([("rows", rows, torch.int32, (n,))] if rows is not None else [])
+                + ([("count", count, torch.int32, ())] if count is not None else []))
+    if n:
+        fn = _cbn_entry(pack, "cbn_cond_launch", what)
+        err = _build.launch_on(codes.device.index, fn, codes.data_ptr(),
+                               None if rows is None else rows.data_ptr(),
+                               None if count is None else count.data_ptr(),
+                               pack.flat.data_ptr(), out.data_ptr(), n)
+        _build.check(err, "cbn_cond")
+        _build.count_launch("cbn_cond")
+    return out
+
+
+def _cbn_decode(entry: str, name: str, n_out: int, pack: CbnPack, cond: torch.Tensor,
+                idx: torch.Tensor, rel: torch.Tensor):
+    lay = pack.layout
+    n = idx.shape[0]
+    _check_cuda(name, rel.device, [("cond", cond, torch.float32, (cond.shape[0], lay.NC, 2, lay.H)),
+                                   ("idx", idx, torch.int32, (n,)),
+                                   ("rel", rel, torch.float32, (n, 3)),
+                                   ("packed", pack.flat, torch.float32, (lay.size,))])
+    if pack.flat.data_ptr() % 16:
+        raise ValueError(f"{name}: packed must start on a 16-byte boundary (TMA copies it)")
+    if cond.numel() >= 1 << 31:
+        raise ValueError(f"{name}: the kernels address the conditioning with 32-bit offsets "
+                         f"({cond.shape[0]} rows are too many)")
+    outs = (torch.empty(n, device=rel.device), torch.empty(n, device=rel.device),
+            torch.empty(n, 3, device=rel.device))[:n_out]
+    if n:
+        fn = _cbn_entry(pack, entry, name)
+        err = _build.launch_on(rel.device.index, fn, cond.data_ptr(), idx.data_ptr(),
+                               rel.data_ptr(), pack.flat.data_ptr(),
+                               *(o.data_ptr() for o in outs), n)
+        _build.check(err, name)
+        _build.count_launch(name)
+    return outs
+
+
+def decode_grad_cbn(pack: CbnPack, cond: torch.Tensor, idx: torch.Tensor,
+                    rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sites (N,) with a row ``idx`` (int32) of the conditioning ``cond``
+    (M, NC, 2, H) and voxel-local xyz (N, 3) -> sdf (N,), std (N,), d sdf /
+    d xyz (N, 3).  CUDA tensors launch ``decode_grad_kernel_cbn`` (counted as
+    ``decode_grad_cbn``); CPU tensors run :func:`decode_grad_cbn_plain`."""
+    if not rel.is_cuda:
+        return decode_grad_cbn_plain(pack, cond, idx, rel)
+    return _cbn_decode("decode_grad_cbn_launch", "decode_grad_cbn", 3, pack, cond, idx, rel)
+
+
+def decode_fwd_cbn(pack: CbnPack, cond: torch.Tensor, idx: torch.Tensor,
+                   rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_grad_cbn` without the gradient: ``decode_fwd_kernel_cbn``
+    (counted as ``decode_fwd_cbn``) or :func:`decode_fwd_cbn_plain`."""
+    if not rel.is_cuda:
+        return decode_fwd_cbn_plain(pack, cond, idx, rel)
+    return _cbn_decode("decode_fwd_cbn_launch", "decode_fwd_cbn", 2, pack, cond, idx, rel)

@@ -393,6 +393,9 @@ class SLAMSystem:
             self.map_cfg, self.encoder, self.state, w_pts, w_nrm, w_mask)
         if self.latent_optimize:
             self._optimize(w_pts, w_nrm, w_mask)
+        if self.tracker.cond is not None:
+            # the fused slots' conditioning (onet_cbn), here inside slam.fuse
+            self.tracker.cond.refresh(self.state.latents)
 
     def _take_pending(self) -> tuple:
         """The pending result as :func:`apply_merge`'s arguments."""

@@ -46,7 +46,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models import weights
-from ..models.decoder import DecoderSpec, DecoderTrain, init_decoder_params
+from ..models.decoder import (CbnDecoderTrain, init_params, is_cbn, spec_from_hyper,
+                              train_decoder)
 from ..models.encoder import EncoderSpec, EncoderTrain, init_encoder_params
 from ..utils.adam import adam_step, bias_corrections
 from ..utils.meters import LossMeter
@@ -63,32 +64,33 @@ class TrainState(NamedTuple):
     """The decoder and encoder (parameters and BatchNorm buffers on the
     device), Adam's moments by parameter name (``dec.layers.0.g``,
     ``enc.layers.3.b``), and the number of steps taken (a host count)."""
-    dec: DecoderTrain
+    dec: torch.nn.Module     # DecoderTrain or CbnDecoderTrain
     enc: EncoderTrain
     opt: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
     step: int
 
 
-def _named_params(dec: DecoderTrain, enc: EncoderTrain):
+def _named_params(dec: torch.nn.Module, enc: EncoderTrain):
     return ([(f"dec.{n}", p) for n, p in dec.named_parameters()]
             + [(f"enc.{n}", p) for n, p in enc.named_parameters()])
 
 
-def state_from_params(spec_d: DecoderSpec, spec_e: EncoderSpec, dec_params, enc_params,
+def state_from_params(spec_d, spec_e: EncoderSpec, dec_params, enc_params,
                       device) -> TrainState:
-    """A fresh state (zero moments, step 0) from JAX-layout trees."""
-    dec = DecoderTrain(spec_d, dec_params).to(device)
+    """A fresh state (zero moments, step 0) from JAX-layout trees; the
+    decoder's train form is its spec's family's."""
+    dec = train_decoder(spec_d, dec_params).to(device)
     enc = EncoderTrain(spec_e, enc_params).to(device)
     return TrainState(dec, enc, {n: (torch.zeros_like(p), torch.zeros_like(p))
                                  for n, p in _named_params(dec, enc)}, 0)
 
 
-def create_train_state(spec_d: DecoderSpec, spec_e: EncoderSpec, seed: int = 0,
+def create_train_state(spec_d, spec_e: EncoderSpec, seed: int = 0,
                        device="cuda") -> TrainState:
     """Parameters drawn from a CPU ``torch.Generator`` seeded ``seed``
     (decoder first, then encoder), moved to ``device``."""
     gen = torch.Generator().manual_seed(seed)
-    dec = init_decoder_params(spec_d, gen)
+    dec = init_params(spec_d, gen)
     enc = init_encoder_params(spec_e, gen)
     return state_from_params(spec_d, spec_e, dec, enc, resolve_device(device))
 
@@ -120,13 +122,21 @@ def forward_losses(loss_cfg: LossConfig, state: TrainState, sdf_data: torch.Tens
     gt_sdf = sdf_data[:, :, 3:].reshape(B * S, -1)
     need_grad = "siren_loss" in loss_cfg.types
 
+    cbn = isinstance(state.dec, CbnDecoderTrain)
+    if cbn and mesh is not None and mesh.size > 1:
+        raise NotImplementedError("onet_cbn trains in one process: its data- and "
+                                  "tensor-parallel steps are not written")
     with torch.enable_grad():
         codes = state.enc(surface, mesh=mesh)                        # (B, L)
         lat = torch.repeat_interleave(codes, S, dim=0)               # (B*S, L)
         if need_grad:
             xyz = xyz.detach().requires_grad_(True)
-        pd_sdf, pd_std = state.dec(torch.cat([lat, xyz], dim=1), masks=masks,
-                                   generator=generator, mesh=mesh)
+        if cbn:
+            # the conditioning once a LIF, broadcast over its S samples
+            pd_sdf, pd_std = state.dec(codes, xyz)
+        else:
+            pd_sdf, pd_std = state.dec(torch.cat([lat, xyz], dim=1), masks=masks,
+                                       generator=generator, mesh=mesh)
         # d sdf / d xyz inside the loss: the parameter gradient runs through it
         pd_grad = (torch.autograd.grad(pd_sdf.sum(), xyz, create_graph=True)[0]
                    if need_grad else None)
@@ -218,7 +228,9 @@ def save_checkpoint(save_dir: Path, epoch: int, state: TrainState, hyper: dict) 
         hyper_path.write_text(json.dumps(hyper, indent=2, default=str))
     dec_np, enc_np = state.dec.to_params(), state.enc.to_params()
     weights.save_params_npz(save_dir / f"prior_{epoch}.npz", decoder=dec_np, encoder=enc_np)
-    weights.save_torch_prior(save_dir, epoch, dec_np, enc_np, hyper)
+    if not isinstance(state.dec, CbnDecoderTrain):
+        # the reference's layout exists for di_decoder only
+        weights.save_torch_prior(save_dir, epoch, dec_np, enc_np, hyper)
     moments = {}
     for name, (mu, nu) in state.opt.items():
         moments[f"mu.{name}"] = mu.cpu().numpy()
@@ -227,7 +239,7 @@ def save_checkpoint(save_dir: Path, epoch: int, state: TrainState, hyper: dict) 
                         **moments)
 
 
-def load_checkpoint(save_dir: Path, epoch: int, spec_d: DecoderSpec, spec_e: EncoderSpec,
+def load_checkpoint(save_dir: Path, epoch: int, spec_d, spec_e: EncoderSpec,
                     device="cuda") -> TrainState:
     """prior_E.npz (the port's or the JAX package's), with the optimizer
     state of the port's training_E.npz where there is one; else zero moments
@@ -307,7 +319,10 @@ def _train(args, max_steps: int, log_every: int, dev: torch.device) -> Optional[
     lead = mesh.rank == 0
     if multi:
         logging.info("data-parallel over %d ranks", mesh.size)
-    spec_d = DecoderSpec.from_hyper(hyper)
+    spec_d = spec_from_hyper(hyper)
+    if multi and is_cbn(spec_d):
+        raise NotImplementedError("onet_cbn trains in one process: its data-parallel "
+                                  "step is not written")
     spec_e = EncoderSpec.from_hyper(hyper)
     loss_cfg = LossConfig.from_hyper(hyper)
     schedules = get_learning_rate_schedules(hyper["lr_schedule"])

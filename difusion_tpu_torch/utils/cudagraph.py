@@ -34,6 +34,7 @@ recorder off the program has no stamps: one node a segment.
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -145,16 +146,26 @@ class GraphProgram:
                     fn()
         main.wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
-        for fn, _done in self._segments:
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            # a capture stream of the program's card: torch.cuda.graph's
-            # default one is made once, on the card current at the first
-            # capture of the process
-            with _build.recording() as rec, torch.cuda.graph(
-                    graph, pool=pool, stream=side, capture_error_mode="thread_local"):
-                fn()
-            self._graphs.append(graph)
-            self._recorded.append(rec)
+        # no cyclic garbage collection inside a capture: one there can free an
+        # older program (its __del__ destroys its graph exec) or a graph, and
+        # such a CUDA call invalidates the capture in progress
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for fn, _done in self._segments:
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                # a capture stream of the program's card: torch.cuda.graph's
+                # default one is made once, on the card current at the first
+                # capture of the process
+                with _build.recording() as rec, torch.cuda.graph(
+                        graph, pool=pool, stream=side, capture_error_mode="thread_local"):
+                    fn()
+                self._graphs.append(graph)
+                self._recorded.append(rec)
+        finally:
+            if collecting:
+                gc.enable()
         main.wait_stream(side)
         n = len(self._segments)
         self._runs = torch.zeros(n, dtype=torch.int64, device=self.device)

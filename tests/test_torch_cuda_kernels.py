@@ -237,6 +237,158 @@ def test_deepsdf_system_takes_the_wide_route(dev, wide):
     assert counts == {"decode_grad_wide": 1, "decode_fwd_wide": 1}
 
 
+# onet_cbn's kernels (csrc/decoder_cbn.cu) at Occupancy Networks' widths
+# ---------------------------------------------------------------------------
+
+ONET = Path(__file__).resolve().parents[1] / "benchmark/configs/lrkt-onet.json"
+# both sides f32 (3xTF32 keeps ~22 bits of each product) summing 256-wide
+# dots in another order: the conditioning, then 11 CBNs and 10 layers
+CBN_COND_TOL = 1e-5        # atol and rtol
+CBN_ATOL = 2e-5            # sdf and std
+CBN_GRAD_TOL = 1e-4        # gradient, atol and rtol, a row at a relu kink either side
+
+
+@pytest.fixture(scope="module")
+def cbn(dev):
+    """A random onet_cbn decoder at the published widths (every weight
+    drawn; gamma's bias about 1 and running statistics away from (0, 1),
+    so the blocks carry signal) and its pack."""
+    from difusion_tpu_torch.models import decoder as D
+    from test_torch_onet import random_params
+    spec = D.CbnSpec(256, 256, 5)
+    dec = D.CbnDecoder(spec, random_params(spec, 11, gamma=1.0)).to(dev)
+    return dec, fused.pack_fused_decoder(dec)
+
+
+def _cbn_inputs(dev, n, m, seed, spread, per_code=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randn(m, 256, generator=gen, device=dev) * 0.3
+    idx = (torch.randint(0, m, (n,), generator=gen, device=dev) if per_code is None
+           else torch.arange(n, device=dev) // per_code).to(torch.int32)
+    rel = torch.rand(n, 3, generator=gen, device=dev) * spread - spread / 2
+    return codes, idx, rel
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 4700])
+def test_cbn_cond_kernel_matches_plain(dev, cbn, m):
+    """The conditioning kernel against its plain version at an export's
+    live blocks and the 64-row tile's edges; one launch counted as
+    cbn_cond."""
+    _, pack = cbn
+    codes, _, _ = _cbn_inputs(dev, 1, m, m, 1.0)
+    before = _build.launch_counts().get("cbn_cond", 0)
+    got = fused.cbn_condition(pack, codes)
+    ref = fused.cbn_condition_plain(pack, codes)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["cbn_cond"] == before + 1
+    torch.testing.assert_close(got, ref, atol=CBN_COND_TOL, rtol=CBN_COND_TOL)
+
+
+@pytest.mark.parametrize("count", [0, 1, 65, 700])
+def test_cbn_cond_kernel_by_row_list_and_device_count(dev, cbn, count):
+    """Rows from a list, as many as a count on the card says: the listed
+    rows conditioned, every other row of the table untouched."""
+    _, pack = cbn
+    codes, _, _ = _cbn_inputs(dev, 1, 4000, 3, 1.0)
+    gen = torch.Generator(device=dev).manual_seed(count)
+    rows = torch.randperm(4000, generator=gen, device=dev)[:1000].to(torch.int32)
+    table = torch.full((4000, 11, 2, 256), 7.0, device=dev)
+    fused.cbn_condition(pack, codes, rows, torch.tensor(count, dtype=torch.int32, device=dev),
+                        out=table)
+    want = torch.full_like(table, 7.0)
+    sel = rows[:count].long()
+    want[sel] = fused.cbn_condition_plain(pack, codes[sel])
+    torch.testing.assert_close(table, want, atol=CBN_COND_TOL, rtol=CBN_COND_TOL)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 777, 8192, 8193])
+def test_decode_grad_cbn_kernel_matches_plain(dev, cbn, n):
+    """Kernel 1's onet_cbn instance against its plain version at the
+    tracker's 8192 points, each point's row drawn from 600 codes:
+    sdf/std within CBN_ATOL, the gradient within CBN_GRAD_TOL
+    (``cbn_grad_rows_off``); one launch counted as decode_grad_cbn."""
+    _, pack = cbn
+    codes, idx, rel = _cbn_inputs(dev, n, 600, n, 1.0)
+    cond = fused.cbn_condition(pack, codes)
+    before = _build.launch_counts().get("decode_grad_cbn", 0)
+    got = fused.decode_grad_cbn(pack, cond, idx, rel)
+    ref = fused.decode_grad_cbn_plain(pack, cond, idx, rel)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["decode_grad_cbn"] == before + 1
+    torch.testing.assert_close(got[0], ref[0], atol=CBN_ATOL, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=CBN_ATOL, rtol=0)
+    off = fused.cbn_grad_rows_off(got[2], pack, cond, idx, rel, atol=CBN_GRAD_TOL,
+                                  rtol=CBN_GRAD_TOL)
+    assert not bool(off.any()), f"{int(off.sum())} rows off in grad"
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 4097, 1 << 20])
+def test_decode_fwd_cbn_kernel_matches_plain(dev, cbn, n):
+    """Kernel 3's onet_cbn instance against its plain version over the
+    mesher's lattice range (4,096 sites a block's row), up to one export
+    dispatch; one launch counted as decode_fwd_cbn, none for N = 0."""
+    _, pack = cbn
+    codes, idx, rel = _cbn_inputs(dev, n, 256, n, 1.75, per_code=4096)
+    cond = fused.cbn_condition(pack, codes)
+    before = _build.launch_counts().get("decode_fwd_cbn", 0)
+    got = fused.decode_fwd_cbn(pack, cond, idx, rel)
+    ref = fused.decode_fwd_cbn_plain(pack, cond, idx, rel)
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get("decode_fwd_cbn", 0) == before + (n > 0)
+    torch.testing.assert_close(got[0], ref[0], atol=CBN_ATOL, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=CBN_ATOL, rtol=0)
+
+
+def test_cbn_tolerances_refuse_the_tf32_reference(dev, cbn):
+    """The control: the plain versions with their products in TF32 fail
+    the tolerances the kernels pass."""
+    _, pack = cbn
+    codes, idx, rel = _cbn_inputs(dev, 8192, 600, 5, 1.0)
+    cond = fused.cbn_condition_plain(pack, codes)
+    ref = fused.decode_grad_cbn_plain(pack, cond, idx, rel)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        low_cond = fused.cbn_condition_plain(pack, codes)
+        low = fused.decode_grad_cbn_plain(pack, low_cond, idx, rel)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.synchronize()
+    assert bool(((low_cond - cond).abs() > CBN_COND_TOL + CBN_COND_TOL * cond.abs()).any())
+    assert float((low[0] - ref[0]).abs().max()) > CBN_ATOL
+    assert bool(fused.cbn_grad_rows_off(low[2], pack, cond, idx, rel, atol=CBN_GRAD_TOL,
+                                        rtol=CBN_GRAD_TOL).any())
+
+
+def test_onet_system_takes_the_cbn_route(dev):
+    """SLAMSystem.from_config on the lrkt-onet configuration: the tracker
+    holds an onet_cbn pack and a conditioning table, the mesher the same
+    pack; their decodes launch only onet_cbn's kernels, and a fusion
+    conditions the slots it wrote in one launch."""
+    import json
+    from benchmark import drive
+    from difusion_tpu_torch.core.meshing import MeshExtractor
+    cfg = json.loads(ONET.read_text())
+    system, _ = drive.build_system(cfg, dev, meshing=False)
+    assert system.tracker.sdf_fused and isinstance(system.tracker.packed, fused.CbnPack)
+    table = system.tracker.cond
+    assert table.table.shape == (cfg["assumed"]["capacity"], 11, 2, 256)
+    mesher = MeshExtractor(system.map_cfg, system.decoder, voxel_resolution=8)
+    assert isinstance(mesher.packed, fused.CbnPack)
+    codes, idx, rel = _cbn_inputs(dev, 8192, 600, 3, 1.0)
+    _build.reset_launch_counts()
+    lat = system.state.latents.clone()
+    lat[:5] = codes[:5]
+    table.refresh(lat)
+    torch.testing.assert_close(table.table[:5], fused.cbn_condition_plain(
+        system.tracker.packed, codes[:5]), atol=CBN_COND_TOL, rtol=CBN_COND_TOL)
+    assert table.cond_rows() == 5
+    fused.decode_grad_cbn(system.tracker.packed, table.table, idx, rel)
+    fused.decode_fwd_cbn(mesher.packed, table.table, idx, rel)
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    assert counts == {"cbn_cond": 1, "decode_grad_cbn": 1, "decode_fwd_cbn": 1}
+
+
 def _stencil_inputs(dev, shape, seed):
     """A (H, W, 3) point map with negative coordinates too, its bool validity
     map, and the four masked planes of the other entry."""

@@ -54,6 +54,10 @@ STREAM = _spans([
     ("slam.mesh", 186, 189, 7, 4, False, 1),
     ("mesh.extract", 171, 179, 10, 0, False, 1),     # live: not the export's
     ("mesh.prep.sync", 172, 174, 13, 0, True, 1),
+    # onet_cbn: a fusion's refresh of the conditioning table, on a thread
+    # of its own so that no span above changes its self time
+    ("slam.fuse", 120, 124, -1, 8, False, 3),
+    ("map.cond", 121, 123, 15, 8, False, 3),
 ])
 WINDOW = TC.Window(100 * MS, 200 * MS, {"frames": 4},
                    {"pre": 8 * MS, "group0.init": MS, "group0.gn": 6 * MS,
@@ -69,6 +73,7 @@ EXPORT = _spans([
     ("mesh.extract", 50, 100, -1, 1, False, 1),
     ("mesh.mc.download", 60, 95, 6, 1, True, 1),
     ("slam.track", 0, 100, -1, 0, False, 2),         # another thread
+    ("mesh.cond", 10, 12, 3, 0, False, 1),           # onet_cbn's conditioning
 ])
 EXPORT_WINDOW = TC.Window(0, 100 * MS + 1, {"extracts": 2}, {})
 EXPECT = {
@@ -80,6 +85,8 @@ EXPECT = {
     "mesh_wait_ms": (EXPORT, EXPORT_WINDOW, (6 + 20 + 35) / 2),
     # idle 10-40 and 60-90; the host works in 10-25 and 45-60 (not in the waits)
     "host_work_idle.export": (EXPORT, EXPORT_WINDOW, 15.0),
+    "map_cond_ms_per_frame": (STREAM, WINDOW, 2 / 4),
+    "mesh_cond_ms": (EXPORT, EXPORT_WINDOW, 2 / 2),
 }
 
 

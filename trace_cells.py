@@ -15,7 +15,10 @@ on), ``launches`` (every kernel's launches by ``_build.launch_counts()``
 from the process's start to the first window's end: the wide instances
 under ``decode_grad_wide`` and ``decode_fwd_wide``), ``decode_instance``
 (the instance the mesher's last decode used, from its ``last_stats``;
-None where the cell meshes nothing), ``spans`` (:func:`readings`; a number the cell has nothing for is
+None where the cell meshes nothing), ``cond_rows`` (the onet_cbn rows the
+tracker's conditioning table and the mesher conditioned in the first
+window: ``CondTable.cond_rows()``, ``MeshExtractor.cond_rows``; None for a
+decoder without one), ``spans`` (:func:`readings`; a number the cell has nothing for is
 None), ``by_name`` (:func:`by_name`), ``segment_ms`` (the tracker's
 segments, ms a frame of the first window) and, with ``--trace 1``,
 ``clock_offset_ns``: the profiler's clock less the host's, from the
@@ -43,9 +46,10 @@ class Window:
     and the change of the tracker's segment times over it (ns)."""
 
     def __init__(self, t0: int, t1: int, out: dict, segments: Dict[str, int],
-                 launches: Optional[Dict[str, int]] = None, instance: Optional[str] = None):
+                 launches: Optional[Dict[str, int]] = None, instance: Optional[str] = None,
+                 cond_rows: Optional[int] = None):
         self.t0, self.t1, self.out, self.segments = t0, t1, out, segments
-        self.launches, self.instance = launches or {}, instance
+        self.launches, self.instance, self.cond_rows = launches or {}, instance, cond_rows
 
     def items(self) -> int:
         return int(self.out.get("frames", self.out.get("extracts", 0)))
@@ -57,22 +61,34 @@ def _segment_ns(driver) -> Dict[str, int]:
     return progs[0].program.segment_ns() if progs and progs[0].program else {}
 
 
+def _cond_rows(driver) -> Optional[int]:
+    """Rows conditioned so far by the tracker's onet_cbn table and the
+    driver's mesher, or None where neither conditions."""
+    system = getattr(driver, "system", None)
+    table = getattr(getattr(system, "tracker", None), "cond", None)
+    mesher = getattr(driver, "mesher", None) or getattr(system, "mesher", None)
+    counts = ([table.cond_rows()] if table is not None else []) + \
+        ([mesher.cond_rows] if getattr(mesher, "cond_rows", 0) else [])
+    return sum(counts) if counts else None
+
+
 def watched(cls, windows: List[Window]):
     """``cls`` (a benchmark driver) noting each window in ``windows``."""
     class Watched(cls):
         def window(self, seconds):
-            before = _segment_ns(self)
+            before, rows0 = _segment_ns(self), _cond_rows(self)
             t0 = time.perf_counter_ns()
             out = super().window(seconds)
             t1 = time.perf_counter_ns()
-            after = _segment_ns(self)
+            after, rows1 = _segment_ns(self), _cond_rows(self)
             mesher = getattr(self, "mesher", None) or getattr(
                 getattr(self, "system", None), "mesher", None)
             windows.append(Window(t0, t1, out, {k: after[k] - before.get(k, 0)
                                                 for k in after},
                                   {k: v for k, v in _build.launch_counts().items() if v},
                                   mesher.last_stats.get("decode_instance")
-                                  if mesher is not None else None))
+                                  if mesher is not None else None,
+                                  rows1 - (rows0 or 0) if rows1 is not None else None))
             return out
     return Watched
 
@@ -136,7 +152,9 @@ def readings(spans, first: Window, trace=None, offset_ns: Optional[int] = None,
     first (untraced) window, the tracker's GN loops on the device a frame,
     the live extract's median, the export's device waits an extract, and
     (given the traced window's trace and the clocks' offset) the share of
-    the traced window the card idled while the host worked."""
+    the traced window the card idled while the host worked; an onet_cbn
+    decoder's conditioning: the table's refreshes (``map.cond``) a frame
+    and the export's ``mesh.cond`` an extract."""
     win = [spans[k] for k in _inside(spans, first)]
     n = first.items()
     out: Dict[str, Optional[float]] = {}
@@ -156,6 +174,10 @@ def readings(spans, first: Window, trace=None, offset_ns: Optional[int] = None,
     out["host_work_idle.export"] = (host_work_idle(spans, trace, offset_ns, thread)
                                     if trace is not None and offset_ns is not None
                                     and extracts else None)
+    cond = [s.seconds for s in win if s.name == "map.cond"]
+    out["map_cond_ms_per_frame"] = 1e3 * sum(cond) / n if cond and n else None
+    cond = [s.seconds for s in win if s.name == "mesh.cond" and _under(spans, s, extracts)]
+    out["mesh_cond_ms"] = 1e3 * sum(cond) / len(extracts) if cond and extracts else None
     return out
 
 
@@ -216,6 +238,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device, spec=None
     result["window"] = windows[0].out
     result["launches"] = windows[0].launches
     result["decode_instance"] = windows[0].instance
+    result["cond_rows"] = windows[0].cond_rows
     result["by_name"] = by_name(spans, windows[0])
     n = windows[0].items()
     result["segment_ms"] = {k: 1e-6 * v / n for k, v in windows[0].segments.items()} \
