@@ -1186,13 +1186,21 @@ def capture_mc(meshing_mod, chunks: dict, label: str):
 
     def recording(*args, **kw):
         if args[2].data_ptr() == args[2].untyped_storage().data_ptr():   # a first chunk
-            chunks[label] = ([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw))
+            chunks[label] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                             {k: v for k, v in kw.items() if k != "out"})
         return original(*args, **kw)
+
+    def splice(*args):
+        chunks[f"splice_{label}"] = [a.clone() if torch.is_tensor(a) else a for a in args]
+        return splice_original(*args)
+    splice_original = meshing_mod.mc_splice
     meshing_mod.marching_cubes_sparse = recording
+    meshing_mod.mc_splice = splice
     try:
         yield
     finally:
         meshing_mod.marching_cubes_sparse = original
+        meshing_mod.mc_splice = splice_original
 
 
 def check_marching_cubes(mc_mod, build_info, chunks: dict) -> dict:
@@ -1205,7 +1213,7 @@ def check_marching_cubes(mc_mod, build_info, chunks: dict) -> dict:
     chunk's lattice bytes (its blocks' (2r)^3 sdf and std, each read about
     once) and the (budget, 13) buffer written, at 3.35 TB/s."""
     rows = {}
-    for label, (args, kw) in chunks.items():
+    for label, (args, kw) in ((k, v) for k, v in chunks.items() if not k.startswith("splice_")):
         got = mc_mod.marching_cubes_sparse(*args, **kw)
         ref = mc_mod.marching_cubes_sparse_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -1238,10 +1246,63 @@ def check_marching_cubes(mc_mod, build_info, chunks: dict) -> dict:
             "why": "the plain chain's ~800 PyTorch ops a chunk, launched one by one by "
                    "the host (the mesher's mesh.mc spans)",
             "kernels": list(MC_KERNELS), "chunks": rows,
+            "splice": check_splice(mc_mod, build_info, chunks),
             "ptxas": {k: ptxas_of(build_info, "marching_cubes", f"{k}_kernel")
                       for k in MC_KERNELS},
             "library_ms": None,
             "library_note": "no single PyTorch call computes sparse marching cubes"}
+
+
+def export_splice_args(dev, chunks: int = 10, rows: int = 45500, seed: int = 26) -> list:
+    """mc_splice's arguments at the r = 8 export's size (PERF.md: ~455 k
+    triangles an extract in ~10 chunks of budget 2^20 on the lrkt-dense
+    map): random rows in the export's grid, each chunk holding ``rows``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    budget, n_cells = 1 << 20, 80 * 40 * 80
+    packed = torch.rand(chunks, budget, 13, generator=gen, device=dev) * 80.0
+    packed.view(torch.int32)[:, :, 12] = torch.randint(0, n_cells, (chunks, budget),
+                                                       generator=gen, device=dev,
+                                                       dtype=torch.int32)
+    counts = torch.full((chunks,), rows, dtype=torch.int64, device=dev)
+    table = torch.randint(0, 1 << 16, (n_cells,), generator=gen, device=dev)
+    return [packed, counts, table, np.zeros(3, np.int64), 0.1,
+            np.asarray((-3.5, -0.5, -2.7), np.float32), 1 << 20]
+
+
+def check_splice(mc_mod, build_info, chunks: dict) -> dict:
+    """The splice kernel (mc_splice_kernel) on the offline export's recorded
+    call and at the benchmark export's size (export_splice_args) against
+    the plain version: every output torch.equal (fails otherwise); device
+    ms by CUDA-graph replay, eager, the plain version's eager ms; the bound:
+    each kept row read once (52 bytes) and written once (36 + 12 + 8) at
+    3.35 TB/s."""
+    cases = {k[len("splice_"):]: v for k, v in chunks.items() if k.startswith("splice_")}
+    cases["bench_export_size"] = export_splice_args(torch.device("cuda"))
+    rows = {}
+    for label, args in cases.items():
+        got = mc_mod.mc_splice(*args)
+        ref = mc_mod.mc_splice_plain(*args)
+        emitted, n = got.totals.tolist()
+        equal = ([emitted, n] == ref.totals.tolist()
+                 and all(torch.equal(a[:n].view(torch.int32) if a.is_floating_point() else a[:n],
+                                     b.view(torch.int32) if b.is_floating_point() else b)
+                         for a, b in zip(got[:3], ref[:3])))
+        if not equal:
+            fail(f"mc_splice ({label}): the kernel's result is not torch.equal to the plain "
+                 f"version's ({[emitted, n]} against {ref.totals.tolist()})")
+        nbytes = n * (13 * 4 + 9 * 4 + 3 * 4 + 8)
+
+        def call():
+            return mc_mod.mc_splice(*args)
+        rows[label] = {"chunks": args[0].shape[0], "budget": args[0].shape[1],
+                       "triangles": n, "emitted": emitted, "ms": graph_ms(call, 20),
+                       "eager_ms": time_ms(call, 10), "host_us": host_us(call, 20),
+                       "plain_ms": time_ms(lambda: mc_mod.mc_splice_plain(*args), 3,
+                                           per_batch=3),
+                       "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes", "torch_equal": equal}
+    return {"kernel": "mc_splice_kernel", "cases": rows,
+            "ptxas": ptxas_of(build_info, "marching_cubes", "mc_splice_kernel")}
 
 
 def profiled(fn, count: str = "decode_grad_kernel") -> dict:
@@ -2753,7 +2814,13 @@ def main() -> int:
     kernels[2]["launches"] = counts.get("decode_fused", 0)
     kernels[2]["path"] = "mesh (online extracts on the fusion frames)"
     mc_launches = {"mesh": {k: counts.get(k, 0) for k in MC_KERNELS},
-                   "mesh_chunks": sum(e.get("mc_chunks", 0) for e in extracts)}
+                   "mesh_chunks": sum(e.get("mc_chunks", 0) for e in extracts),
+                   "mesh_splice": counts.get("mc_splice", 0)}
+    meshed = [e for e in extracts if e["blocks"] > 0]
+    if mc_launches["mesh_splice"] != len(meshed) or any(e["host_reads"] != 1 for e in meshed):
+        fail(f"the mesh phase launched mc_splice {mc_launches['mesh_splice']} times in "
+             f"{len(meshed)} extracts with blocks, host reads "
+             f"{[e['host_reads'] for e in meshed]}; expected one each an extract")
     kernels[4]["launches"] = counts.get("decode_fwd_bf16", 0)
 
     # ---- async: the mesh phase's run with the extracts in a worker ----
@@ -2836,7 +2903,11 @@ def main() -> int:
 
     # ---- marching cubes: the kernels on the recorded chunks, their launches ----
     mc_launches.update(offline={k: counts.get(k, 0) for k in MC_KERNELS},
-                       offline_chunks=stats["mc_chunks"])
+                       offline_chunks=stats["mc_chunks"],
+                       offline_splice=counts.get("mc_splice", 0))
+    if counts.get("mc_splice", 0) != 1 or stats["host_reads"] != 1:
+        fail(f"the offline mesher's extract launched mc_splice {counts.get('mc_splice', 0)} "
+             f"times and read the host {stats['host_reads']} times; expected once each")
     mc_row = check_marching_cubes(mc_mod, info, mc_chunks)
     mc_row.update(launches=mc_launches["mesh"]["mc_classify"],
                   path="mesh (online extracts) and offline (mesh_tool, r = 8)",

@@ -31,9 +31,13 @@ Per extract:
 3. Sparse marching cubes runs in chunks of the n live blocks against the
    full lattice buffers, so chunk seams are exact (``ops.marching_cubes``:
    three CUDA kernel launches a chunk on the card, its plain version on the
-   CPU); each chunk costs one count read and one download of its packed
-   rows.
-4. The triangles splice into a host-side cache keyed by latent slot: a
+   CPU).  Every chunk writes its rows and its count into one device buffer;
+   the host reads nothing in the loop.
+4. ``ops.marching_cubes.mc_splice`` gathers every chunk's kept rows in
+   chunk order into world-space vertices, stds and slots (one kernel launch
+   on the card, its plain version on the CPU); the host reads the count and
+   downloads each output once (``last_stats["host_reads"]``), and the
+   triangles splice into a host-side cache keyed by latent slot: a
    re-meshed slot's old triangles are replaced.
 
 With ``shard`` (the JAX package's ``shard``, ``mesh_tool --shard``) each
@@ -51,9 +55,9 @@ Spans (:mod:`..utils.tracing`), one set for both backends: ``mesh.extract``
 read and its download are the device waits ``mesh.prep.sync``),
 ``mesh.grid`` (the batch tables, the backend's grid and the blocks' upload),
 ``mesh.cond`` (an onet_cbn decoder's conditioning of the live blocks, once
-an extract), ``mesh.decode`` (the decode dispatches), ``mesh.mc`` a chunk (3; its count
-read and download, ``mesh.mc.download``, a device wait) and ``mesh.splice``
-(4).
+an extract), ``mesh.decode`` (the decode dispatches), ``mesh.mc`` a chunk (3)
+and ``mesh.splice`` (4; its count read and downloads, ``mesh.splice.download``,
+a device wait).
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ import torch
 from ..device import const
 from ..models.decoder import Decoder
 from ..ops import decoder_fused as _fused
-from ..ops.marching_cubes import marching_cubes_sparse, mc_triangles_np
+from ..ops.marching_cubes import ROW, marching_cubes_sparse, mc_splice, mc_triangles_np
 from ..ops.sampling import block_lattice, get_samples
 from ..utils import tracing
 from . import hash_map as HM
@@ -502,9 +506,12 @@ class _MeshExtractorBase:
             tracing.end(s)
 
         # marching cubes over chunks of the live blocks; each chunk's corner
-        # blending reads ANY evaluated neighbour through slot_to_batch
+        # blending reads ANY evaluated neighbour through slot_to_batch.  Every
+        # chunk's rows and count stay on the device for the splice.
         n_sub = self.r ** 3
         C_mc = min(_next_bucket(max(self.max_eval_points // (4 * n_sub), 64)), B)
+        n_chunks = -(-n // C_mc)
+        budget = min(self.max_triangles, 5 * n_sub * C_mc)
         self.last_stats.update(bucket=B, sites_per_dispatch=C * per_block,
                                decode_instance=_fused.instance_name(
                                    self.packed, state.latents.shape[1], dev),
@@ -512,53 +519,46 @@ class _MeshExtractorBase:
                                conditioned_blocks=n if cbn else 0,
                                decode_dispatches=len(starts),
                                decode_devices=len(shards) if any(split) else 1,
-                               mc_chunks=-(-n // C_mc),
+                               mc_chunks=n_chunks,
                                decoder_evals=n * evals_per_block)
-        tri_parts, std_parts, blk_parts = [], [], []
-        emitted = 0
-        for s0 in range(0, n, C_mc):
+        packed = torch.empty(n_chunks, budget, ROW, device=dev)
+        counts = torch.empty(n_chunks, dtype=torch.int64, device=dev)
+        for k in range(n_chunks):
             s = tracing.begin("mesh.mc") if tracing.ON else -1
-            budget = min(self.max_triangles, 5 * n_sub * C_mc)
-            result = marching_cubes_sparse(
+            s0 = k * C_mc
+            marching_cubes_sparse(
                 indexer_d, slot_to_batch_d, valid_blocks_d[s0:min(s0 + C_mc, n)], cube_sdf,
                 cube_std, (nxl, nyl, nzl), self.r, budget, max_std=max_std,
-                interpolate=self.interpolate)
-            sw = tracing.begin("mesh.mc.download", wait=True) if tracing.ON else -1
-            tris_c, stds_c, blocks_c, cnt = mc_triangles_np(result)
-            if sw >= 0:
-                tracing.end(sw)
-            emitted += cnt
-            tri_parts.append(tris_c)
-            std_parts.append(stds_c)
-            blk_parts.append(blocks_c)
+                interpolate=self.interpolate, out=(packed[k], counts[k]))
             if s >= 0:
                 tracing.end(s)
         s = tracing.begin("mesh.splice") if tracing.ON else -1
-        tris = np.concatenate(tri_parts)
-        stds = np.concatenate(std_parts)
-        blocks = np.concatenate(blk_parts)
-        if emitted > self.max_triangles or len(tris) > self.max_triangles:
+        # the block -> slot table, on the device from what is there
+        table = torch.full((nxl * nyl * nzl,), -1, dtype=torch.int64, device=dev)
+        table[valid_blocks_d[:n].long()] = slots_d
+        spliced = mc_splice(packed, counts, table, origin, self.voxel_size, self.world_origin,
+                            self.max_triangles)
+        # the extract's one count read and one download of each output
+        sw = tracing.begin("mesh.splice.download", wait=True) if tracing.ON else -1
+        tris, stds, tri_slot, emitted = mc_triangles_np(spliced)
+        if sw >= 0:
+            tracing.end(sw)
+        self.last_stats["host_reads"] = 1
+        if emitted > self.max_triangles:
             logging.warning("marching cubes: triangle budget too small (%d > %d)",
-                            max(emitted, len(tris)), self.max_triangles)
-            tris = tris[:self.max_triangles]
-            stds = stds[:self.max_triangles]
-            blocks = blocks[:self.max_triangles]
+                            emitted, self.max_triangles)
 
-        # world space: local grid units -> meters
-        tris = ((tris + origin[None, None, :].astype(np.float32)) * self.voxel_size
-                + self.world_origin[None, None, :])
-
-        # per-triangle slot for the cache splice
-        lin_to_slot = np.full(nxl * nyl * nzl, -1, np.int64)
-        lin_to_slot[lin_local] = slots
-        tri_slot = lin_to_slot[blocks]
-
-        remeshed = np.zeros(capacity, bool)
-        remeshed[slots] = True
-        keep_mask = ~remeshed[self._slot] if len(self._slot) else np.zeros(0, bool)
-        self._tris = np.concatenate([self._tris[keep_mask], tris])
-        self._std = np.concatenate([self._std[keep_mask], stds])
-        self._slot = np.concatenate([self._slot[keep_mask], tri_slot])
+        # the cache: a re-meshed slot's old triangles go; with nothing kept
+        # the new arrays become the cache as they are
+        if len(self._slot):
+            remeshed = np.zeros(capacity, bool)
+            remeshed[slots] = True
+            keep_mask = ~remeshed[self._slot]
+            if keep_mask.any():
+                tris = np.concatenate([self._tris[keep_mask], tris])
+                stds = np.concatenate([self._std[keep_mask], stds])
+                tri_slot = np.concatenate([self._slot[keep_mask], tri_slot])
+        self._tris, self._std, self._slot = tris, stds, tri_slot
         if s >= 0:
             tracing.end(s)
         return state

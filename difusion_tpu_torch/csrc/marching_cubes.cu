@@ -1,4 +1,5 @@
-// Sparse marching cubes with cross-block (sdf, std) blending, f32, sm_90a.
+// Sparse marching cubes with cross-block (sdf, std) blending, f32, sm_90a,
+// and the splice of an extract's chunks (mc_splice_kernel, at the end).
 //
 // Replaces no Pallas kernel: the JAX package leaves marching cubes
 // (difusion_tpu/ops/marching_cubes.py) to XLA's fusion, and the port's plain
@@ -478,5 +479,153 @@ extern "C" int mc_sparse_launch(const int* indexer, const long long* slot_to_bat
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mc_emit_kernel<<<grid, threads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The splice: every chunk's (budget, 13) buffer into the extract's three
+// planar outputs, in one launch.
+//
+// Replaces no Pallas kernel: the JAX package splices its chunks on the host
+// in numpy (difusion_tpu/core/meshing.py: concatenation, the world
+// transform, the block -> slot lookup).  Done there, the host reads each
+// chunk's count, downloads its rows and spends ~75-90 ms an r = 8 export in
+// numpy while the card idles; here the host reads one total and downloads
+// the finished triangles once.
+//
+// Contract (ops/marching_cubes.mc_splice_plain, bit for bit).  Chunk k keeps
+// its first min(count_k, budget) rows, in chunk order; rows from `cap` on
+// are dropped.  Output row t: the 9 vertex coordinates (v + origin) *
+// voxel_size + world_origin, each sum and product rounded alone (__fadd_rn /
+// __fmul_rn: no FMA, as numpy's three passes round), the 3 stds as they
+// are, and the slot table[block] (-1 for a block outside the table).
+// totals[0] = the sum of the counts (what marching cubes emitted, which may
+// exceed what was kept), totals[1] = the rows written.
+//
+// What bounds it: bytes.  A kept row is read once (52 bytes) and written
+// once (36 + 12 + 8), plus one 8-byte gather from the table: at the r = 8
+// export's ~455 k triangles ~53 MB, ~16 us at 3.35 TB/s.
+//
+// Design.  The grid's y walks the chunks and its x the elements of a
+// chunk's kept rows, a thread an element (13 a row), so reads of the
+// buffer and writes of the vertex and std planes are contiguous across a
+// warp.  A block finds its chunk's first output row by summing the kept
+// rows of the chunks before it (a few counts); nothing is carried between
+// blocks, so no second pass.
+namespace {
+
+constexpr int SPLICE_THREADS = 256;
+constexpr int SPLICE_TILES = 128;    // blocks a chunk at most (a grid-stride loop covers the rest)
+constexpr int MAX_GRID_Y = 65535;
+
+struct SpliceArgs {
+  const float* packed;            // (n_chunks, budget, 13) marching cubes' rows
+  const long long* counts;        // (n_chunks,) survivors of each chunk
+  int n_chunks;
+  int budget;
+  long long cap;                  // rows of the outputs
+  float origin[3];                // the grid's origin, grid units
+  float voxel_size;
+  float world_origin[3];
+  const long long* table;         // (n_table,) slot of a grid cell, -1 none
+  long long n_table;
+  float* tris;                    // (cap, 3, 3) world-space vertices
+  float* stds;                    // (cap, 3)
+  long long* slots;               // (cap,)
+  long long* totals;              // (2,) emitted, rows written
+};
+
+// the sum over chunks [0, k) of their counts (raw) or kept rows, by the
+// whole block (every thread returns it); part: a warp's partial sums
+__device__ long long chunk_sum(const SpliceArgs& a, long long* part, int k, bool raw) {
+  long long s = 0;
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const long long c = a.counts[j];
+    s += raw ? c : min(c, (long long)a.budget);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) s += __shfl_down_sync(FULL, s, d);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
+  __syncthreads();
+  long long total = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += part[w];
+  __syncthreads();                // part is written again by the next call
+  return total;
+}
+
+__global__ void __launch_bounds__(SPLICE_THREADS) mc_splice_kernel(SpliceArgs a) {
+  __shared__ long long part[SPLICE_THREADS / 32];
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (int k = blockIdx.y; k < a.n_chunks; k += gridDim.y) {
+    const long long first = chunk_sum(a, part, k, false);
+    const long long kept = min(a.counts[k], (long long)a.budget);
+    // budget * 13 < 2^31, so a chunk's element index (and it plus the
+    // stride) fits 32 unsigned bits
+    const unsigned n = (unsigned)max(0LL, min(kept, a.cap - first)) * ROW;
+    const float* src = a.packed + (long long)k * a.budget * ROW;
+    for (unsigned e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += stride) {
+      const unsigned i = e / ROW, j = e - i * ROW;
+      const long long t = first + i;
+      const float v = src[e];
+      if (j < 9) {
+        const int c = j % 3;
+        a.tris[t * 9 + j] = __fadd_rn(__fmul_rn(__fadd_rn(v, a.origin[c]), a.voxel_size),
+                                      a.world_origin[c]);
+      } else if (j < ROW - 1) {
+        a.stds[t * 3 + (j - 9)] = v;
+      } else {
+        const int b = __float_as_int(v);
+        a.slots[t] = b >= 0 && b < a.n_table ? a.table[b] : -1;
+      }
+    }
+  }
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    const long long emitted = chunk_sum(a, part, a.n_chunks, true);
+    const long long kept = chunk_sum(a, part, a.n_chunks, false);
+    if (threadIdx.x == 0) {
+      a.totals[0] = emitted;
+      a.totals[1] = min(kept, a.cap);
+    }
+  }
+}
+
+}  // namespace
+
+// packed (n_chunks, budget, 13) f32; counts (n_chunks,) int64; table
+// (n_table,) int64; tris (cap, 3, 3), stds (cap, 3) f32; slots (cap,) int64;
+// totals (2,) int64.  All contiguous on the current device; n_chunks >= 1,
+// 13 * budget < 2^31, n_table >= 1.  One launch on `stream`; returns
+// cudaGetLastError().
+extern "C" int mc_splice_launch(const float* packed, const long long* counts, int n_chunks,
+                                int budget, long long cap, float ox, float oy, float oz,
+                                float voxel_size, float wx, float wy, float wz,
+                                const long long* table, long long n_table, float* tris,
+                                float* stds, long long* slots, long long* totals, void* stream) {
+  if (n_chunks < 1 || budget < 0 || (long long)budget * ROW >= 0x7fffffffLL || cap < 0
+      || n_table < 1)
+    return (int)cudaErrorInvalidValue;
+  SpliceArgs a;
+  a.packed = packed;
+  a.counts = counts;
+  a.n_chunks = n_chunks;
+  a.budget = budget;
+  a.cap = cap;
+  a.origin[0] = ox;
+  a.origin[1] = oy;
+  a.origin[2] = oz;
+  a.voxel_size = voxel_size;
+  a.world_origin[0] = wx;
+  a.world_origin[1] = wy;
+  a.world_origin[2] = wz;
+  a.table = table;
+  a.n_table = n_table;
+  a.tris = tris;
+  a.stds = stds;
+  a.slots = slots;
+  a.totals = totals;
+  const long long tiles = ((long long)budget * ROW + SPLICE_THREADS - 1) / SPLICE_THREADS;
+  const dim3 grid((unsigned)(tiles < 1 ? 1 : tiles < SPLICE_TILES ? tiles : SPLICE_TILES),
+                  (unsigned)(n_chunks < MAX_GRID_Y ? n_chunks : MAX_GRID_Y));
+  mc_splice_kernel<<<grid, SPLICE_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -23,12 +23,21 @@ fixed-shape tensor op in the JAX package's order (the 8 corner choices, the
 the same order and agree with the JAX package to f32 rounding; the kernels
 compute the same arithmetic in the same order and equal it bit for bit.
 The numpy-built constant tables upload once per ``(r, device)``.
+
+:func:`mc_splice` turns an extract's chunk buffers into its triangles: the
+kept rows of every chunk in chunk order, in world space, with each
+triangle's latent slot (:class:`Spliced`).  On CUDA tensors it is one launch
+of the same library's splice kernel (counted as ``mc_splice``), on CPU
+tensors :func:`mc_splice_plain`, which is the numpy splice the JAX package
+runs on the host, in tensor ops, and which the kernel equals bit for bit.
+:func:`mc_triangles_np` brings the result to the host: one read of the
+count, then one download of each output.
 """
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,21 +65,23 @@ def _result(packed: torch.Tensor, count: torch.Tensor) -> McResult:
                     count, packed)
 
 
-def mc_triangles_np(res: McResult) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-    """Host-side unpack: (tris (C, 3, 3), stds (C, 3), blocks (C,), count)
-    where C = min(count, buffer size).  One count read, then ONE download of
-    the buffer's first cb rows (contiguous), cb the count rounded up to a
-    power of two."""
-    total = int(res.count)
-    cap = res.packed.shape[0]
-    count = min(total, cap)
-    cb = 1
-    while cb < count:
-        cb *= 2
-    cb = min(cb, cap)
-    rows = res.packed[:cb].cpu().numpy()[:count]
-    return (rows[:, :9].reshape(count, 3, 3), rows[:, 9:12],
-            rows.view(np.int32)[:, 12], total)
+class Spliced(NamedTuple):
+    """An extract's triangles, planar (:func:`mc_splice`): the first
+    ``totals[1]`` rows of each output hold them."""
+    triangles: torch.Tensor   # (T, 3, 3) f32 world-space vertices
+    tri_std: torch.Tensor     # (T, 3) f32 per-vertex std
+    tri_slot: torch.Tensor    # (T,) int64 latent slot of the triangle's block
+    totals: torch.Tensor      # (2,) int64: survivors emitted (may exceed T), rows kept
+
+
+def mc_triangles_np(res: Spliced) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Host-side unpack -> (world-space tris (T, 3, 3), stds (T, 3), slots
+    (T,), survivors emitted): one read of the totals, then one download of
+    each output's first T rows, on the current stream, into fresh
+    contiguous arrays."""
+    emitted, rows = res.totals.tolist()
+    return (res.triangles[:rows].cpu().numpy(), res.tri_std[:rows].cpu().numpy(),
+            res.tri_slot[:rows].cpu().numpy(), emitted)
 
 
 def _corner_tables(r: int):
@@ -242,7 +253,9 @@ def marching_cubes_sparse_plain(indexer: torch.Tensor, slot_to_batch: torch.Tens
                                 valid_blocks: torch.Tensor, cube_sdf: torch.Tensor,
                                 cube_std: torch.Tensor, n_xyz: Tuple[int, int, int],
                                 r: int, max_triangles: int, max_std: float = 2000.0,
-                                interpolate: bool = True) -> McResult:
+                                interpolate: bool = True,
+                                out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                                ) -> McResult:
     """Plain PyTorch version of :func:`marching_cubes_sparse`."""
     dev = cube_sdf.device
     _, ny, nz = n_xyz
@@ -327,7 +340,11 @@ def marching_cubes_sparse_plain(indexer: torch.Tensor, slot_to_batch: torch.Tens
     packed.view(torch.int32)[:, 12] = -1
     packed[out_idx] = torch.cat([all_tris, all_stds,
                                  all_block.to(torch.int32).view(torch.float32)[None]]).T
-    return _result(packed[:-1], all_mask.sum())
+    if out is None:
+        return _result(packed[:-1], all_mask.sum())
+    out[0].copy_(packed[:-1])
+    out[1].copy_(all_mask.sum())
+    return _result(*out)
 
 
 _lib = None
@@ -345,6 +362,10 @@ def _load():
         lib.mc_sparse_launch.argtypes = [p, p, ll, p, i, p, p, ll, ll, ll, i, i, p,
                                          ctypes.c_float, i, p, p, p, p]
         lib.mc_sparse_launch.restype = ctypes.c_int
+        f = ctypes.c_float
+        lib.mc_splice_launch.argtypes = [p, p, i, i, ll, f, f, f, f, f, f, f, p, ll, p, p, p, p,
+                                         p]
+        lib.mc_splice_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -354,26 +375,32 @@ def _tri_table(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(TRI_TABLE.astype(np.int8)).to(device)
 
 
+def _check(what: str, dev, tensors, where: str = "") -> None:
+    """What a kernel takes: each (name, tensor, dtype, shape ok) a
+    contiguous ``dtype`` tensor on ``dev`` of an accepted shape, else
+    ValueError."""
+    for name, t, dtype, ok in tensors:
+        if t.device != dev or t.dtype != dtype or not ok or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} tensor on {dev}"
+                             f"{where}, got {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"contiguous {t.is_contiguous()}")
+
+
 def _check_inputs(indexer, slot_to_batch, valid_blocks, cube_sdf, cube_std, n_xyz, r,
                   max_triangles) -> None:
     """What the kernels take: contiguous tensors on one card, int32 indexer
     and block list, int64 slot_to_batch, f32 (rows, 2r, 2r, 2r) lattices."""
-    dev = cube_sdf.device
     n_cells = int(np.prod(n_xyz))
     side = 2 * r
-    for name, t, dtype, ok in (
-            ("indexer", indexer, torch.int32, indexer.shape == (n_cells,)),
-            ("slot_to_batch", slot_to_batch, torch.int64,
-             slot_to_batch.dim() == 1 and slot_to_batch.numel() >= 1),
-            ("valid_blocks", valid_blocks, torch.int32, valid_blocks.dim() == 1),
-            ("cube_sdf", cube_sdf, torch.float32,
-             cube_sdf.dim() == 4 and cube_sdf.shape[1:] == (side,) * 3),
-            ("cube_std", cube_std, torch.float32, cube_std.shape == cube_sdf.shape)):
-        if t.device != dev or t.dtype != dtype or not ok or not t.is_contiguous():
-            raise ValueError(f"marching_cubes_sparse: {name} must be a contiguous {dtype} "
-                             f"tensor on {dev} (n_xyz {tuple(n_xyz)}, r {r}), got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}, "
-                             f"contiguous {t.is_contiguous()}")
+    _check("marching_cubes_sparse", cube_sdf.device, (
+        ("indexer", indexer, torch.int32, indexer.shape == (n_cells,)),
+        ("slot_to_batch", slot_to_batch, torch.int64,
+         slot_to_batch.dim() == 1 and slot_to_batch.numel() >= 1),
+        ("valid_blocks", valid_blocks, torch.int32, valid_blocks.dim() == 1),
+        ("cube_sdf", cube_sdf, torch.float32,
+         cube_sdf.dim() == 4 and cube_sdf.shape[1:] == (side,) * 3),
+        ("cube_std", cube_std, torch.float32, cube_std.shape == cube_sdf.shape)),
+        f" (n_xyz {tuple(n_xyz)}, r {r})")
     if r < 1 or not 0 <= ROW * max_triangles < 2 ** 31 \
             or SLABS * valid_blocks.shape[0] * r ** 3 >= 2 ** 31:
         raise ValueError(f"marching_cubes_sparse: needs r >= 1, 0 <= 13 * max_triangles "
@@ -385,23 +412,32 @@ def marching_cubes_sparse(indexer: torch.Tensor, slot_to_batch: torch.Tensor,
                           valid_blocks: torch.Tensor, cube_sdf: torch.Tensor,
                           cube_std: torch.Tensor, n_xyz: Tuple[int, int, int],
                           r: int, max_triangles: int, max_std: float = 2000.0,
-                          interpolate: bool = True) -> McResult:
+                          interpolate: bool = True,
+                          out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> McResult:
     """Emit triangles for all active blocks.  ``cube_sdf`` must already
     carry the sign flip (the mesher negates the decoder output).  CUDA
     tensors launch the kernels of ``csrc/marching_cubes.cu`` on the current
-    stream (or raise); CPU tensors run :func:`marching_cubes_sparse_plain`."""
+    stream (or raise); CPU tensors run :func:`marching_cubes_sparse_plain`.
+    ``out``: the (max_triangles, 13) f32 buffer and the () int64 count to
+    write, contiguous, in place of new ones."""
     if not cube_sdf.is_cuda:
         return marching_cubes_sparse_plain(indexer, slot_to_batch, valid_blocks, cube_sdf,
                                            cube_std, n_xyz, r, max_triangles, max_std,
-                                           interpolate)
+                                           interpolate, out)
     _check_inputs(indexer, slot_to_batch, valid_blocks, cube_sdf, cube_std, n_xyz, r,
                   max_triangles)
     dev = cube_sdf.device
     lib = _load()
     n_blocks = valid_blocks.shape[0]
     work = torch.empty(lib.mc_workspace_bytes(n_blocks, r), dtype=torch.uint8, device=dev)
-    packed = torch.empty(max_triangles, ROW, device=dev)
-    count = torch.empty((), dtype=torch.int64, device=dev)
+    if out is None:
+        packed = torch.empty(max_triangles, ROW, device=dev)
+        count = torch.empty((), dtype=torch.int64, device=dev)
+    else:
+        packed, count = out
+        _check("marching_cubes_sparse", dev, (
+            ("out", packed, torch.float32, packed.shape == (max_triangles, ROW)),
+            ("out", count, torch.int64, count.shape == ())))
     nx, ny, nz = (int(v) for v in n_xyz)
     err = _build.launch_on(
         dev.index, lib.mc_sparse_launch, indexer.data_ptr(), slot_to_batch.data_ptr(),
@@ -413,3 +449,73 @@ def marching_cubes_sparse(indexer: torch.Tensor, slot_to_batch: torch.Tensor,
     for name in ("mc_classify", "mc_scan", "mc_emit"):
         _build.count_launch(name)
     return _result(packed, count)
+
+
+def _f32(v) -> float:
+    """``v`` rounded to f32, as numpy rounds a Python float or an int64
+    operand of an f32 array's arithmetic, held exactly as a float."""
+    return float(np.float32(v))
+
+
+def mc_splice_plain(packed: torch.Tensor, counts: torch.Tensor, table: torch.Tensor,
+                    origin, voxel_size: float, world_origin, max_triangles: int) -> Spliced:
+    """Plain PyTorch version of :func:`mc_splice`: the host's numpy splice
+    (concatenate each chunk's kept rows, truncate, ``(tris + origin) *
+    voxel_size + world_origin``, ``table[blocks]``) as tensor ops, each
+    rounded as numpy rounds it.  Its outputs hold exactly the kept rows."""
+    dev = packed.device
+    n_chunks, budget = packed.shape[:2]
+    kept = torch.clamp(counts, max=budget)
+    live = torch.arange(budget, device=dev)[None, :] < kept[:, None]
+    rows = packed[live][:max_triangles]                         # chunk order
+    f32 = torch.float32
+    o = torch.tensor([_f32(v) for v in origin], dtype=f32, device=dev)
+    w = torch.tensor([_f32(v) for v in world_origin], dtype=f32, device=dev)
+    tris = (rows[:, :9].reshape(-1, 3, 3) + o) * torch.tensor(_f32(voxel_size), dtype=f32,
+                                                                device=dev) + w
+    blocks = rows.view(torch.int32)[:, 12].to(torch.int64)
+    inside = (blocks >= 0) & (blocks < table.shape[0])
+    slots = torch.where(inside, table[torch.clamp(blocks, 0, table.shape[0] - 1)], -1)
+    totals = torch.stack([counts.sum(), torch.tensor(rows.shape[0], device=dev)])
+    return Spliced(tris, rows[:, 9:12].contiguous(), slots, totals)
+
+
+def mc_splice(packed: torch.Tensor, counts: torch.Tensor, table: torch.Tensor, origin,
+              voxel_size: float, world_origin, max_triangles: int) -> Spliced:
+    """Splice an extract's marching-cubes chunks: ``packed`` (K, budget, 13)
+    f32 holds chunk k's rows (:class:`McResult`'s layout) and ``counts``
+    (K,) int64 its survivors; the first ``min(count_k, budget)`` rows of
+    each chunk, in chunk order and truncated at ``max_triangles``, become
+    world-space vertices ``(v + origin) * voxel_size + world_origin``
+    (``origin`` (3,) the grid's origin in cells, ``world_origin`` (3,)
+    metres), their stds and their slot ``table[block]`` (``table`` int64, a
+    grid cell's slot; -1 outside it).  CUDA tensors launch the splice kernel
+    of ``csrc/marching_cubes.cu`` once on the current stream (or raise); CPU
+    tensors run :func:`mc_splice_plain`."""
+    if not packed.is_cuda:
+        return mc_splice_plain(packed, counts, table, origin, voxel_size, world_origin,
+                               max_triangles)
+    dev = packed.device
+    shaped = packed.dim() == 3 and packed.shape[0] >= 1 and packed.shape[2] == ROW
+    n_chunks, budget = packed.shape[:2] if shaped else (0, 0)
+    _check("mc_splice", dev, (
+        ("packed", packed, torch.float32, shaped),
+        ("counts", counts, torch.int64, counts.shape == (n_chunks,)),
+        ("table", table, torch.int64, table.dim() == 1 and table.numel() >= 1)),
+        f" (packed (chunks >= 1, budget, {ROW}), counts (chunks,), table 1-D, not empty)")
+    if not 0 <= ROW * budget < 2 ** 31 or max_triangles < 0:
+        raise ValueError(f"mc_splice: needs 13 * budget < 2^31 and max_triangles >= 0, got "
+                         f"budget {budget}, max_triangles {max_triangles}")
+    cap = min(int(max_triangles), n_chunks * budget)
+    tris = torch.empty(cap, 3, 3, device=dev)
+    stds = torch.empty(cap, 3, device=dev)
+    slots = torch.empty(cap, dtype=torch.int64, device=dev)
+    totals = torch.empty(2, dtype=torch.int64, device=dev)
+    err = _build.launch_on(
+        dev.index, _load().mc_splice_launch, packed.data_ptr(), counts.data_ptr(), n_chunks,
+        budget, cap, *(_f32(v) for v in origin), _f32(voxel_size),
+        *(_f32(v) for v in world_origin), table.data_ptr(), table.shape[0], tris.data_ptr(),
+        stds.data_ptr(), slots.data_ptr(), totals.data_ptr())
+    _build.check(err, "mc_splice")
+    _build.count_launch("mc_splice")
+    return Spliced(tris, stds, slots, totals)

@@ -621,6 +621,88 @@ def test_marching_cubes_wrapper_rejects_bad_inputs(dev):
         MC.marching_cubes_sparse(*good, (6, 5, 6), 2, 1024)
 
 
+def _splice_both(dev, case, scale=1):
+    """The splice kernel and its plain version on one card input (the CPU
+    tests' synthetic chunks of ``case``, their counts times ``scale``):
+    both results and the kernel's launches."""
+    from difusion_tpu_torch.ops import marching_cubes as MC
+    from test_torch_mc_splice import SPLICE_CASES, _chunks
+    counts, budget, max_triangles, n_xyz, origin, world_origin = SPLICE_CASES[case]
+    counts = [c * scale for c in counts]
+    budget, max_triangles = budget * scale, max_triangles * scale
+    packed, counts, lin_local, slots = _chunks(len(case), counts, budget, n_xyz)
+    table = torch.full((int(np.prod(n_xyz)),), -1, dtype=torch.int64, device=dev)
+    table[torch.from_numpy(lin_local).long().to(dev)] = torch.from_numpy(slots).to(dev)
+    args = (torch.from_numpy(packed).to(dev), torch.from_numpy(counts).to(dev), table,
+            np.asarray(origin, np.int64), 0.1, np.asarray(world_origin, np.float32),
+            max_triangles)
+    before = _build.launch_counts().get("mc_splice", 0)
+    got = MC.mc_splice(*args)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts().get("mc_splice", 0) - before
+    return got, MC.mc_splice_plain(*args), launches
+
+
+@pytest.mark.parametrize("case,scale", [
+    ("chunks", 1), ("chunk_over_budget", 1), ("over_max_triangles", 1), ("hash_origin", 1),
+    ("empty_chunk", 1), ("all_empty", 1), ("chunks", 64)])
+def test_splice_kernel_equals_plain(dev, case, scale):
+    """The splice kernel's vertices, stds, slots and totals torch.equal to
+    the plain version's (which the CPU tests hold to the numpy splice): several
+    chunks, a chunk over its budget, a total over ``max_triangles``, a hash
+    grid's origin, empty chunks; at scale 64 ~105 k rows in chunks of
+    65,536.  One launch a call."""
+    got, ref, launches = _splice_both(dev, case, scale)
+    emitted, rows = got.totals.tolist()
+    assert [emitted, rows] == ref.totals.tolist() and launches == 1
+    assert rows == ref.triangles.shape[0] <= got.triangles.shape[0]
+    for a, b in zip(got[:3], ref[:3]):
+        assert a[:rows].is_contiguous() and a.dtype == b.dtype
+        assert torch.equal(a[:rows].view(torch.int32 if a.is_floating_point() else a.dtype),
+                           b.view(torch.int32 if b.is_floating_point() else b.dtype))
+    if case != "all_empty":
+        assert rows > 0 and bool((got.tri_slot[:rows] >= 0).all())
+
+
+def test_splice_at_the_export_size(dev):
+    """Ten chunks of the r = 8 export's budget (2^20 rows), ~45.5 k
+    triangles each: the kernel equals the plain version."""
+    from difusion_tpu_torch.ops import marching_cubes as MC
+    gen = torch.Generator(device=dev).manual_seed(26)
+    K, budget, n_cells = 10, 1 << 20, 80 * 40 * 80
+    counts = torch.randint(40000, 51000, (K,), generator=gen, device=dev)
+    packed = torch.rand(K, budget, MC.ROW, generator=gen, device=dev) * 80.0
+    blocks = torch.randint(0, n_cells, (K, budget), generator=gen, device=dev)
+    packed.view(torch.int32)[:, :, 12] = blocks.to(torch.int32)
+    table = torch.randint(-1, 1 << 16, (n_cells,), generator=gen, device=dev)
+    args = (packed, counts, table, np.zeros(3, np.int64), 0.1,
+            np.asarray((-3.5, -0.5, -2.7), np.float32), 1 << 20)
+    got, ref = MC.mc_splice(*args), MC.mc_splice_plain(*args)
+    rows = got.totals.tolist()[1]
+    assert rows == int(counts.sum()) == ref.triangles.shape[0] > 400000
+    assert torch.equal(got.triangles[:rows], ref.triangles)
+    assert torch.equal(got.tri_std[:rows], ref.tri_std)
+    assert torch.equal(got.tri_slot[:rows], ref.tri_slot)
+
+
+def test_splice_wrapper_rejects_bad_inputs(dev):
+    from difusion_tpu_torch.ops import marching_cubes as MC
+    packed = torch.zeros(3, 64, MC.ROW, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    table = torch.full((512,), -1, dtype=torch.int64, device=dev)
+    rest = (np.zeros(3, np.int64), 0.1, np.zeros(3, np.float32), 1024)
+    for i, bad in ((0, packed.double()), (0, packed[:, :, :12]), (0, packed[0]),
+                   (0, packed[:0]), (0, packed.transpose(0, 1)), (1, counts.int()),
+                   (1, counts.cpu()), (1, counts[:2]), (2, table.int()), (2, table[:0]),
+                   (2, table.view(2, 256)), (2, table.cpu())):
+        args = [packed, counts, table]
+        args[i] = bad
+        with pytest.raises(ValueError):
+            MC.mc_splice(*args, *rest)
+    with pytest.raises(ValueError):
+        MC.mc_splice(packed, counts, table, *rest[:3], -1)
+
+
 @pytest.fixture(scope="module")
 def fused_systems(dev):
     """A dense and a hash-map system that fused small frames at their
@@ -651,16 +733,17 @@ def fused_systems(dev):
             system = SLAMSystem(cfg, T.TrackerConfig(point_budget=4096), dec, enc, calib,
                                 integrate_interval=2, device=dev)
             system.use_gt_poses = True
-            original = meshing.marching_cubes_sparse
+            original = meshing.marching_cubes_sparse, meshing.mc_splice
             if route == "plain":
                 meshing.marching_cubes_sparse = MC.marching_cubes_sparse_plain
+                meshing.mc_splice = MC.mc_splice_plain
             try:
                 _build.reset_launch_counts()
                 for frame in frames:
                     system.process_frame(frame)
                 torch.cuda.synchronize()
             finally:
-                meshing.marching_cubes_sparse = original
+                meshing.marching_cubes_sparse, meshing.mc_splice = original
             out[kind, route] = (system, _build.launch_counts())
     return out, dec
 
@@ -668,8 +751,10 @@ def fused_systems(dev):
 @pytest.mark.parametrize("kind", ["dense", "hash"])
 def test_incremental_extracts_through_the_kernels_equal_plain(fused_systems, kind):
     """Three incremental r = 4 extracts on the fusion frames: the same
-    triangle soup through the kernels as through the plain version, and the
-    kernels launched once each a marching-cubes chunk (none on the plain
+    triangle soup and slots (the cache splicing each extract's new
+    triangles beside the ones it keeps) through the kernels as through the
+    plain versions, the marching-cubes kernels launched once each a chunk
+    and the splice once an extract, with one host read (none on the plain
     route)."""
     systems, _ = fused_systems
     (ks, kc), (ps, pc) = systems[kind, "kernels"], systems[kind, "plain"]
@@ -677,9 +762,13 @@ def test_incremental_extracts_through_the_kernels_equal_plain(fused_systems, kin
     pt, pstd = ps.mesher.triangles()
     assert len(kt) > 100
     assert np.array_equal(kt, pt) and np.array_equal(kstd, pstd)
+    assert np.array_equal(ks.mesher._slot, ps.mesher._slot)
+    for got, want in ((kt, pt), (kstd, pstd), (ks.mesher._slot, ps.mesher._slot)):
+        assert got.dtype == want.dtype and got.flags.c_contiguous
     assert all(kc.get(k, 0) >= 3 for k in MC_COUNTS)
     assert kc["mc_classify"] == kc["mc_scan"] == kc["mc_emit"]
-    assert not any(pc.get(k, 0) for k in MC_COUNTS)
+    assert kc["mc_splice"] >= 3 and ks.mesher.last_stats["host_reads"] == 1
+    assert not any(pc.get(k, 0) for k in MC_COUNTS + ("mc_splice",))
 
 
 @pytest.mark.parametrize("kind,r", [("dense", 4), ("dense", 8), ("hash", 8)])
@@ -696,9 +785,10 @@ def test_full_extract_through_the_kernels_equals_plain(fused_systems, kind, r):
 
     def extract(plain=False, stream=None):
         ex = cls(system.map_cfg, dec, voxel_resolution=r, max_eval_points=1 << 14)
-        original = meshing.marching_cubes_sparse
+        original = meshing.marching_cubes_sparse, meshing.mc_splice
         if plain:
             meshing.marching_cubes_sparse = MC.marching_cubes_sparse_plain
+            meshing.mc_splice = MC.mc_splice_plain
         try:
             _build.reset_launch_counts()
             if stream is None:
@@ -709,16 +799,20 @@ def test_full_extract_through_the_kernels_equals_plain(fused_systems, kind, r):
                     ex.extract(system.state, max_std=0.15, no_cache=True)
                 stream.synchronize()
         finally:
-            meshing.marching_cubes_sparse = original
-        return ex.triangles(), ex.last_stats, _build.launch_counts()
-    (kt, kstd), stats, counts = extract()
-    (pt, pstd), _, _ = extract(plain=True)
-    (st, sstd), _, _ = extract(stream=torch.cuda.Stream(dev))
-    assert len(kt) > 100
-    assert np.array_equal(kt, pt) and np.array_equal(kstd, pstd)
-    assert np.array_equal(st, kt) and np.array_equal(sstd, kstd)
+            meshing.marching_cubes_sparse, meshing.mc_splice = original
+        return (*ex.triangles(), ex._slot), ex.last_stats, _build.launch_counts()
+    kernels, stats, counts = extract()
+    plain, _, plain_counts = extract(plain=True)
+    side, side_stats, side_counts = extract(stream=torch.cuda.Stream(dev))
+    assert len(kernels[0]) > 100
+    for got, want, side_got in zip(kernels, plain, side):
+        assert got.dtype == want.dtype and got.flags.c_contiguous
+        assert np.array_equal(got, want) and np.array_equal(side_got, got)
     assert {k: counts.get(k, 0) for k in MC_COUNTS} == dict.fromkeys(MC_COUNTS,
                                                                      stats["mc_chunks"])
+    assert counts["mc_splice"] == side_counts["mc_splice"] == 1
+    assert stats["host_reads"] == side_stats["host_reads"] == 1
+    assert not any(plain_counts.get(k, 0) for k in MC_COUNTS + ("mc_splice",))
     if r == 8:
         assert stats["mc_chunks"] >= 2
 

@@ -92,6 +92,7 @@ def meshes(request, prior, tmp_path_factory):
         ts = tm.extract(ts, max_std=MAX_STD)
         assert not bool(ts.mesh_dirty.any())
         steps.append(dict(jax=jm.triangles(), port=tm.triangles(),
+                          jax_slot=jm._slot, port_slot=tm._slot,
                           jax_bytes=jm.last_transfer_bytes,
                           port_bytes=tm.last_transfer_bytes,
                           blocks=tm.last_stats["blocks"],
@@ -371,6 +372,7 @@ def hash_meshes(prior, tmp_path_factory):
         ts = tm.extract(ts, max_std=MAX_STD)
         assert not bool(ts.mesh_dirty.any())
         steps.append(dict(jax=jm.triangles(), port=tm.triangles(),
+                          jax_slot=jm._slot, port_slot=tm._slot,
                           jax_bytes=jm.last_transfer_bytes,
                           port_bytes=tm.last_transfer_bytes))
     return steps, tmp
@@ -392,6 +394,56 @@ def test_hash_mesh_extract_matches_jax(hash_meshes, step):
     v = tt.reshape(-1, 3).astype(np.float64)
     z = 2.0 + 0.1 * (np.sin(5 * v[:, 0]) + 0.7 * np.cos(4 * v[:, 1]))
     assert np.percentile(np.abs(v[:, 2] - z), 95) < 0.05
+
+
+@pytest.mark.parametrize("step", [0, 1], ids=["first", "incremental"])
+@pytest.mark.parametrize("kind", ["dense", "hash"])
+def test_cache_arrays_match_jax(meshes, hash_meshes, kind, step):
+    """The cache's three arrays after each extract (the first, then one
+    that keeps the blocks it does not re-mesh): the JAX package's dtypes,
+    shapes and contiguity, and its per-triangle slots exactly."""
+    s = (meshes[0] if kind == "dense" else hash_meshes[0])[step]
+    got = (*s["port"], s["port_slot"])
+    want = (*s["jax"], s["jax_slot"])
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.flags.c_contiguous and w.flags.c_contiguous
+    assert np.array_equal(s["port_slot"], s["jax_slot"]) and len(s["port_slot"]) > 500
+
+
+@pytest.mark.parametrize("kind", ["dense", "hash"])
+def test_no_cache_extract_matches_jax(prior, kind, tmp_path):
+    """A full (no_cache) extract in several marching-cubes chunks, the
+    offline export's route, on a map that already holds a cache: the JAX
+    package's triangles and stds (atol 1e-5, in its order), its slots
+    exactly, the same dtypes, shapes and contiguity, and the same transfer
+    bytes."""
+    dec, enc, spec, t_dec = prior
+    jmod, cfg_kw = (JM, CFG) if kind == "dense" else (JHM, HCFG)
+    jcfg = (JM.MapConfig if kind == "dense" else JHM.HashMapConfig)(**cfg_kw)
+    create = JM.create_map_state if kind == "dense" else JHM.create_hash_map_state
+    js = jmod.integrate_keyframe(jcfg, enc, create(jcfg), *_surface(7, 0.2))
+    jmod.save_map(str(tmp_path / "map.npz"), jcfg, js)
+    tcfg, ts = M.load_map(tmp_path / "map.npz", device="cpu")
+    jcls, tcls = ((JMeshExtractor, MeshExtractor) if kind == "dense"
+                  else (JHashMeshExtractor, HashMeshExtractor))
+    jm = jcls(jcfg, dec, spec, voxel_resolution=3, max_triangles=1 << 16,
+              max_eval_points=64 * 6 ** 3)
+    tm = tcls(tcfg, t_dec, voxel_resolution=3, max_triangles=1 << 16,
+              max_eval_points=64 * 6 ** 3)
+    for _ in range(2):                  # the second extract replaces the first's cache
+        jm.extract(js, max_std=MAX_STD, no_cache=True)
+        tm.extract(ts, max_std=MAX_STD, no_cache=True)
+    assert tm.last_stats["mc_chunks"] > 1 and tm.last_stats["host_reads"] == 1
+    got = (*tm.triangles(), tm._slot)
+    want = (*jm.triangles(), jm._slot)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.flags.c_contiguous
+    assert len(got[0]) > 500
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5)
+    assert np.array_equal(got[2], want[2])
+    assert tm.last_transfer_bytes == jm.last_transfer_bytes
 
 
 def test_mesh_tool_hash_fast_and_shard(prior, hash_meshes, tmp_path):

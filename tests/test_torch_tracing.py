@@ -36,8 +36,8 @@ SLAM_SPANS = {"slam.run_sequence", "slam.wait_feed", "slam.feed.pack", "slam.fee
               "slam.frame.pack", "slam.frame.upload", "slam.track", "slam.fuse",
               "slam.mesh"}
 MESH_SPANS = {"mesh.extract", "mesh.prep", "mesh.prep.sync", "mesh.grid", "mesh.decode",
-              "mesh.mc", "mesh.mc.download", "mesh.splice"}
-WAITS = {"slam.frame.upload", "mesh.prep.sync", "mesh.mc.download"}
+              "mesh.mc", "mesh.splice", "mesh.splice.download"}
+WAITS = {"slam.frame.upload", "mesh.prep.sync", "mesh.splice.download"}
 
 
 @pytest.fixture(autouse=True)
@@ -152,7 +152,8 @@ def _mapped(make, hash_map):
 def test_extract_children_cover_it(make, hash_map):
     """A full extract's children (prep, grid, decode, one mc a chunk,
     splice) cover at least 90% of ``mesh.extract``, and its device waits sit
-    where the module says."""
+    where the module says: two in the prep, none in the chunk loop, and the
+    extract's one count read and download in the splice."""
     system = _mapped(make, hash_map)
     system.mesher.max_eval_points = 1 << 12         # several mc chunks
     tracing.enable()
@@ -171,7 +172,9 @@ def test_extract_children_cover_it(make, hash_map):
     assert covered >= 0.9 * (ext.end_ns - ext.start_ns)
     waits = [(spans[s.parent].name, s.name) for s in spans if s.wait]
     assert waits.count(("mesh.prep", "mesh.prep.sync")) == 2
-    assert waits.count(("mesh.mc", "mesh.mc.download")) == len(names) - 4
+    assert waits.count(("mesh.splice", "mesh.splice.download")) == 1
+    assert not [w for w in waits if w[0] == "mesh.mc"]
+    assert len(waits) == 3 and system.mesher.last_stats["host_reads"] == 1
 
 
 def test_annotations_match_the_records(make):
