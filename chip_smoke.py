@@ -206,6 +206,13 @@ Phases, each printing one JSON line:
               sdf_fused "on" (kernel 1's cbn instance >= 2 a tracked frame,
               cbn_cond once a fusion, none of another decoder; ATE under
               ONET_MAX_ATE).
+14. pigan -- pi-GAN's FiLM-SIREN decoder (benchmark/configs/
+              lrkt-pigan.json: code 256, eight sine layers x 256, a 3 x 256
+              mapping network; the in-repo prior di-checkpoints/
+              pigan_mixed): the onet phase's steps for csrc/decoder_film.cu
+              (film_map_kernel, kernels 1 and 3's film instances; the port's
+              plain path FilmDecoder) and the same export and tracking
+              gates (PIGAN_MAX_ATE, PIGAN_MAX_VERTEX_GAP).
 
 Then one line {"kernels": [...]} with every kernel's launches on its path
 (and as each phase's counts read them: launches_<phase>), error against its
@@ -253,6 +260,9 @@ ONET_COND_N = (4700, 1, 63)            # an export's live blocks, and ragged
 ONET_ROWS = 600                        # conditioning rows the tracker's points read
 ONET_MAX_ATE = 0.035
 ONET_MAX_VERTEX_GAP = 0.02             # the export's vertices against lrkt-dense's
+PIGAN_CFG = Path(__file__).resolve().parent / "benchmark/configs/lrkt-pigan.json"
+PIGAN_MAX_ATE = 0.035
+PIGAN_MAX_VERTEX_GAP = 0.02
 DENSE_CFG = Path(__file__).resolve().parent / "benchmark/configs/lrkt-dense.json"
 DEEPSDF_FRAMES = 240
 DEEPSDF_SEED = 2718281828
@@ -888,30 +898,189 @@ def check_cbn(dec, pack, fused_mod, build_info, dev) -> list:
     return out
 
 
-def onet_phase(dev, kernels, fused_mod, build_info, frames: int = DEEPSDF_FRAMES) -> None:
-    """The onet phase (see the module docstring): emits its lines and adds
-    the three onet_cbn kernels to ``kernels``."""
+def check_film(dec, pack, fused_mod, build_info, dev) -> list:
+    """pigan_film's three kernels against their plain versions, and timed by
+    graph replay beside the port's plain path (FilmDecoder: the mapping and
+    every row mapped for itself, f32 with TF32 off; autograd for the
+    gradient).  Tolerances: a tenth of what the plain version itself misses
+    by with its products in TF32 (``allow_tf32``), read at the main size of
+    each kernel.  The trained prior's frequencies reach ~80 and amplify a
+    product's rounding through eight sine layers by orders of magnitude, so
+    no fixed tolerance fits both it and an initialised decoder; 3xTF32
+    keeps ~22 bits of each product against TF32's ~11."""
+    from benchmark.reference.decoders import pigan_film
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sp = dec.spec
+    hyper = {"code_length": sp.latent_size, "network_specs": {
+        "hidden_dim": sp.hidden, "n_layers": sp.layers, "mapping_hidden_dim": sp.map_hidden}}
+    lay = pack.layout
+    gen = torch.Generator(device=dev).manual_seed(5)
+    codes_of = {}
+
+    def codes(m):
+        if m not in codes_of:
+            codes_of[m] = torch.randn(m, lay.L, generator=gen, device=dev) * 0.3
+        return codes_of[m]
+
+    def tenth_of_tf32(plain, *args):
+        """A tenth of each output's largest error in TF32 against f32."""
+        ref = plain(*args)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            low = plain(*args)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        ref, low = (ref,) if torch.is_tensor(ref) else ref, (low,) if torch.is_tensor(low) else low
+        return [0.1 * float((a - b).abs().max()) for a, b in zip(low, ref)]
+    out = []
+    worst, main = 0.0, codes(ONET_COND_N[0])
+    tol_map, = tenth_of_tf32(fused_mod.film_map_plain, pack, main)
+    for m in ONET_COND_N:
+        c = codes(m)
+        before = _build_counts("film_map")
+        got = fused_mod.film_map(pack, c)
+        ref = fused_mod.film_map_plain(pack, c)
+        torch.cuda.synchronize()
+        if _build_counts("film_map") != before + 1:
+            fail(f"film_map at M={m}: not one counted launch")
+        err = (got - ref).abs()
+        if not torch.isfinite(got).all() or float(err.max()) > tol_map:
+            fail(f"film_map at M={m}: max abs err {err.max().item():.3g} (tolerance {tol_map:.3g})")
+        worst = max(worst, err.max().item())
+    rows = torch.randperm(ONET_COND_N[0], generator=gen, device=dev)[:1000].to(torch.int32)
+    count = torch.tensor(700, dtype=torch.int32, device=dev)
+    table = torch.zeros(ONET_COND_N[0], *lay.row_shape, device=dev)
+    fused_mod.film_map(pack, main, rows, count, out=table)
+    want = torch.zeros_like(table)
+    want[rows[:700].long()] = fused_mod.film_map_plain(pack, main[rows[:700].long()])
+    if float((table - want).abs().max()) > tol_map:
+        fail("film_map with rows and a device count: rows off")
+    flops = float(pigan_film.cond_flops(hyper)) * main.shape[0]
+    nbytes = 4.0 * main.shape[0] * pigan_film.cond_row_floats(hyper)
+    out.append({"name": "film_map", "route": "cuda",
+                "source": "difusion_tpu_torch/csrc/decoder_film.cu", "replaces": None,
+                "max_abs_err": worst, "tolerance": tol_map,
+                "ms": graph_ms(lambda: fused_mod.film_map(pack, main), 20),
+                "eager_ms": time_ms(lambda: fused_mod.film_map(pack, main), 10, per_batch=3),
+                "host_us": host_us(lambda: fused_mod.film_map(pack, main), 20),
+                "plain_path_ms": graph_ms(lambda: dec.modulation(main), 20),
+                "plain_ms": graph_ms(lambda: fused_mod.film_map_plain(pack, main), 20),
+                **decoder_bounds(flops, nbytes),
+                "bound_once_ms": bound_ms(flops, nbytes, PEAK_TF32_FLOPS)[0],
+                **ptxas_of(build_info, "decoder_film", "film_map_kernel"),
+                "library_ms": None, "library_note": "the plain version is four torch products",
+                "shape": f"M={main.shape[0]} codes of {lay.L}, {lay.NL} x 2 x {lay.H} out, "
+                         "3xTF32",
+                "flops": flops, "bytes": nbytes})
+    for name, counter, sizes, per_code in (
+            ("decode_grad_film", "decode_grad_kernel_film", WIDE_GRAD_N, None),
+            ("decode_fwd_film", "decode_fwd_kernel_film", WIDE_FWD_N, 4096)):
+        grad = name == "decode_grad_film"
+        mod = fused_mod.film_map(pack, codes(ONET_ROWS if grad else 256))
+        plain = fused_mod.decode_grad_film_plain if grad else fused_mod.decode_fwd_film_plain
+        worst, main_inputs, tols = 0.0, None, None
+        for n in sizes:
+            idx = (torch.randint(0, mod.shape[0], (n,), generator=gen, device=dev)
+                   if per_code is None else torch.arange(n, device=dev) // per_code
+                   ).to(torch.int32)
+            rel = torch.rand(n, 3, generator=gen, device=dev) - 0.5
+            if tols is None:
+                tols = tenth_of_tf32(plain, pack, mod, idx, rel)
+            before = _build_counts(name)
+            got = (fused_mod.decode_grad_film if grad else fused_mod.decode_fwd_film)(
+                pack, mod, idx, rel)
+            ref = plain(pack, mod, idx, rel)
+            torch.cuda.synchronize()
+            if _build_counts(name) != before + 1:
+                fail(f"{name} at N={n}: not one counted launch")
+            for what, g, r, tol in zip(("sdf", "std", "grad"), got, ref, tols):
+                err = (g - r).abs()
+                if not torch.isfinite(g).all() or float(err.max()) > tol:
+                    fail(f"{name} {what} at N={n}: max abs err {err.max().item():.3g} "
+                         f"(tolerance {tol:.3g})")
+                worst = max(worst, err.max().item())
+            if main_inputs is None:
+                main_inputs = (idx, rel)
+        idx, rel = main_inputs
+        n = idx.shape[0]
+        rows_mod = mod[idx.long()]
+
+        def call():
+            return (fused_mod.decode_grad_film if grad else fused_mod.decode_fwd_film)(
+                pack, mod, idx, rel)
+
+        def plain_path():
+            if not grad:
+                return dec.trunk(rel, rows_mod)
+            x = rel.detach().requires_grad_(True)
+            with torch.enable_grad():
+                sdf, std = dec.trunk(x, rows_mod)
+                g, = torch.autograd.grad(sdf, x, grad_outputs=torch.ones_like(sdf))
+            return sdf, std, g
+        reps = 50 if grad else 3
+        flops = float((pigan_film.grad_flops if grad else pigan_film.fwd_flops)(hyper)) * n
+        nbytes = 4.0 * n * (pigan_film.grad_point_floats if grad else
+                            pigan_film.fwd_point_floats)(hyper) + pigan_film.param_bytes(hyper)
+        out.append({"name": name, "route": "cuda",
+                    "source": "difusion_tpu_torch/csrc/decoder_film.cu", "replaces": None,
+                    "max_abs_err": worst, "tolerance": tols,
+                    "ms": graph_ms(call, reps), "eager_ms": time_ms(call, 10, per_batch=3),
+                    "host_us": host_us(call, 20),
+                    "plain_path_ms": graph_ms(plain_path, reps),
+                    "plain_ms": graph_ms(lambda: plain(pack, mod, idx, rel), reps),
+                    **decoder_bounds(flops, nbytes),
+                    "bound_once_ms": bound_ms(flops, nbytes, PEAK_TF32_FLOPS)[0],
+                    **ptxas_of(build_info, "decoder_film", counter),
+                    "library_ms": None,
+                    "library_note": "no single PyTorch call computes the FiLM-SIREN trunk",
+                    "shape": f"N={n} from {mod.shape[0]} modulation rows, pi-GAN "
+                             f"{lay.NL} x {lay.H}, code {lay.L}, f32 in and out, 3xTF32",
+                    "flops": flops, "bytes": nbytes})
+    return out
+
+
+# the families conditioned once a code: their configuration, kernel check,
+# counters (conditioning, kernel 1, kernel 3) and gates
+COND_FAMILIES = {
+    "onet": {"cfg": ONET_CFG, "check": check_cbn,
+             "counters": ("cbn_cond", "decode_grad_cbn", "decode_fwd_cbn"),
+             "max_ate": ONET_MAX_ATE, "max_vertex_gap": ONET_MAX_VERTEX_GAP},
+    "pigan": {"cfg": PIGAN_CFG, "check": check_film,
+              "counters": ("film_map", "decode_grad_film", "decode_fwd_film"),
+              "max_ate": PIGAN_MAX_ATE, "max_vertex_gap": PIGAN_MAX_VERTEX_GAP},
+}
+COND_COUNTERS = {f["counters"][0] for f in COND_FAMILIES.values()}
+
+
+def cond_phase(dev, kernels, fused_mod, build_info, label: str,
+               frames: int = DEEPSDF_FRAMES) -> None:
+    """The onet and pigan phases (see the module docstring), one a family
+    conditioned once a code (``COND_FAMILIES[label]``): emits its lines and
+    adds the family's three kernels to ``kernels``."""
     from benchmark import drive
     from difusion_tpu_torch.data.production import mesh_error_stats
     from difusion_tpu_torch.ops import _build
     from difusion_tpu_torch.slam import load_prior
-    cfg = json.loads(ONET_CFG.read_text())
+    fam = COND_FAMILIES[label]
+    cond, grad, fwd = fam["counters"]
+    cfg = json.loads(fam["cfg"].read_text())
     root = Path(__file__).resolve().parent
     dec, _, spec = load_prior(root / cfg["training_hypers"], int(cfg["using_epoch"]), device=dev)
     if not fused_mod.supports_spec(spec, dev):
-        fail(f"onet: the fused kernels do not take {spec}")
+        fail(f"{label}: the fused kernels do not take {spec}")
     pack = fused_mod.pack_fused_decoder(dec)
-    cbn = check_cbn(dec, pack, fused_mod, build_info, dev)
-    emit({"phase": "onet_kernels", "kernels": cbn})
-    kernels.extend(cbn)
+    checked = fam["check"](dec, pack, fused_mod, build_info, dev)
+    emit({"phase": f"{label}_kernels", "kernels": checked})
+    kernels.extend(checked)
     del pack, dec
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the export of the lap's map under lrkt-onet, beside lrkt-dense's
+    # the export of the lap's map under the family's configuration, beside
+    # lrkt-dense's
     traffic = json.loads((root / "benchmark/traffic/export-r8.json").read_text())
     exports = {}
-    for name, path in (("lrkt-dense", DENSE_CFG), ("lrkt-onet", ONET_CFG)):
+    for name, path in (("lrkt-dense", DENSE_CFG), (cfg["name"], fam["cfg"])):
         c = json.loads(path.read_text())
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -928,34 +1097,34 @@ def onet_phase(dev, kernels, fused_mod, build_info, frames: int = DEEPSDF_FRAMES
         merr = mesh_error_stats(tris)
         exports[name] = {"setup_s": setup_s, "extract_ms": ms, **merr, "vertices": 3 * len(tris),
                          "launches": {k: v for k, v in counts.items()
-                                      if "decode" in k or "cbn" in k},
+                                      if k.startswith("decode") or k in COND_COUNTERS},
                          **drv.mesher.last_stats}
-        want = {"decode_fwd_cbn", "cbn_cond"} if name == "lrkt-onet" else {"decode_fused"}
+        mine = name == cfg["name"]
+        want = {fwd, cond} if mine else {"decode_fused"}
         others = {k: v for k, v in counts.items()
-                  if (k.startswith("decode") or "cbn" in k) and k not in want and v}
-        if name == "lrkt-onet" and (counts.get("cbn_cond") != 1
-                                    or drv.mesher.last_stats.get("decode_instance")
-                                    != "decode_fwd_cbn"):
-            fail(f"onet export: conditioned {counts.get('cbn_cond')} times, decoded by "
+                  if (k.startswith("decode") or k in COND_COUNTERS) and k not in want and v}
+        if mine and (counts.get(cond) != 1
+                     or drv.mesher.last_stats.get("decode_instance") != fwd):
+            fail(f"{label} export: conditioned {counts.get(cond)} times, decoded by "
                  f"{drv.mesher.last_stats.get('decode_instance')}")
         if not all(counts.get(k) for k in want) or others:
-            fail(f"onet export {name}: launches {counts}")
-        check_mesh(f"onet export {name}", tris, merr)
+            fail(f"{label} export {name}: launches {counts}")
+        check_mesh(f"{label} export {name}", tris, merr)
         drv.free()
         del drv
         gc.collect()
         torch.cuda.empty_cache()
-    gap = exports["lrkt-onet"]["vertices"] / exports["lrkt-dense"]["vertices"] - 1.0
-    emit({"phase": "onet_export", "seed": DEEPSDF_SEED, "r": traffic["resolution"],
+    gap = exports[cfg["name"]]["vertices"] / exports["lrkt-dense"]["vertices"] - 1.0
+    emit({"phase": f"{label}_export", "seed": DEEPSDF_SEED, "r": traffic["resolution"],
           "vertex_gap": gap, **exports})
-    if not abs(gap) <= ONET_MAX_VERTEX_GAP:
-        fail(f"onet export: vertices {gap:+.2%} off lrkt-dense's")
+    if not abs(gap) <= fam["max_vertex_gap"]:
+        fail(f"{label} export: vertices {gap:+.2%} off lrkt-dense's")
 
     # frames of the lap through run_sequence(chunk=12)
     lap = drive.render_lap(cfg, DEEPSDF_SEED, dev)
     system, calib = drive.build_system(cfg, dev, meshing=False)
-    if not isinstance(system.tracker.packed, fused_mod.CbnPack) or not system.tracker.sdf_fused:
-        fail("onet: the tracker does not take the fused route")
+    if not isinstance(system.tracker.packed, fused_mod.CondPack) or not system.tracker.sdf_fused:
+        fail(f"{label}: the tracker does not take the fused route")
     system.first_iso = drive.gt_pose(lap, 0)
     _build.reset_launch_counts()
     rows0 = system.tracker.cond.cond_rows()
@@ -969,31 +1138,31 @@ def onet_phase(dev, kernels, fused_mod, build_info, frames: int = DEEPSDF_FRAMES
     ate = float(np.sqrt(((ts - gt) ** 2).sum(1).mean()))
     tracked = len(ts) - 1
     fusions = -(-len(ts) // int(cfg["integrate_interval"]))
-    line = {"phase": "onet_track", "frames": len(ts), "chunk": CHUNK,
+    line = {"phase": f"{label}_track", "frames": len(ts), "chunk": CHUNK,
             "ms_per_frame": run["ms_per_frame"], "run_s": run["run_s"],
             "loop_passes": passes, "gn_passes_per_frame": sum(passes) / max(tracked, 1),
             "launches": {k: v for k, v in counts.items()
-                         if "decode" in k or "window" in k or "cbn" in k},
+                         if "decode" in k or "window" in k or k in COND_COUNTERS},
             "fusions": fusions, "cond_rows": system.tracker.cond.cond_rows() - rows0,
             "ate_rmse_m": ate, "n_occupied": int(system.state.n_occupied)}
     emit(line)
     stray = {k: v for k, v in counts.items()
-             if k.startswith("decode") and k != "decode_grad_cbn" and v}
+             if (k.startswith("decode") or k in COND_COUNTERS) and k not in (grad, cond) and v}
     if stray:
-        fail(f"onet track: another decoder's launches: {counts}")
-    if counts.get("decode_grad_cbn", 0) < 2 * tracked:
-        fail(f"onet track: {counts.get('decode_grad_cbn', 0)} kernel-1 launches "
+        fail(f"{label} track: another decoder's launches: {counts}")
+    if counts.get(grad, 0) < 2 * tracked:
+        fail(f"{label} track: {counts.get(grad, 0)} kernel-1 launches "
              f"for {tracked} tracked frames")
-    if counts.get("cbn_cond", 0) != fusions:
-        fail(f"onet track: {counts.get('cbn_cond', 0)} conditionings for {fusions} fusions")
-    if not ate <= ONET_MAX_ATE:
-        fail(f"onet track: ATE {ate:.4f} m > {ONET_MAX_ATE} m")
-    next(k for k in kernels if k["name"] == "decode_grad_cbn")["launches_onet_track"] = \
-        counts.get("decode_grad_cbn", 0)
-    next(k for k in kernels if k["name"] == "cbn_cond")["launches_onet_track"] = \
-        counts.get("cbn_cond", 0)
-    next(k for k in kernels if k["name"] == "decode_fwd_cbn")["launches_onet_export"] = \
-        exports["lrkt-onet"]["launches"].get("decode_fwd_cbn", 0)
+    if counts.get(cond, 0) != fusions:
+        fail(f"{label} track: {counts.get(cond, 0)} conditionings for {fusions} fusions")
+    if not ate <= fam["max_ate"]:
+        fail(f"{label} track: ATE {ate:.4f} m > {fam['max_ate']} m")
+    next(k for k in kernels if k["name"] == grad)[f"launches_{label}_track"] = \
+        counts.get(grad, 0)
+    next(k for k in kernels if k["name"] == cond)[f"launches_{label}_track"] = \
+        counts.get(cond, 0)
+    next(k for k in kernels if k["name"] == fwd)[f"launches_{label}_export"] = \
+        exports[cfg["name"]]["launches"].get(fwd, 0)
 
 
 # kernel 2's edge shapes: (H, W, window).  The 32 x 4R tile's edges (whole
@@ -3044,8 +3213,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _build.reset_launch_counts()
-    onet_phase(dev, kernels, fused_mod, info)
+    cond_phase(dev, kernels, fused_mod, info, "onet")
     kernels[4]["launches_onet"] = _build.launch_counts().get("decode_fwd_bf16", 0)
+
+    # ---- pigan: the pigan_film kernels, the export and tracking under pi-GAN's decoder ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    cond_phase(dev, kernels, fused_mod, info, "pigan")
+    kernels[4]["launches_pigan"] = _build.launch_counts().get("decode_fwd_bf16", 0)
 
     # kernel 3's bf16 mode is on no path: every phase's count must be 0
     stray = {key: n for key, n in kernels[4].items() if key.startswith("launches") and n}

@@ -298,8 +298,8 @@ def gather_slot_rel(cfg: MapConfig, state: MapState, xyz: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`gather_latent_rel` with each point's latent slot in place of
     its latent: (slot (N,) int32, 0 where the point is invalid, rel (N, 3),
-    valid (N,)), for a decoder that reads a per-slot table (onet_cbn's
-    conditioning)."""
+    valid (N,)), for a decoder that reads a per-slot table (onet_cbn's and
+    pigan_film's conditioning)."""
     pn, cell, inside, slot, slot_safe = _voxel_lookup(cfg, state, xyz)
     valid = inside & (slot >= 0) & (aug_table[slot_safe, -1] > cfg.ignore_count_th)
     rel = pn - cell.to(pn.dtype) - 0.5

@@ -54,8 +54,8 @@ Spans (:mod:`..utils.tracing`), one set for both backends: ``mesh.extract``
 (its item the extractor's extract number) holds ``mesh.prep`` (1; its count
 read and its download are the device waits ``mesh.prep.sync``),
 ``mesh.grid`` (the batch tables, the backend's grid and the blocks' upload),
-``mesh.cond`` (an onet_cbn decoder's conditioning of the live blocks, once
-an extract), ``mesh.decode`` (the decode dispatches), ``mesh.mc`` a chunk (3)
+``mesh.cond`` (a conditioned decoder's conditioning of the live blocks,
+once an extract), ``mesh.decode`` (the decode dispatches), ``mesh.mc`` a chunk (3)
 and ``mesh.splice`` (4; its count read and downloads, ``mesh.splice.download``,
 a device wait).
 """
@@ -177,18 +177,18 @@ def _decode_lattice(decoder: Decoder, packed: Optional[torch.Tensor],
     return decoder.decode(lat, xyz)
 
 
-def _eval_and_negate_cbn(pack: "_fused.CbnPack", cond: torch.Tensor,
-                         blocks: torch.Tensor, r: int):
-    """:func:`_eval_and_negate` for an onet_cbn decoder: ``cond`` holds the
-    extract's live blocks' conditioning, ``blocks`` (C,) int32 the rows of
-    this dispatch's blocks, each of whose (2r)^3 sites reads its block's
-    row (kernel 3's onet_cbn instance)."""
+def _eval_and_negate_cond(pack: "_fused.CondPack", cond: torch.Tensor,
+                          blocks: torch.Tensor, r: int):
+    """:func:`_eval_and_negate` for a decoder conditioned once a code:
+    ``cond`` holds the extract's live blocks' conditioning, ``blocks`` (C,)
+    int32 the rows of this dispatch's blocks, each of whose (2r)^3 sites
+    reads its block's row (kernel 3's onet_cbn or pigan_film instance)."""
     C = blocks.shape[0]
     lattice = _lattice(r, cond.device)                  # (K, 3)
     K = lattice.shape[0]
     idx = blocks[:, None].expand(C, K).reshape(C * K).contiguous()
     xyz = lattice[None].expand(C, K, 3).reshape(C * K, 3)
-    sdf, std = _fused.decode_fwd_cbn(pack, cond, idx, xyz)
+    sdf, std = _fused.decode_fwd_cond(pack, cond, idx, xyz)
     side = 2 * r
     return (-sdf).reshape(C, side, side, side), std.reshape(C, side, side, side)
 
@@ -355,9 +355,9 @@ class _MeshExtractorBase:
         self.packed = (_fused.pack_fused_decoder(decoder)
                        if _fused.supports_spec(decoder.spec,
                                                decoder.uncertainty.weight.device) else None)
-        if isinstance(self.packed, _fused.CbnPack) and fast:
+        if isinstance(self.packed, _fused.CondPack) and fast:
             raise NotImplementedError("the coarse-to-fine mesher (fast) is not written for "
-                                      "onet_cbn decoders")
+                                      f"{decoder.spec.NAME} decoders")
         self.r = int(voxel_resolution)
         self.max_triangles = int(max_triangles)
         self.interpolate = interpolate
@@ -370,7 +370,7 @@ class _MeshExtractorBase:
         self.last_transfer_bytes = 0
         self.last_stats: dict = {}
         self._n_extracts = 0                  # the mesh.extract spans' item
-        self.cond_rows = 0                    # blocks conditioned (onet_cbn)
+        self.cond_rows = 0                    # blocks conditioned (CondPack)
         self.clear_cache()
 
     # -- cache ---------------------------------------------------------------
@@ -465,13 +465,14 @@ class _MeshExtractorBase:
         starts = range(0, n, C)
         shards = _shard_devices(dev) if self.shard else []
         split = [len(shards) >= 2 and min(C, n - s0) % len(shards) == 0 for s0 in starts]
-        # what a dispatch's blocks read: the latent table by slot, or (onet_cbn)
-        # the live blocks' conditioning, made once an extract, by block
-        cbn = isinstance(self.packed, _fused.CbnPack)
+        # what a dispatch's blocks read: the latent table by slot, or (a
+        # conditioned family) the live blocks' conditioning, made once an
+        # extract, by block
+        conditioned = isinstance(self.packed, _fused.CondPack)
         table, order = state.latents, slot_pad_d
-        if cbn:
+        if conditioned:
             s = tracing.begin("mesh.cond") if tracing.ON else -1
-            table = _fused.cbn_condition(self.packed, state.latents[slots_d.long()].contiguous())
+            table = _fused.condition(self.packed, state.latents[slots_d.long()].contiguous())
             order = torch.arange(n, dtype=torch.int32, device=dev)
             self.cond_rows += n
             if s >= 0:
@@ -483,8 +484,8 @@ class _MeshExtractorBase:
         s = tracing.begin("mesh.decode") if tracing.ON else -1
 
         def decode(decoder, packed, table, chunk):
-            if cbn:
-                return _eval_and_negate_cbn(packed, table, chunk, self.r)
+            if conditioned:
+                return _eval_and_negate_cond(packed, table, chunk, self.r)
             if self.fast:
                 return _eval_and_negate_fast(decoder, packed, table, chunk, self.r,
                                              self.refine_k)
@@ -516,7 +517,7 @@ class _MeshExtractorBase:
                                decode_instance=_fused.instance_name(
                                    self.packed, state.latents.shape[1], dev),
                                decoded_blocks=cube_sdf.shape[0],
-                               conditioned_blocks=n if cbn else 0,
+                               conditioned_blocks=n if conditioned else 0,
                                decode_dispatches=len(starts),
                                decode_devices=len(shards) if any(split) else 1,
                                mc_chunks=n_chunks,

@@ -10,8 +10,9 @@ a (2w+1)^2 window per pixel for radius-outlier counts and PCA normals
 run the grouped Gauss-Newton schedule over se(3): an SDF term (decoder
 forward + d sdf/d xyz in one kernel, kernel 1, ``ops/decoder_fused.py``, in
 f32 or, under ``sdf_compute_dtype="bfloat16"``, in its bf16 mode; for an
-``onet_cbn`` decoder its instance reading each point's voxel's row of the
-conditioning table :class:`CondTable`; or with ``sdf_fused="off"``
+decoder conditioned once a code (``onet_cbn``, ``pigan_film``) its
+instance reading each point's voxel's row of the conditioning table
+:class:`CondTable`; or with ``sdf_fused="off"``
 autograd through ``Decoder.decode``) and a photometric
 term (the per-pixel bilinear warp, the block-tiled warp of
 ``warp_tiled=True`` or the round-to-nearest warp of ``rgb_bilinear=False``),
@@ -46,9 +47,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.decoder import Decoder, is_cbn
+from ..models.decoder import Decoder, is_conditioned
 from ..ops import compsum, imgproc
-from ..ops.decoder_fused import (CbnPack, cbn_condition, decode_grad_cbn, decode_grad_fused,
+from ..ops.decoder_fused import (CondPack, condition, decode_grad_cond, decode_grad_fused,
                                  pack_fused_decoder, supports_spec)
 from ..ops.imgproc import Intrinsic, Pyramid
 from ..ops.pcproc import point_box_filter
@@ -202,15 +203,18 @@ def resolve_sdf_fused(tcfg: TrackerConfig, spec, device, hash_map: bool = False)
     """Whether the SDF term runs the fused kernel: ``"on"`` (raises on a
     decoder the kernel does not take), ``"off"``, or ``"auto"``: on for a
     CUDA device when the kernel takes the decoder (the JAX package's rule
-    for its TPU, tracker.py:162-174).  An ``onet_cbn`` decoder takes it on
-    the dense map only (``hash_map``: its slot lookup is not written)."""
-    takes = supports_spec(spec, device) and not (hash_map and is_cbn(spec))
+    for its TPU, tracker.py:162-174).  A decoder conditioned once a code
+    takes it on the dense map only (``hash_map``: its slot lookup is not
+    written)."""
+    on_hash = hash_map and is_conditioned(spec)
+    takes = supports_spec(spec, device) and not on_hash
     if tcfg.sdf_fused == "off":
         return False
     if tcfg.sdf_fused == "on":
         if not takes:
             raise ValueError(f"sdf_fused='on' but {spec} is unsupported"
-                             + (" on the hash map" if hash_map and is_cbn(spec) else ""))
+                             + (f" on the hash map (its slot lookup for {spec.NAME} "
+                                "is not written)" if on_hash else ""))
         return True
     return takes and torch.device(device).type == "cuda"
 
@@ -453,18 +457,18 @@ def _sdf_term(map_cfg: M.MapConfig, packed, state: M.MapState,
     kernel in the pack's mode (f32 or bf16): the chain factors
     ``d rel/d x = 1/voxel_size`` and ``d x/d y = R_last`` turn the kernel's
     d sdf/d rel into dr/dy (std is held constant, as the JAX vjp route
-    stop-gradients it).  An onet_cbn pack (:class:`CbnPack`) gathers each
-    point's voxel slot, whose row of ``cond`` (:class:`CondTable`) the
-    kernel reads, in place of its latent.  With ``packed=None``
+    stop-gradients it).  A conditioned family's pack (:class:`CondPack`)
+    gathers each point's voxel slot, whose row of ``cond``
+    (:class:`CondTable`) the kernel reads, in place of its latent.  With ``packed=None``
     (``sdf_fused`` off), the JAX
     package's vjp route (tracker.py:209-235): autograd of
     ``sdf / std.detach()`` with respect to the points through
     ``decoder.decode(..., compute_dtype)``, the latent held constant."""
     y = delta.apply(pts)
-    if isinstance(packed, CbnPack):
+    if isinstance(packed, CondPack):
         x = last.apply(y)
         slot, rel, valid = M.gather_slot_rel(map_cfg, state, x, aug_table)
-        sdf, std, grel = decode_grad_cbn(packed, cond, slot, rel.contiguous())
+        sdf, std, grel = decode_grad_cond(packed, cond, slot, rel.contiguous())
         r = sdf / std
         G = (grel / (std[:, None] * map_cfg.voxel_size)) @ last.R
     elif packed is not None:
@@ -607,7 +611,7 @@ class GNProblem(NamedTuple):
     rgb_weight: torch.Tensor
     packed_bf16: Optional[torch.Tensor] = None   # the bf16 mode's pack
     decoder: Optional[Decoder] = None
-    cond: Optional[torch.Tensor] = None   # an onet_cbn pack's conditioning table
+    cond: Optional[torch.Tensor] = None   # a conditioned pack's table (CondTable)
 
 
 class GNCarry(NamedTuple):
@@ -818,8 +822,8 @@ class TrackProgram:
     def load_state(self, state) -> None:
         """Copy in what tracking reads of the map, unless the program holds
         these very tensors already (a fusion makes new ones; a mesh extract
-        keeps them), and bring an onet_cbn conditioning table up to the
-        state's latents."""
+        keeps them), and bring a conditioning table up to the state's
+        latents."""
         if self.tr.cond is not None:
             self.tr.cond.refresh(state.latents)
         fields = HM.map_module(self.tr.map_cfg).TRACKED_FIELDS
@@ -920,19 +924,22 @@ def world_points(p: ProcessedFrame, pose: Pose
 
 
 class CondTable:
-    """The conditioning of every map slot's latent for an onet_cbn pack:
-    ``table`` (capacity, NC, 2, H), one fixed tensor that the captured
-    programs read.  :meth:`refresh` brings it up to a state's latents: it
+    """The conditioning of every map slot's latent for a conditioned pack:
+    ``table`` (capacity, *row shape), one fixed tensor that the captured
+    programs read (onet_cbn's (NC, 2, H) CBN rows, pigan_film's (NL, 2, H)
+    FiLM rows).  :meth:`refresh` brings it up to a state's latents: it
     conditions the slots whose latent differs from the one their row was
     made from (a fusion's touched slots, an optimizer's result, a loaded
     map), with no host read: the changed slots compact on the device and
-    ``cbn_cond_kernel`` reads their count there.  Its span is ``map.cond``;
-    :meth:`cond_rows` counts the rows conditioned since it was built."""
+    the family's conditioning kernel (``cbn_cond_kernel``,
+    ``film_map_kernel``) reads their count there.  Its span is
+    ``map.cond``; :meth:`cond_rows` counts the rows conditioned since it
+    was built."""
 
-    def __init__(self, pack: CbnPack, capacity: int, device):
+    def __init__(self, pack: CondPack, capacity: int, device):
         lay = pack.layout
         self.pack = pack
-        zero = cbn_condition(pack, torch.zeros(1, lay.L, device=device))
+        zero = condition(pack, torch.zeros(1, lay.L, device=device))
         self.table = zero.expand(capacity, -1, -1, -1).contiguous()
         self.latents = torch.zeros(capacity, lay.L, device=device)
         self._iota = torch.arange(capacity, dtype=torch.int32, device=device)
@@ -951,7 +958,7 @@ class CondTable:
         pos = torch.cumsum(changed, 0, dtype=torch.int32) - 1
         rows = torch.zeros(cap + 1, dtype=torch.int32, device=latents.device).scatter_(
             0, torch.where(changed, pos, cap).long(), self._iota)[:cap]
-        cbn_condition(self.pack, latents.contiguous(), rows, count, out=self.table)
+        condition(self.pack, latents.contiguous(), rows, count, out=self.table)
         self.latents.copy_(latents)
         self._rows += count
         self._src = latents
@@ -996,10 +1003,11 @@ class SDFTracker:
         self.packed_bf16 = (pack_fused_decoder(decoder, torch.bfloat16)
                             if self.sdf_fused and tcfg.sdf_compute_dtype == "bfloat16"
                             else None)
-        # onet_cbn's kernel 1 reads each map slot's conditioning from a table
-        # that follows the map's latents (refreshed where the map changes)
+        # a conditioned family's kernel 1 reads each map slot's conditioning
+        # from a table that follows the map's latents (refreshed where the
+        # map changes)
         self.cond = (CondTable(self.packed, map_cfg.capacity, device)
-                     if isinstance(self.packed, CbnPack) else None)
+                     if isinstance(self.packed, CondPack) else None)
         self.cams = {lvl: level_camera(tcfg, calib, lvl, device)
                      for lvl in range(tcfg.pyramid_levels)}
         self._pose_chunks: list = []      # device (Rs (K, 3, 3), ts (K, 3))

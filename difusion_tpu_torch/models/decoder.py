@@ -20,7 +20,10 @@ the SDF output goes through ``tanh``.  Two forms:
 ``onet_cbn`` (the JAX package has none): Occupancy Networks'
 conditional-batch-norm decoder with DI-Fusion's sdf and std heads, its
 inference form :class:`CbnDecoder` and train form :class:`CbnDecoderTrain`
-(the section below says how).  :func:`init_params`, :func:`train_decoder`
+(the section below says how).  ``pigan_film`` (none either): pi-GAN's
+FiLM-SIREN decoder with the same heads, :class:`FilmDecoder` and
+:class:`FilmDecoderTrain`.  Both condition on each code once
+(:func:`is_conditioned`).  :func:`init_params`, :func:`train_decoder`
 and :func:`inference_decoder` dispatch on the spec's family.
 """
 from __future__ import annotations
@@ -318,6 +321,8 @@ class CbnSpec(NamedTuple):
     hidden: int = 256
     blocks: int = 5
 
+    NAME = ONET_CBN
+
     @property
     def n_cbn(self) -> int:
         """Two conditional batch norms a block, and the head's."""
@@ -339,12 +344,17 @@ def spec_from_hyper(hyper: dict):
         return DecoderSpec.from_hyper(hyper)
     if name == ONET_CBN:
         return CbnSpec.from_hyper(hyper)
+    if name == PIGAN_FILM:
+        return FilmSpec.from_hyper(hyper)
     raise ValueError(f"unknown decoder family network_name={name!r} "
-                     f"(the port has di_decoder and {ONET_CBN})")
+                     f"(the port has di_decoder, {ONET_CBN} and {PIGAN_FILM})")
 
 
-def is_cbn(spec) -> bool:
-    return isinstance(spec, CbnSpec)
+def is_conditioned(spec) -> bool:
+    """Whether the family conditions on each code once (a per-code table the
+    trunk reads by row: onet_cbn's CBN scales and shifts, pigan_film's FiLM
+    frequencies and phases), not on the code as an input."""
+    return isinstance(spec, (CbnSpec, FilmSpec))
 
 
 def init_cbn_params(spec: CbnSpec, generator: torch.Generator) -> Dict[str, Any]:
@@ -525,21 +535,222 @@ class CbnDecoderTrain(nn.Module):
         return sdf, std
 
 
+# ---------------------------------------------------------------------------
+# pigan_film: pi-GAN's FiLM-SIREN decoder
+# ---------------------------------------------------------------------------
+#
+# pi-GAN's generator (Chan et al., CVPR 2021, arXiv:2012.00926;
+# github.com/marcoamonteiro/pi-GAN siren/siren.py: ``CustomMappingNetwork``,
+# ``FiLMLayer``, ``TALLSIREN``) with the code z the voxel's latent:
+#
+#   m = W_3 lrelu(W_2 lrelu(W_1 lrelu(W_0 z + b_0) + b_1) + b_2) + b_3
+#       (L -> MH -> MH -> MH -> 2 NL H, leaky slope 0.2)
+#   f, phi = m[:NL H], m[NL H:];  gamma_i = 15 f_i + 30,  beta_i = phi_i
+#   h_0 = 2 xyz (UniformBoxWarp over one voxel),
+#   h_{i+1} = sin(gamma_i (W_i h_i + b_i) + beta_i)      (i = 0 .. NL-1)
+#   sdf = tanh(fc_out(h_NL)),  std = 0.05 + 0.5 softplus(uncertainty(h_NL))
+#
+# The sdf and std heads are DI-Fusion's probabilistic output in place of
+# pi-GAN's density; its colour branch (and the mapping's ninth slice) is
+# dropped.  The parameter tree: ``mapping[k]`` (k = 0 .. 3), ``film[i]``,
+# ``fc_out``, ``uncertainty``; linears as ``{w (out, in), b}``.
+
+PIGAN_FILM = "pigan_film"
+FILM_LRELU = 0.2
+FILM_FREQ_SCALE, FILM_FREQ_SHIFT = 15.0, 30.0
+FILM_WARP = 2.0          # UniformBoxWarp's 2 / side, the side one voxel
+
+
+class FilmSpec(NamedTuple):
+    """pigan_film's widths: the code (``latent_dim``), the FiLM layers' width
+    (``hidden_dim``) and count, and the mapping network's hidden width."""
+    latent_size: int = 256
+    hidden: int = 256
+    layers: int = 8
+    map_hidden: int = 256
+
+    NAME = PIGAN_FILM
+
+    @property
+    def mod_width(self) -> int:
+        """Floats of one code's modulation: (gamma, beta) of every layer."""
+        return 2 * self.layers * self.hidden
+
+    @classmethod
+    def from_hyper(cls, hyper: dict) -> "FilmSpec":
+        spec = hyper.get("network_specs") or {}
+        return cls(latent_size=int(hyper["code_length"]),
+                   hidden=int(spec.get("hidden_dim", 256)),
+                   layers=int(spec.get("n_layers", 8)),
+                   map_hidden=int(spec.get("mapping_hidden_dim", 256)))
+
+
+def init_film_params(spec: FilmSpec, generator: torch.Generator) -> Dict[str, Any]:
+    """Train-form parameters (numpy f32) drawn from ``generator`` with
+    pi-GAN's initialisation: the FiLM layers after the first and the heads
+    ``frequency_init(25)``, U(+-sqrt(6/fan_in)/25); the first FiLM layer
+    ``first_layer_film_sine_init``, U(+-1/fan_in); the mapping network
+    Kaiming normal for leaky ReLU (a = 0.2, fan_in), its last layer's
+    weights scaled by 0.25; every bias torch's ``Linear`` default, U(-k, k),
+    k = 1/sqrt(fan_in)."""
+    def uniform(shape, k):
+        return ((torch.rand(shape, generator=generator) * 2 - 1) * k).numpy()
+
+    def linear(din, dout, wk=None, wstd=None):
+        w = (torch.randn((dout, din), generator=generator) * wstd).numpy() if wstd is not None \
+            else uniform((dout, din), wk)
+        return {"w": w.astype(np.float32), "b": uniform((dout,), 1.0 / np.sqrt(din))}
+
+    H, L, MH = spec.hidden, spec.latent_size, spec.map_hidden
+    gain = np.sqrt(2.0 / (1.0 + FILM_LRELU ** 2))
+    mapping = [linear(din, dout, wstd=gain / np.sqrt(din))
+               for din, dout in ((L, MH), (MH, MH), (MH, MH), (MH, spec.mod_width))]
+    mapping[-1]["w"] = (mapping[-1]["w"] * 0.25).astype(np.float32)
+    film = [linear(3, H, wk=1.0 / 3)]
+    film += [linear(H, H, wk=np.sqrt(6.0 / H) / 25) for _ in range(spec.layers - 1)]
+    return {"mapping": mapping, "film": film,
+            "fc_out": linear(H, 1, wk=np.sqrt(6.0 / H) / 25),
+            "uncertainty": linear(H, 1, wk=np.sqrt(6.0 / H) / 25)}
+
+
+def _lrelu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, FILM_LRELU)
+
+
+class FilmDecoder(nn.Module):
+    """pigan_film's inference form.  The frequency affine folds into the
+    mapping's last layer: ``map_w`` (NL, 2, H, MH) and ``map_b`` (NL, 2, H)
+    give layer i's gamma (15 W_f + 15 b_f + 30) and beta rows directly
+    (:meth:`modulation`).  :meth:`decode` has :meth:`Decoder.decode`'s
+    interface and maps every row for itself; the kernels map each code
+    once (``ops/decoder_fused``)."""
+
+    def __init__(self, spec: FilmSpec, params: Dict[str, Any]):
+        super().__init__()
+        self.spec = spec
+        H, NL = spec.hidden, spec.layers
+
+        def linear(p):
+            w = _t(p["w"])
+            lin = nn.Linear(w.shape[1], w.shape[0])
+            with torch.no_grad():
+                lin.weight.copy_(w)
+                lin.bias.copy_(_t(p["b"]))
+            return lin
+        self.mapping = nn.ModuleList(linear(p) for p in params["mapping"][:-1])
+        last = params["mapping"][-1]
+        w3 = _t(last["w"]).reshape(2, NL, H, -1).transpose(0, 1)       # (NL, 2, H, MH)
+        b3 = _t(last["b"]).reshape(2, NL, H).transpose(0, 1)           # (NL, 2, H)
+        scale = torch.tensor([FILM_FREQ_SCALE, 1.0])[None, :, None]
+        shift = torch.tensor([FILM_FREQ_SHIFT, 0.0])[None, :, None]
+        self.map_w = nn.Parameter((w3 * scale[..., None]).contiguous())
+        self.map_b = nn.Parameter((b3 * scale + shift).contiguous())
+        self.film = nn.ModuleList(linear(p) for p in params["film"])
+        self.fc_out = linear(params["fc_out"])
+        self.uncertainty = linear(params["uncertainty"])
+        assert len(self.film) == NL and self.map_w.shape[-1] == spec.map_hidden
+        self.requires_grad_(False)
+
+    def modulation(self, codes: torch.Tensor) -> torch.Tensor:
+        """(M, L) codes -> (M, NL, 2, H): every layer's gamma and beta (the
+        table the kernels read)."""
+        a = codes
+        for lin in self.mapping:
+            a = _lrelu(lin(a))
+        NL, H = self.spec.layers, self.spec.hidden
+        return (a @ self.map_w.reshape(NL * 2 * H, -1).T).view(-1, NL, 2, H) + self.map_b
+
+    def trunk(self, xyz: torch.Tensor, mod: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The FiLM layers and heads; ``mod`` (N, NL, 2, H) each row's
+        gamma and beta."""
+        h = FILM_WARP * xyz
+        for i, lin in enumerate(self.film):
+            h = torch.sin(mod[:, i, 0] * lin(h) + mod[:, i, 1])
+        sdf = torch.tanh(self.fc_out(h))[:, 0]
+        std = 0.05 + 0.5 * F.softplus(self.uncertainty(h))[:, 0]
+        return sdf, std
+
+    def decode(self, latent: torch.Tensor, xyz: torch.Tensor,
+               compute_dtype: torch.dtype = torch.float32
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, L), (N, 3) -> sdf (N,), std (N,) in f32, each row mapped from
+        its own latent (differentiable in both)."""
+        if compute_dtype != torch.float32:
+            raise ValueError(f"{PIGAN_FILM} computes in float32 only (its bf16 mode "
+                             f"is not written), not {compute_dtype}")
+        return self.trunk(xyz, self.modulation(latent))
+
+    forward = decode
+
+
+class FilmDecoderTrain(nn.Module):
+    """pigan_film's train form: the parameters by the tree's names
+    (``mapping.3.w``, ``film.0.b``, ``fc_out.w``); the mapping runs once a
+    code and its gamma and beta broadcast over the code's samples."""
+
+    def __init__(self, spec: FilmSpec, params: Dict[str, Any]):
+        super().__init__()
+        self.spec = spec
+
+        def pdict(p):
+            return nn.ParameterDict({k: _param(v) for k, v in p.items()})
+        self.mapping = nn.ModuleList(pdict(p) for p in params["mapping"])
+        self.film = nn.ModuleList(pdict(p) for p in params["film"])
+        self.fc_out = pdict(params["fc_out"])
+        self.uncertainty = pdict(params["uncertainty"])
+
+    def to_params(self) -> Dict[str, Any]:
+        def tree(pd):
+            return {k: v.detach().cpu().numpy().copy() for k, v in pd.items()}
+        return {"mapping": [tree(p) for p in self.mapping], "film": [tree(p) for p in self.film],
+                "fc_out": tree(self.fc_out), "uncertainty": tree(self.uncertainty)}
+
+    def forward(self, codes: torch.Tensor, xyz: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """codes (B, L), xyz (B S, 3), the S samples of code b at rows b S ..
+        (b + 1) S - 1 -> sdf (B S, 1), std (B S, 1)."""
+        B = codes.shape[0]
+        NL, H = self.spec.layers, self.spec.hidden
+
+        def lin(p, v):
+            return v @ p["w"].T + p["b"]
+        a = codes
+        for p in self.mapping[:-1]:
+            a = _lrelu(lin(p, a))
+        f, phi = lin(self.mapping[-1], a).view(B, 2, NL, H).unbind(1)
+        gamma = FILM_FREQ_SCALE * f + FILM_FREQ_SHIFT                  # (B, NL, H)
+        h = FILM_WARP * xyz.reshape(B, -1, 3)
+        for i, p in enumerate(self.film):
+            h = torch.sin(gamma[:, None, i] * lin(p, h) + phi[:, None, i])
+        h = h.reshape(-1, H)
+        sdf = torch.tanh(lin(self.fc_out, h))
+        std = 0.05 + 0.5 * F.softplus(lin(self.uncertainty, h))
+        return sdf, std
+
+
 def init_params(spec, generator: torch.Generator) -> Dict[str, Any]:
     """A fresh train-form tree of the spec's family."""
-    if is_cbn(spec):
+    if isinstance(spec, CbnSpec):
         return init_cbn_params(spec, generator)
+    if isinstance(spec, FilmSpec):
+        return init_film_params(spec, generator)
     return init_decoder_params(spec, generator)
 
 
 def train_decoder(spec, params: Dict[str, Any]) -> nn.Module:
     """The train form of the spec's family over a parameter tree."""
-    return CbnDecoderTrain(spec, params) if is_cbn(spec) else DecoderTrain(spec, params)
+    if isinstance(spec, CbnSpec):
+        return CbnDecoderTrain(spec, params)
+    if isinstance(spec, FilmSpec):
+        return FilmDecoderTrain(spec, params)
+    return DecoderTrain(spec, params)
 
 
 def inference_decoder(spec, params: Dict[str, Any]) -> nn.Module:
     """The inference form of the spec's family from a train-form tree
     (a ``di_decoder``'s weight norm folded; folded trees pass through)."""
-    if is_cbn(spec):
+    if isinstance(spec, CbnSpec):
         return CbnDecoder(spec, params)
+    if isinstance(spec, FilmSpec):
+        return FilmDecoder(spec, params)
     return Decoder(spec, fold_decoder_params(params))

@@ -88,8 +88,8 @@ def from_jax_params(dec_np: Dict[str, Any], enc_np: Dict[str, Any],
                     spec, enc_spec: Optional[EncoderSpec] = None,
                     device="cuda") -> Tuple[Any, Encoder]:
     """Parameter trees (numpy leaves; folded or train form) -> the port's
-    inference decoder of the spec's family (``Decoder`` or ``CbnDecoder``)
-    and :class:`Encoder` on ``device``."""
+    inference decoder of the spec's family (``Decoder``, ``CbnDecoder`` or
+    ``FilmDecoder``) and :class:`Encoder` on ``device``."""
     dev = resolve_device(device)
     enc_spec = enc_spec or EncoderSpec(latent_size=spec.latent_size)
     dec = inference_decoder(spec, dec_np).to(dev)

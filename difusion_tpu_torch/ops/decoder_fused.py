@@ -51,8 +51,14 @@ three kernels of its own (``csrc/decoder_cbn.cu``, the section at the end):
 the conditioning of codes once each (:func:`cbn_condition`, counted as
 ``cbn_cond``), and kernels 1 and 3 over sites that carry a row index into
 that conditioning (:func:`decode_grad_cbn`, :func:`decode_fwd_cbn`, counted
-as ``decode_grad_cbn`` / ``decode_fwd_cbn``); its pack is a type of its own,
-:class:`CbnPack`.  f32 only (3xTF32).
+as ``decode_grad_cbn`` / ``decode_fwd_cbn``).  A ``pigan_film`` decoder
+(pi-GAN's FiLM-SIREN) takes three more (``csrc/decoder_film.cu``): its
+mapping network once a code (:func:`film_map`, ``film_map``) and kernels 1
+and 3 reading each site's frequencies and phases (:func:`decode_grad_film`,
+:func:`decode_fwd_film`, ``decode_grad_film`` / ``decode_fwd_film``).  Both
+families' packs are a :class:`CondPack`, reached through
+:func:`condition`, :func:`decode_grad_cond` and :func:`decode_fwd_cond`.
+f32 only (3xTF32).
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.decoder import Decoder, DecoderSpec, bf16_round, is_cbn
+from ..models.decoder import (FILM_LRELU, Decoder, DecoderSpec, FilmSpec, bf16_round,
+                              is_conditioned)
 from . import _build
 
 LAT, DIN, HID, H2 = 29, 32, 128, 96
@@ -95,13 +102,15 @@ def _is_narrow(spec: DecoderSpec) -> bool:
 
 def supports_spec(spec, device=None) -> bool:
     """Whether the fused kernels take the decoder: the 128-wide one, one of
-    the wide family (:func:`wide_layout`), or an ``onet_cbn`` decoder
-    (:func:`cbn_layout`).  With a CUDA ``device``, a wide or onet_cbn
+    the wide family (:func:`wide_layout`), or a conditioned family's
+    (:func:`cond_layout`).  With a CUDA ``device``, a wide or conditioned
     decoder also needs its compiled instance (``WIDE_INSTANCES``,
-    ``CBN_INSTANCES``); their plain versions run any member on the CPU."""
+    ``CBN_INSTANCES``, ``FILM_INSTANCES``); their plain versions run any
+    member on the CPU."""
     on_card = device is not None and torch.device(device).type == "cuda"
-    if is_cbn(spec):
-        return not on_card or tuple(cbn_layout(spec)) in CBN_INSTANCES
+    if is_conditioned(spec):
+        lay = cond_layout(spec)
+        return not on_card or tuple(lay) in _instances(lay)
     if _is_narrow(spec):
         return True
     lay = wide_layout(spec)
@@ -352,15 +361,15 @@ def pack_fused_decoder(decoder, dtype: torch.dtype = torch.float32):
     decoder's device: (PACKED_SIZE,) for ``dtype`` float32 (3xTF32 products
     at f32 accuracy), (PACKED_SIZE_BF16,) for bfloat16 (the weights rounded
     to bf16 after the fold, biases f32).  A wide decoder: its
-    (:attr:`WideLayout.size`,) f32 pack, f32 only.  An ``onet_cbn``
-    decoder: its :class:`CbnPack`, f32 only."""
+    (:attr:`WideLayout.size`,) f32 pack, f32 only.  A conditioned family's
+    decoder: its :class:`CondPack`, f32 only."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused decoder kernels compute in float32 or bfloat16, not {dtype}")
-    if is_cbn(decoder.spec):
+    if is_conditioned(decoder.spec):
         if dtype != torch.float32:
-            raise ValueError("the onet_cbn kernels compute in float32 (3xTF32) only: "
-                             "its bf16 mode is not written")
-        return _pack_cbn(decoder)
+            raise ValueError(f"the {decoder.spec.NAME} kernels compute in float32 (3xTF32) "
+                             "only: its bf16 mode is not written")
+        return _pack_film(decoder) if isinstance(decoder.spec, FilmSpec) else _pack_cbn(decoder)
     if not _is_narrow(decoder.spec):
         lay = wide_layout(decoder.spec)
         if lay is None:
@@ -527,12 +536,12 @@ def _rows_off(got, zs, masks, grad, atol, rtol, kink, pads=None) -> torch.Tensor
 def instance_name(packed, latent_width: int, device) -> str:
     """The counter kernel 3 counts its launches under on ``device`` for this
     pack (``decode_fused``, ``decode_fwd_bf16``, ``decode_fwd_wide``,
-    ``decode_fwd_cbn``), or ``plain`` where nothing launches (the CPU, or no
-    pack: ``Decoder.decode``)."""
+    ``decode_fwd_cbn``, ``decode_fwd_film``), or ``plain`` where nothing
+    launches (the CPU, or no pack: ``Decoder.decode``)."""
     if packed is None or torch.device(device).type != "cuda":
         return "plain"
-    if isinstance(packed, CbnPack):
-        return "decode_fwd_cbn"
+    if isinstance(packed, CondPack):
+        return "decode_fwd_film" if _is_film(packed) else "decode_fwd_cbn"
     if _wide_of(packed, latent_width) is not None:
         return "decode_fwd_wide"
     return "decode_fwd_bf16" if is_bf16(packed) else "decode_fused"
@@ -577,8 +586,8 @@ def _load(name: str):
     lib = _libs.get(name)
     if lib is None:
         lib = _build.load(name)
-        if name == "decoder_cbn":
-            _type_cbn(lib)
+        if name in ("decoder_cbn", "decoder_film"):
+            _type_cond(lib, name)
             _libs[name] = lib
             return lib
         if name == "decoder_wide":
@@ -658,28 +667,33 @@ def decode_fused(packed: torch.Tensor, latent: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# onet_cbn (csrc/decoder_cbn.cu): the conditioning kernel, kernels 1 and 3
+# Families conditioned once a code (csrc/decoder_cbn.cu, csrc/decoder_film.cu)
 # ---------------------------------------------------------------------------
 #
-# The conditioning depends on the code alone: ``cbn_condition`` turns codes
-# into rows of every CBN's folded (gamma', beta') (``CbnDecoder.condition``),
-# once a code; kernels 1 and 3 take sites with a row index into such a table
-# (``decode_grad_cbn``, ``decode_fwd_cbn``).  The pack (:class:`CbnPack`, a
-# type of its own) holds the plain weights the plain versions read, then
-# the kernels' f32 fragments: the trunk's forward W0_i^T, W1_i^T (i = 0 ..
-# NB-1), its backward W1_i, W0_i (i = NB-1 .. 0), and each CBN's stacked
-# (gamma | beta) map, its columns interleaved eight by eight
-# (:func:`_cond_interleave`) so that a lane holds a column's gamma and beta
-# side by side for the BN fold.
+# onet_cbn and pigan_film condition on each code once: a conditioning kernel
+# turns codes into table rows (onet_cbn's folded CBN (gamma', beta'),
+# pigan_film's FiLM (gamma, beta) from its mapping network), and kernels 1
+# and 3 take sites with a row index into such a table.  Both families' packs
+# are a :class:`CondPack`, a flat buffer and its family's layout, and the
+# tracker and the mesher reach them through :func:`condition`,
+# :func:`decode_grad_cond` and :func:`decode_fwd_cond` alone.
 
 # (code L, hidden H, residual blocks NB) of every instance
 # csrc/decoder_cbn.cu compiles: Occupancy Networks' published widths
 CBN_INSTANCES = ((256, 256, 5),)
+# (code L, hidden H, FiLM layers NL, mapping hidden MH) of every instance
+# csrc/decoder_film.cu compiles: pi-GAN's published widths
+FILM_INSTANCES = ((256, 256, 8, 256),)
 
 
 class CbnLayout(NamedTuple):
     """An onet_cbn pack's widths and segments, as ``csrc/decoder_cbn.cu``'s
-    ``Cbn`` lays them out."""
+    ``Cbn`` lays them out: the plain weights the plain versions read, then
+    the kernels' f32 fragments: the trunk's forward W0_i^T, W1_i^T (i = 0 ..
+    NB-1), its backward W1_i, W0_i (i = NB-1 .. 0), and each CBN's stacked
+    (gamma | beta) map, its columns interleaved eight by eight
+    (:func:`_cond_interleave`) so that a lane holds a column's gamma and
+    beta side by side for the BN fold."""
     L: int
     H: int
     NB: int
@@ -689,9 +703,9 @@ class CbnLayout(NamedTuple):
         return 2 * self.NB + 1
 
     @property
-    def cond_width(self) -> int:
-        """Floats of one code's conditioning: NC x (gamma', beta') x H."""
-        return self.NC * 2 * self.H
+    def row_shape(self) -> Tuple[int, int, int]:
+        """One code's conditioning: (NC, 2, H)."""
+        return (self.NC, 2, self.H)
 
     @property
     def key(self) -> str:
@@ -713,18 +727,75 @@ class CbnLayout(NamedTuple):
         return sum(int(torch.Size(s).numel()) for _, s in self.segments)
 
 
-def cbn_layout(spec) -> CbnLayout:
+class FilmLayout(NamedTuple):
+    """A pigan_film pack's widths and segments, as ``csrc/decoder_film.cu``'s
+    ``Film`` lays them out: ``wp`` (H, 4) is 2 W_0 (the box warp folded)
+    beside b_0; ``m3`` / ``mb3`` the mapping's last layer with the frequency
+    affine folded in, by (layer, gamma | beta); ``frag`` the trunk's W_i^T
+    (i = 1 .. NL-1, the forward's) then its W_i (i = NL-1 .. 1, kernel 1's
+    reverse pass), and ``mfrag`` the mapping's W0^T, W1^T, W2^T and its last
+    layer's 2 NL column blocks, as f32 fragments (:func:`_wide_frag`)."""
+    L: int
+    H: int
+    NL: int
+    MH: int
+
+    @property
+    def row_shape(self) -> Tuple[int, int, int]:
+        """One code's modulation: (NL, 2, H)."""
+        return (self.NL, 2, self.H)
+
+    @property
+    def key(self) -> str:
+        return "_" + "_".join(str(v) for v in self)
+
+    @property
+    def segments(self) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
+        L, H, NL, MH = self
+        segs = [("meta", (4,)), ("wp", (H, 4)), ("wf", (NL - 1, H, H)), ("bf", (NL - 1, H)),
+                ("w_sdf", (H,)), ("w_std", (H,)), ("b_head", (4,)),
+                ("m0", (MH, L)), ("mb0", (MH,)), ("m1", (MH, MH)), ("mb1", (MH,)),
+                ("m2", (MH, MH)), ("mb2", (MH,)), ("m3", (NL, 2, H, MH)), ("mb3", (NL, 2, H))]
+        head = sum(int(torch.Size(s).numel()) for _, s in segs)
+        return tuple(segs) + (("pad", (-head % 4,)), ("frag", (2 * (NL - 1) * H * H,)),
+                              ("mfrag", (L * MH + 2 * MH * MH + MH * NL * 2 * H,)))
+
+    @property
+    def size(self) -> int:
+        return sum(int(torch.Size(s).numel()) for _, s in self.segments)
+
+
+def cond_layout(spec):
+    """The layout of a conditioned family's spec: :class:`CbnLayout` or
+    :class:`FilmLayout`."""
+    if isinstance(spec, FilmSpec):
+        return FilmLayout(spec.latent_size, spec.hidden, spec.layers, spec.map_hidden)
     return CbnLayout(spec.latent_size, spec.hidden, spec.blocks)
 
 
-class CbnPack(NamedTuple):
-    """onet_cbn's packed weights: the flat f32 buffer (``layout.size``) on
-    the decoder's device, and its layout."""
-    flat: torch.Tensor
-    layout: CbnLayout
+def _instances(lay) -> Tuple[tuple, ...]:
+    return FILM_INSTANCES if isinstance(lay, FilmLayout) else CBN_INSTANCES
 
-    def to(self, device) -> "CbnPack":
-        return CbnPack(self.flat.to(device), self.layout)
+
+class CondPack(NamedTuple):
+    """A conditioned family's packed weights: the flat f32 buffer
+    (``layout.size``) on the decoder's device, and its layout
+    (:class:`CbnLayout` or :class:`FilmLayout`)."""
+    flat: torch.Tensor
+    layout: object
+
+    def to(self, device) -> "CondPack":
+        return CondPack(self.flat.to(device), self.layout)
+
+
+def unpack_cond(pack: CondPack) -> Dict[str, torch.Tensor]:
+    """Views of a conditioned pack's segments by name."""
+    out, off = {}, 0
+    for name, shape in pack.layout.segments:
+        size = int(torch.Size(shape).numel())
+        out[name] = pack.flat[off:off + size].view(shape)
+        off += size
+    return out
 
 
 def _cond_interleave(m: torch.Tensor) -> torch.Tensor:
@@ -735,8 +806,8 @@ def _cond_interleave(m: torch.Tensor) -> torch.Tensor:
     return m.reshape(2, H // 8, 8, L).permute(3, 1, 0, 2).reshape(L, 2 * H)
 
 
-def _pack_cbn(decoder) -> CbnPack:
-    lay = cbn_layout(decoder.spec)
+def _pack_cbn(decoder) -> CondPack:
+    lay = CbnLayout(*cond_layout(decoder.spec))
     dev = decoder.fc_p.weight.device
 
     def w(lin):
@@ -767,24 +838,14 @@ def _pack_cbn(decoder) -> CbnPack:
                                 for j in range(lay.NC)])
     flat = torch.cat([parts[name].contiguous().reshape(-1) for name, _ in lay.segments])
     assert flat.numel() == lay.size
-    return CbnPack(flat, lay)
+    return CondPack(flat, lay)
 
 
-def unpack_cbn(pack: CbnPack) -> Dict[str, torch.Tensor]:
-    """Views of an onet_cbn pack's segments by name."""
-    out, off = {}, 0
-    for name, shape in pack.layout.segments:
-        size = int(torch.Size(shape).numel())
-        out[name] = pack.flat[off:off + size].view(shape)
-        off += size
-    return out
-
-
-def cbn_condition_plain(pack: CbnPack, codes: torch.Tensor) -> torch.Tensor:
+def cbn_condition_plain(pack: CondPack, codes: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the conditioning kernel: (M, L) codes ->
     (M, NC, 2, H), gamma' = (W_g c + b_g) s, beta' = (W_g c + b_g) t +
     (W_b c + b_b)."""
-    p, lay = unpack_cbn(pack), pack.layout
+    p, lay = unpack_cond(pack), pack.layout
     raw = (codes @ p["cw"].reshape(-1, lay.L).T).view(-1, lay.NC, 2, lay.H) + p["cb"]
     g, b = raw[:, :, 0], raw[:, :, 1]
     return torch.stack([g * p["bn_s"], g * p["bn_t"] + b], dim=2)
@@ -833,54 +894,155 @@ def _cbn_grad(p: Dict[str, torch.Tensor], lay: CbnLayout, gb, masks,
     return dn @ p["wp"][:, :3]
 
 
-def decode_fwd_cbn_plain(pack: CbnPack, cond: torch.Tensor, idx: torch.Tensor,
+def decode_fwd_cbn_plain(pack: CondPack, cond: torch.Tensor, idx: torch.Tensor,
                          rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 3's onet_cbn instance."""
-    *_, sdf, std = _cbn_forward(unpack_cbn(pack), pack.layout, cond, idx, rel)
+    *_, sdf, std = _cbn_forward(unpack_cond(pack), pack.layout, cond, idx, rel)
     return sdf, std
 
 
-def decode_grad_cbn_plain(pack: CbnPack, cond: torch.Tensor, idx: torch.Tensor,
+def decode_grad_cbn_plain(pack: CondPack, cond: torch.Tensor, idx: torch.Tensor,
                           rel: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 1's onet_cbn instance."""
-    p, lay = unpack_cbn(pack), pack.layout
+    p, lay = unpack_cond(pack), pack.layout
     vs, gb, sdf, std = _cbn_forward(p, lay, cond, idx, rel)
     return sdf, std, _cbn_grad(p, lay, gb, [v > 0 for v in vs], sdf)
 
 
-def cbn_grad_rows_off(got: torch.Tensor, pack: CbnPack, cond: torch.Tensor,
+def cbn_grad_rows_off(got: torch.Tensor, pack: CondPack, cond: torch.Tensor,
                       idx: torch.Tensor, rel: torch.Tensor, atol: float = 1e-4,
                       rtol: float = 1e-4, kink: float = 1e-5) -> torch.Tensor:
     """:func:`grad_rows_off` for kernel 1's onet_cbn instance: the rows where
     ``got`` is off the plain gradient, but for a row whose nearest relu
     preactivation lies within ``kink`` of 0 and that matches the other
     one-sided derivative (that unit's mask flipped)."""
-    p, lay = unpack_cbn(pack), pack.layout
+    p, lay = unpack_cond(pack), pack.layout
     vs, gb, sdf, _ = _cbn_forward(p, lay, cond, idx, rel)
     return _rows_off(got, vs, [v > 0 for v in vs],
                      lambda masks: _cbn_grad(p, lay, gb, masks, sdf), atol, rtol, kink)
 
 
-def _type_cbn(lib) -> None:
+def _pack_film(decoder) -> CondPack:
+    lay = cond_layout(decoder.spec)
+    dev = decoder.fc_out.weight.device
+
+    def w(lin):
+        return lin.weight.detach().float()
+
+    def b(lin):
+        return lin.bias.detach().float()
+    film, mp = decoder.film, decoder.mapping
+    parts = {
+        "meta": torch.tensor(list(lay), dtype=torch.float32, device=dev),
+        # the box warp's 2 is exact in f32: folded into W_0
+        "wp": torch.cat([2.0 * w(film[0]), b(film[0])[:, None]], dim=1),
+        "wf": torch.stack([w(x) for x in film[1:]]),
+        "bf": torch.stack([b(x) for x in film[1:]]),
+        "w_sdf": w(decoder.fc_out)[0], "w_std": w(decoder.uncertainty)[0],
+        "b_head": torch.cat([b(decoder.fc_out), b(decoder.uncertainty),
+                             torch.zeros(2, device=dev)]),
+        "m0": w(mp[0]), "mb0": b(mp[0]), "m1": w(mp[1]), "mb1": b(mp[1]),
+        "m2": w(mp[2]), "mb2": b(mp[2]),
+        "m3": decoder.map_w.detach().float(), "mb3": decoder.map_b.detach().float(),
+    }
+    parts["pad"] = torch.zeros(dict(lay.segments)["pad"], device=dev)
+    parts["frag"] = torch.cat(
+        [_wide_frag(m.T.contiguous()).reshape(-1) for m in parts["wf"]]
+        + [_wide_frag(m.contiguous()).reshape(-1) for m in parts["wf"].flip(0)])
+    parts["mfrag"] = torch.cat(
+        [_wide_frag(parts[k].T.contiguous()).reshape(-1) for k in ("m0", "m1", "m2")]
+        + [_wide_frag(parts["m3"][i, c].T.contiguous()).reshape(-1)
+           for i in range(lay.NL) for c in range(2)])
+    flat = torch.cat([parts[name].contiguous().reshape(-1) for name, _ in lay.segments])
+    assert flat.numel() == lay.size
+    return CondPack(flat, lay)
+
+
+def film_map_plain(pack: CondPack, codes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the mapping kernel: (M, L) codes -> (M, NL,
+    2, H), each layer's gamma (the frequency affine folded) and beta."""
+    p, lay = unpack_cond(pack), pack.layout
+    a = codes
+    for k in range(3):
+        a = F.leaky_relu(a @ p[f"m{k}"].T + p[f"mb{k}"], FILM_LRELU)
+    return (a @ p["m3"].reshape(-1, lay.MH).T).view(-1, *lay.row_shape) + p["mb3"]
+
+
+def _film_layers(p: Dict[str, torch.Tensor], lay: FilmLayout, mod: torch.Tensor,
+                 idx: torch.Tensor, rel: torch.Tensor, stage: bool):
+    """The trunk written out as the kernels compute it: (h_NL, and with
+    ``stage`` each layer's gamma cos(a), which kernel 1 stages for its
+    reverse pass)."""
+    rows = idx.long()
+    z = rel @ p["wp"][:, :3].T + p["wp"][:, 3]
+    staged = []
+    for i in range(lay.NL):
+        if i:
+            z = h @ p["wf"][i - 1].T + p["bf"][i - 1]
+        gamma = mod[rows, i, 0]
+        a = gamma * z + mod[rows, i, 1]
+        h = torch.sin(a)
+        if stage:
+            staged.append(gamma * torch.cos(a))
+    return h, staged
+
+
+def _film_heads(p, h):
+    sdf = torch.tanh(h @ p["w_sdf"] + p["b_head"][0])
+    std = 0.05 + 0.5 * F.softplus(h @ p["w_std"] + p["b_head"][1])
+    return sdf, std
+
+
+def decode_fwd_film_plain(pack: CondPack, mod: torch.Tensor, idx: torch.Tensor,
+                          rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 3's pigan_film instance."""
+    p = unpack_cond(pack)
+    h, _ = _film_layers(p, pack.layout, mod, idx, rel, False)
+    return _film_heads(p, h)
+
+
+def decode_grad_film_plain(pack: CondPack, mod: torch.Tensor, idx: torch.Tensor,
+                           rel: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 1's pigan_film instance: the forward
+    with each layer's gamma cos(a) kept, then the reverse pass dh_NL = (1 -
+    sdf^2) w_sdf, dh_i = (dh_{i+1} gamma_i cos(a_i)) W_i, d sdf / d xyz =
+    (dh_1 gamma_0 cos(a_0)) W0'."""
+    p = unpack_cond(pack)
+    h, staged = _film_layers(p, pack.layout, mod, idx, rel, True)
+    sdf, std = _film_heads(p, h)
+    dh = (1.0 - sdf * sdf)[:, None] * p["w_sdf"]
+    for i in range(pack.layout.NL - 1, 0, -1):
+        dh = (dh * staged[i]) @ p["wf"][i - 1]
+    return sdf, std, (dh * staged[0]) @ p["wp"][:, :3]
+
+
+def _type_cond(lib, name: str) -> None:
     """Check each compiled instance's pack size and type its entry points."""
-    for inst in CBN_INSTANCES:
-        lay = CbnLayout(*inst)
-        if getattr(lib, f"cbn_packed_size{lay.key}")() != lay.size:
-            raise RuntimeError("decoder_cbn.cu packed layout disagrees with ops/decoder_fused.py")
-        for entry, n_ptr in (("cbn_cond_launch", 5), ("decode_grad_cbn_launch", 7),
-                             ("decode_fwd_cbn_launch", 6)):
+    fam, entries, size_fn, lay_of = (
+        ("film", (("film_map_launch", 5), ("decode_grad_film_launch", 8),
+                  ("decode_fwd_film_launch", 6)), "film_packed_size", FilmLayout)
+        if name == "decoder_film" else
+        ("cbn", (("cbn_cond_launch", 5), ("decode_grad_cbn_launch", 7),
+                 ("decode_fwd_cbn_launch", 6)), "cbn_packed_size", CbnLayout))
+    for inst in (FILM_INSTANCES if fam == "film" else CBN_INSTANCES):
+        lay = lay_of(*inst)
+        if getattr(lib, f"{size_fn}{lay.key}")() != lay.size:
+            raise RuntimeError(f"{name}.cu packed layout disagrees with ops/decoder_fused.py")
+        for entry, n_ptr in entries:
             fn = getattr(lib, f"{entry}{lay.key}")
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
 
 
-def _cbn_entry(pack: CbnPack, entry: str, what: str):
+def _cond_entry(pack: CondPack, entry: str, what: str):
     lay = pack.layout
-    if tuple(lay) not in CBN_INSTANCES:
-        raise ValueError(f"{what}: no compiled onet_cbn instance for {lay}; add it to "
-                         "csrc/decoder_cbn.cu and CBN_INSTANCES")
-    return getattr(_load("decoder_cbn"), f"{entry}{lay.key}")
+    lib = "decoder_film" if isinstance(lay, FilmLayout) else "decoder_cbn"
+    if tuple(lay) not in _instances(lay):
+        raise ValueError(f"{what}: no compiled instance for {lay}; add it to "
+                         f"csrc/{lib}.cu and its instances")
+    return getattr(_load(lib), f"{entry}{lay.key}")
 
 
 def _check_cuda(what: str, dev, named) -> None:
@@ -893,7 +1055,38 @@ def _check_cuda(what: str, dev, named) -> None:
                              f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def cbn_condition(pack: CbnPack, codes: torch.Tensor, rows: Optional[torch.Tensor] = None,
+def _condition(counter: str, entry: str, plain, pack: CondPack, codes: torch.Tensor,
+               rows: Optional[torch.Tensor], count: Optional[torch.Tensor],
+               out: Optional[torch.Tensor]) -> torch.Tensor:
+    lay = pack.layout
+    M = codes.shape[0]
+    if out is None:
+        out = torch.empty(M, *lay.row_shape, device=codes.device)
+    if not codes.is_cuda:
+        sel = torch.arange(M, device=codes.device) if rows is None else rows.long()
+        if count is not None:
+            sel = sel[:int(count)]
+        out[sel] = plain(pack, codes[sel])
+        return out
+    n = M if rows is None else rows.shape[0]
+    _check_cuda(counter, codes.device, [("codes", codes, torch.float32, (M, lay.L)),
+                                        ("packed", pack.flat, torch.float32, (lay.size,)),
+                                        ("out", out, torch.float32,
+                                         (out.shape[0],) + lay.row_shape)]
+                + ([("rows", rows, torch.int32, (n,))] if rows is not None else [])
+                + ([("count", count, torch.int32, ())] if count is not None else []))
+    if n:
+        fn = _cond_entry(pack, entry, counter)
+        err = _build.launch_on(codes.device.index, fn, codes.data_ptr(),
+                               None if rows is None else rows.data_ptr(),
+                               None if count is None else count.data_ptr(),
+                               pack.flat.data_ptr(), out.data_ptr(), n)
+        _build.check(err, counter)
+        _build.count_launch(counter)
+    return out
+
+
+def cbn_condition(pack: CondPack, codes: torch.Tensor, rows: Optional[torch.Tensor] = None,
                   count: Optional[torch.Tensor] = None,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The conditioning of codes (M, L) into ``out`` (M', NC, 2, H) (a new
@@ -902,39 +1095,26 @@ def cbn_condition(pack: CbnPack, codes: torch.Tensor, rows: Optional[torch.Tenso
     every row without ``rows``.  CUDA tensors launch ``cbn_cond_kernel``
     (no host read of ``count``); CPU tensors run
     :func:`cbn_condition_plain`."""
-    lay = pack.layout
-    M = codes.shape[0]
-    if out is None:
-        out = torch.empty(M, lay.NC, 2, lay.H, device=codes.device)
-    if not codes.is_cuda:
-        sel = torch.arange(M, device=codes.device) if rows is None else rows.long()
-        if count is not None:
-            sel = sel[:int(count)]
-        out[sel] = cbn_condition_plain(pack, codes[sel])
-        return out
-    what = "cbn_condition"
-    n = M if rows is None else rows.shape[0]
-    _check_cuda(what, codes.device, [("codes", codes, torch.float32, (M, lay.L)),
-                                     ("packed", pack.flat, torch.float32, (lay.size,)),
-                                     ("out", out, torch.float32, (out.shape[0], lay.NC, 2, lay.H))]
-                + ([("rows", rows, torch.int32, (n,))] if rows is not None else [])
-                + ([("count", count, torch.int32, ())] if count is not None else []))
-    if n:
-        fn = _cbn_entry(pack, "cbn_cond_launch", what)
-        err = _build.launch_on(codes.device.index, fn, codes.data_ptr(),
-                               None if rows is None else rows.data_ptr(),
-                               None if count is None else count.data_ptr(),
-                               pack.flat.data_ptr(), out.data_ptr(), n)
-        _build.check(err, "cbn_cond")
-        _build.count_launch("cbn_cond")
-    return out
+    return _condition("cbn_cond", "cbn_cond_launch", cbn_condition_plain, pack, codes, rows,
+                      count, out)
 
 
-def _cbn_decode(entry: str, name: str, n_out: int, pack: CbnPack, cond: torch.Tensor,
-                idx: torch.Tensor, rel: torch.Tensor):
+def film_map(pack: CondPack, codes: torch.Tensor, rows: Optional[torch.Tensor] = None,
+             count: Optional[torch.Tensor] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`cbn_condition` for pigan_film: the mapping network of codes (M,
+    L) into rows of (NL, 2, H).  CUDA tensors launch ``film_map_kernel``
+    (counted as ``film_map``); CPU tensors run :func:`film_map_plain`."""
+    return _condition("film_map", "film_map_launch", film_map_plain, pack, codes, rows, count,
+                      out)
+
+
+def _cond_decode(entry: str, name: str, n_out: int, pack: CondPack, cond: torch.Tensor,
+                 idx: torch.Tensor, rel: torch.Tensor, scratch_floats: int = 0):
     lay = pack.layout
     n = idx.shape[0]
-    _check_cuda(name, rel.device, [("cond", cond, torch.float32, (cond.shape[0], lay.NC, 2, lay.H)),
+    _check_cuda(name, rel.device, [("cond", cond, torch.float32,
+                                    (cond.shape[0],) + lay.row_shape),
                                    ("idx", idx, torch.int32, (n,)),
                                    ("rel", rel, torch.float32, (n, 3)),
                                    ("packed", pack.flat, torch.float32, (lay.size,))])
@@ -946,16 +1126,18 @@ def _cbn_decode(entry: str, name: str, n_out: int, pack: CbnPack, cond: torch.Te
     outs = (torch.empty(n, device=rel.device), torch.empty(n, device=rel.device),
             torch.empty(n, 3, device=rel.device))[:n_out]
     if n:
-        fn = _cbn_entry(pack, entry, name)
+        fn = _cond_entry(pack, entry, name)
+        scratch = ((torch.empty(scratch_floats, device=rel.device).data_ptr(),)
+                   if scratch_floats else ())
         err = _build.launch_on(rel.device.index, fn, cond.data_ptr(), idx.data_ptr(),
-                               rel.data_ptr(), pack.flat.data_ptr(),
+                               rel.data_ptr(), pack.flat.data_ptr(), *scratch,
                                *(o.data_ptr() for o in outs), n)
         _build.check(err, name)
         _build.count_launch(name)
     return outs
 
 
-def decode_grad_cbn(pack: CbnPack, cond: torch.Tensor, idx: torch.Tensor,
+def decode_grad_cbn(pack: CondPack, cond: torch.Tensor, idx: torch.Tensor,
                     rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sites (N,) with a row ``idx`` (int32) of the conditioning ``cond``
     (M, NC, 2, H) and voxel-local xyz (N, 3) -> sdf (N,), std (N,), d sdf /
@@ -963,13 +1145,62 @@ def decode_grad_cbn(pack: CbnPack, cond: torch.Tensor, idx: torch.Tensor,
     ``decode_grad_cbn``); CPU tensors run :func:`decode_grad_cbn_plain`."""
     if not rel.is_cuda:
         return decode_grad_cbn_plain(pack, cond, idx, rel)
-    return _cbn_decode("decode_grad_cbn_launch", "decode_grad_cbn", 3, pack, cond, idx, rel)
+    return _cond_decode("decode_grad_cbn_launch", "decode_grad_cbn", 3, pack, cond, idx, rel)
 
 
-def decode_fwd_cbn(pack: CbnPack, cond: torch.Tensor, idx: torch.Tensor,
+def decode_fwd_cbn(pack: CondPack, cond: torch.Tensor, idx: torch.Tensor,
                    rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`decode_grad_cbn` without the gradient: ``decode_fwd_kernel_cbn``
     (counted as ``decode_fwd_cbn``) or :func:`decode_fwd_cbn_plain`."""
     if not rel.is_cuda:
         return decode_fwd_cbn_plain(pack, cond, idx, rel)
-    return _cbn_decode("decode_fwd_cbn_launch", "decode_fwd_cbn", 2, pack, cond, idx, rel)
+    return _cond_decode("decode_fwd_cbn_launch", "decode_fwd_cbn", 2, pack, cond, idx, rel)
+
+
+def decode_grad_film(pack: CondPack, mod: torch.Tensor, idx: torch.Tensor,
+                     rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`decode_grad_cbn` for pigan_film, ``mod`` (M, NL, 2, H) the
+    modulation rows: ``decode_grad_kernel_film`` (counted as
+    ``decode_grad_film``; its scratch, each 64-point block's gamma cos(a) of
+    every layer, ceil(N / 64) NL H 64 floats, allocated here) or
+    :func:`decode_grad_film_plain`."""
+    if not rel.is_cuda:
+        return decode_grad_film_plain(pack, mod, idx, rel)
+    lay = pack.layout
+    return _cond_decode("decode_grad_film_launch", "decode_grad_film", 3, pack, mod, idx, rel,
+                        scratch_floats=-(-idx.shape[0] // 64) * lay.NL * lay.H * 64)
+
+
+def decode_fwd_film(pack: CondPack, mod: torch.Tensor, idx: torch.Tensor,
+                    rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_grad_film` without the gradient: ``decode_fwd_kernel_film``
+    (counted as ``decode_fwd_film``) or :func:`decode_fwd_film_plain`."""
+    if not rel.is_cuda:
+        return decode_fwd_film_plain(pack, mod, idx, rel)
+    return _cond_decode("decode_fwd_film_launch", "decode_fwd_film", 2, pack, mod, idx, rel)
+
+
+def _is_film(pack: CondPack) -> bool:
+    return isinstance(pack.layout, FilmLayout)
+
+
+def condition(pack: CondPack, codes: torch.Tensor, rows: Optional[torch.Tensor] = None,
+              count: Optional[torch.Tensor] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A conditioned family's table rows of codes: :func:`cbn_condition` or
+    :func:`film_map` (the same arguments)."""
+    return (film_map if _is_film(pack) else cbn_condition)(pack, codes, rows, count, out)
+
+
+def decode_grad_cond(pack: CondPack, cond: torch.Tensor, idx: torch.Tensor,
+                     rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 1 of a conditioned family: :func:`decode_grad_cbn` or
+    :func:`decode_grad_film`."""
+    return (decode_grad_film if _is_film(pack) else decode_grad_cbn)(pack, cond, idx, rel)
+
+
+def decode_fwd_cond(pack: CondPack, cond: torch.Tensor, idx: torch.Tensor,
+                    rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 3 of a conditioned family: :func:`decode_fwd_cbn` or
+    :func:`decode_fwd_film`."""
+    return (decode_fwd_film if _is_film(pack) else decode_fwd_cbn)(pack, cond, idx, rel)

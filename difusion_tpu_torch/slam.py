@@ -394,7 +394,8 @@ class SLAMSystem:
         if self.latent_optimize:
             self._optimize(w_pts, w_nrm, w_mask)
         if self.tracker.cond is not None:
-            # the fused slots' conditioning (onet_cbn), here inside slam.fuse
+            # the fused slots' conditioning (a conditioned family), here inside
+            # slam.fuse
             self.tracker.cond.refresh(self.state.latents)
 
     def _take_pending(self) -> tuple:

@@ -118,7 +118,7 @@ def _full_rows(state) -> Dict[str, int]:
     each layer's output width (the std head's 1).  di_decoder only."""
     if not hasattr(state.dec.spec, "layer_dims"):
         raise NotImplementedError(f"{type(state.dec).__name__} has no tensor-parallel "
-                                  "layout (onet_cbn trains in one process)")
+                                  f"layout ({state.dec.spec.NAME} trains in one process)")
     _, outs = state.dec.spec.layer_dims()
     rows = {}
     for i, layer in enumerate(state.dec.layers):

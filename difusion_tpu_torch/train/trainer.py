@@ -46,8 +46,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models import weights
-from ..models.decoder import (CbnDecoderTrain, init_params, is_cbn, spec_from_hyper,
-                              train_decoder)
+from ..models.decoder import init_params, is_conditioned, spec_from_hyper, train_decoder
 from ..models.encoder import EncoderSpec, EncoderTrain, init_encoder_params
 from ..utils.adam import adam_step, bias_corrections
 from ..utils.meters import LossMeter
@@ -64,7 +63,7 @@ class TrainState(NamedTuple):
     """The decoder and encoder (parameters and BatchNorm buffers on the
     device), Adam's moments by parameter name (``dec.layers.0.g``,
     ``enc.layers.3.b``), and the number of steps taken (a host count)."""
-    dec: torch.nn.Module     # DecoderTrain or CbnDecoderTrain
+    dec: torch.nn.Module     # DecoderTrain, CbnDecoderTrain or FilmDecoderTrain
     enc: EncoderTrain
     opt: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
     step: int
@@ -122,16 +121,16 @@ def forward_losses(loss_cfg: LossConfig, state: TrainState, sdf_data: torch.Tens
     gt_sdf = sdf_data[:, :, 3:].reshape(B * S, -1)
     need_grad = "siren_loss" in loss_cfg.types
 
-    cbn = isinstance(state.dec, CbnDecoderTrain)
-    if cbn and mesh is not None and mesh.size > 1:
-        raise NotImplementedError("onet_cbn trains in one process: its data- and "
-                                  "tensor-parallel steps are not written")
+    conditioned = is_conditioned(state.dec.spec)
+    if conditioned and mesh is not None and mesh.size > 1:
+        raise NotImplementedError(f"{state.dec.spec.NAME} trains in one process: its data- "
+                                  "and tensor-parallel steps are not written")
     with torch.enable_grad():
         codes = state.enc(surface, mesh=mesh)                        # (B, L)
         lat = torch.repeat_interleave(codes, S, dim=0)               # (B*S, L)
         if need_grad:
             xyz = xyz.detach().requires_grad_(True)
-        if cbn:
+        if conditioned:
             # the conditioning once a LIF, broadcast over its S samples
             pd_sdf, pd_std = state.dec(codes, xyz)
         else:
@@ -228,7 +227,7 @@ def save_checkpoint(save_dir: Path, epoch: int, state: TrainState, hyper: dict) 
         hyper_path.write_text(json.dumps(hyper, indent=2, default=str))
     dec_np, enc_np = state.dec.to_params(), state.enc.to_params()
     weights.save_params_npz(save_dir / f"prior_{epoch}.npz", decoder=dec_np, encoder=enc_np)
-    if not isinstance(state.dec, CbnDecoderTrain):
+    if not is_conditioned(state.dec.spec):
         # the reference's layout exists for di_decoder only
         weights.save_torch_prior(save_dir, epoch, dec_np, enc_np, hyper)
     moments = {}
@@ -320,8 +319,8 @@ def _train(args, max_steps: int, log_every: int, dev: torch.device) -> Optional[
     if multi:
         logging.info("data-parallel over %d ranks", mesh.size)
     spec_d = spec_from_hyper(hyper)
-    if multi and is_cbn(spec_d):
-        raise NotImplementedError("onet_cbn trains in one process: its data-parallel "
+    if multi and is_conditioned(spec_d):
+        raise NotImplementedError(f"{spec_d.NAME} trains in one process: its data-parallel "
                                   "step is not written")
     spec_e = EncoderSpec.from_hyper(hyper)
     loss_cfg = LossConfig.from_hyper(hyper)

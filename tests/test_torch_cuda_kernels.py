@@ -370,11 +370,11 @@ def test_onet_system_takes_the_cbn_route(dev):
     from difusion_tpu_torch.core.meshing import MeshExtractor
     cfg = json.loads(ONET.read_text())
     system, _ = drive.build_system(cfg, dev, meshing=False)
-    assert system.tracker.sdf_fused and isinstance(system.tracker.packed, fused.CbnPack)
+    assert system.tracker.sdf_fused and isinstance(system.tracker.packed, fused.CondPack)
     table = system.tracker.cond
     assert table.table.shape == (cfg["assumed"]["capacity"], 11, 2, 256)
     mesher = MeshExtractor(system.map_cfg, system.decoder, voxel_resolution=8)
-    assert isinstance(mesher.packed, fused.CbnPack)
+    assert isinstance(mesher.packed, fused.CondPack)
     codes, idx, rel = _cbn_inputs(dev, 8192, 600, 3, 1.0)
     _build.reset_launch_counts()
     lat = system.state.latents.clone()
@@ -387,6 +387,162 @@ def test_onet_system_takes_the_cbn_route(dev):
     fused.decode_fwd_cbn(mesher.packed, table.table, idx, rel)
     counts = {k: v for k, v in _build.launch_counts().items() if v}
     assert counts == {"cbn_cond": 1, "decode_grad_cbn": 1, "decode_fwd_cbn": 1}
+
+
+# ---------------------------------------------------------------------------
+# pigan_film's kernels (csrc/decoder_film.cu) at pi-GAN's widths
+# ---------------------------------------------------------------------------
+
+PIGAN = Path(__file__).resolve().parents[1] / "benchmark/configs/lrkt-pigan.json"
+# both sides f32 (3xTF32 keeps ~22 bits of each product) summing 256-wide
+# dots in another order: the mapping's four layers, then eight sine layers
+# whose frequencies (gamma ~30) amplify a preactivation's error ~1.7x each
+# the mapping's rows sum to gamma = 15 f + 30, so an error is absolute at
+# gamma's scale (~30): 1.5e-5 read at random and trained weights alike,
+# also where 15 f cancels 30 to a small gamma
+FILM_MAP_ATOL, FILM_MAP_RTOL = 6e-5, 1e-5
+FILM_ATOL = 2e-5           # sdf and std
+FILM_GRAD_ATOL = 3e-4      # gradient (up to ~5 a unit)
+
+
+@pytest.fixture(scope="module")
+def film(dev):
+    """A pigan_film decoder at the published widths with pi-GAN's own
+    initialisation from a seed, and its pack."""
+    from difusion_tpu_torch.models import decoder as D
+    spec = D.FilmSpec()
+    dec = D.FilmDecoder(spec, D.init_film_params(spec, torch.Generator().manual_seed(11)))
+    return dec.to(dev), fused.pack_fused_decoder(dec.to(dev))
+
+
+def _film_inputs(dev, n, m, seed, per_code=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randn(m, 256, generator=gen, device=dev) * 0.5
+    idx = (torch.randint(0, m, (n,), generator=gen, device=dev) if per_code is None
+           else torch.arange(n, device=dev) // per_code).to(torch.int32)
+    rel = torch.rand(n, 3, generator=gen, device=dev) - 0.5
+    return codes, idx, rel
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 4700])
+def test_film_map_kernel_matches_plain(dev, film, m):
+    """The mapping kernel against its plain version at an export's live
+    blocks and the 64-row tile's edges; one launch counted as film_map."""
+    _, pack = film
+    codes, _, _ = _film_inputs(dev, 1, m, m)
+    before = _build.launch_counts().get("film_map", 0)
+    got = fused.film_map(pack, codes)
+    ref = fused.film_map_plain(pack, codes)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["film_map"] == before + 1
+    torch.testing.assert_close(got, ref, atol=FILM_MAP_ATOL, rtol=FILM_MAP_RTOL)
+
+
+@pytest.mark.parametrize("count", [0, 1, 65, 700])
+def test_film_map_kernel_by_row_list_and_device_count(dev, film, count):
+    """Rows from a list, as many as a count on the card says: the listed
+    rows mapped, every other row of the table untouched."""
+    _, pack = film
+    codes, _, _ = _film_inputs(dev, 1, 4000, 3)
+    gen = torch.Generator(device=dev).manual_seed(count)
+    rows = torch.randperm(4000, generator=gen, device=dev)[:1000].to(torch.int32)
+    table = torch.full((4000, 8, 2, 256), 7.0, device=dev)
+    fused.condition(pack, codes, rows, torch.tensor(count, dtype=torch.int32, device=dev),
+                    out=table)
+    want = torch.full_like(table, 7.0)
+    sel = rows[:count].long()
+    want[sel] = fused.film_map_plain(pack, codes[sel])
+    torch.testing.assert_close(table, want, atol=FILM_MAP_ATOL, rtol=FILM_MAP_RTOL)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 31, 63, 64, 65, 777, 8192, 8193])
+def test_decode_grad_film_kernel_matches_plain(dev, film, n):
+    """Kernel 1's pigan_film instance (16 points a block, four rows each)
+    against its plain version and the autograd gradient of the inference
+    form at the tracker's 8192 points, each point's row drawn from 600
+    codes; one launch counted as decode_grad_film."""
+    dec, pack = film
+    codes, idx, rel = _film_inputs(dev, n, 600, n)
+    mod = fused.film_map(pack, codes)
+    before = _build.launch_counts().get("decode_grad_film", 0)
+    got = fused.decode_grad_film(pack, mod, idx, rel)
+    ref = fused.decode_grad_film_plain(pack, mod, idx, rel)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["decode_grad_film"] == before + 1
+    torch.testing.assert_close(got[0], ref[0], atol=FILM_ATOL, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=FILM_ATOL, rtol=0)
+    torch.testing.assert_close(got[2], ref[2], atol=FILM_GRAD_ATOL, rtol=0)
+    x = rel.clone().requires_grad_(True)
+    with torch.enable_grad():
+        sdf, _ = dec.trunk(x, mod[idx.long()])
+        g, = torch.autograd.grad(sdf.sum(), x)
+    torch.testing.assert_close(got[2], g, atol=FILM_GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 4097, 1 << 20])
+def test_decode_fwd_film_kernel_matches_plain(dev, film, n):
+    """Kernel 3's pigan_film instance against its plain version over the
+    mesher's lattice range (4,096 sites a block's row), up to one export
+    dispatch; one launch counted as decode_fwd_film, none for N = 0."""
+    _, pack = film
+    codes, idx, rel = _film_inputs(dev, n, 256, n, per_code=4096)
+    mod = fused.film_map(pack, codes)
+    before = _build.launch_counts().get("decode_fwd_film", 0)
+    got = fused.decode_fwd_film(pack, mod, idx, rel)
+    ref = fused.decode_fwd_film_plain(pack, mod, idx, rel)
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get("decode_fwd_film", 0) == before + (n > 0)
+    torch.testing.assert_close(got[0], ref[0], atol=FILM_ATOL, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=FILM_ATOL, rtol=0)
+
+
+def test_film_tolerances_refuse_the_tf32_reference(dev, film):
+    """The control: the plain versions with their products in TF32 fail
+    the tolerances the kernels pass."""
+    _, pack = film
+    codes, idx, rel = _film_inputs(dev, 8192, 600, 5)
+    mod = fused.film_map_plain(pack, codes)
+    ref = fused.decode_grad_film_plain(pack, mod, idx, rel)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        low_mod = fused.film_map_plain(pack, codes)
+        low = fused.decode_grad_film_plain(pack, low_mod, idx, rel)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.synchronize()
+    assert bool(((low_mod - mod).abs() > FILM_MAP_ATOL + FILM_MAP_RTOL * mod.abs()).any())
+    assert float((low[0] - ref[0]).abs().max()) > FILM_ATOL
+    assert float((low[2] - ref[2]).abs().max()) > FILM_GRAD_ATOL
+
+
+def test_pigan_system_takes_the_film_route(dev):
+    """SLAMSystem.from_config on the lrkt-pigan configuration: the tracker
+    holds a pigan_film pack and a modulation table, the mesher the same
+    pack; their decodes launch only pigan_film's kernels, and a fusion maps
+    the slots it wrote in one launch."""
+    import json
+    from benchmark import drive
+    from difusion_tpu_torch.core.meshing import MeshExtractor
+    cfg = json.loads(PIGAN.read_text())
+    system, _ = drive.build_system(cfg, dev, meshing=False)
+    assert system.tracker.sdf_fused and isinstance(system.tracker.packed, fused.CondPack)
+    table = system.tracker.cond
+    assert table.table.shape == (cfg["assumed"]["capacity"], 8, 2, 256)
+    mesher = MeshExtractor(system.map_cfg, system.decoder, voxel_resolution=8)
+    assert isinstance(mesher.packed, fused.CondPack)
+    codes, idx, rel = _film_inputs(dev, 8192, 600, 3)
+    _build.reset_launch_counts()
+    lat = system.state.latents.clone()
+    lat[:5] = codes[:5]
+    table.refresh(lat)
+    torch.testing.assert_close(table.table[:5], fused.film_map_plain(
+        system.tracker.packed, codes[:5]), atol=FILM_MAP_ATOL, rtol=FILM_MAP_RTOL)
+    assert table.cond_rows() == 5
+    fused.decode_grad_cond(system.tracker.packed, table.table, idx, rel)
+    fused.decode_fwd_cond(mesher.packed, table.table, idx, rel)
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    assert counts == {"film_map": 1, "decode_grad_film": 1, "decode_fwd_film": 1}
 
 
 def _stencil_inputs(dev, shape, seed):

@@ -160,7 +160,7 @@ def test_pack_fragments_hold_the_plain_weights(pack):
     trunk's forward W^T and backward W of every block, in stream order, and
     each CBN's (gamma | beta) map with its columns interleaved eight by
     eight; the layout is the one csrc/decoder_cbn.cu reads."""
-    p, lay = DF.unpack_cbn(pack), pack.layout
+    p, lay = DF.unpack_cond(pack), pack.layout
     H, L = lay.H, lay.L
 
     def unfrag(f, k, n):   # _wide_frag's inverse
@@ -255,7 +255,7 @@ def test_mesher_conditions_each_live_block_once(dec):
     same triangles to 1e-5 (the conditioning's matmul shapes differ)."""
     cfg, st = _small_map(n_slots=60)
     fused = MS.MeshExtractor(cfg, dec, voxel_resolution=4)
-    assert isinstance(fused.packed, DF.CbnPack)
+    assert isinstance(fused.packed, DF.CondPack)
     plain = MS.MeshExtractor(cfg, dec, voxel_resolution=4)
     plain.packed = None
     fused.extract(st, no_cache=True)

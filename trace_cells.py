@@ -15,8 +15,8 @@ on), ``launches`` (every kernel's launches by ``_build.launch_counts()``
 from the process's start to the first window's end: the wide instances
 under ``decode_grad_wide`` and ``decode_fwd_wide``), ``decode_instance``
 (the instance the mesher's last decode used, from its ``last_stats``;
-None where the cell meshes nothing), ``cond_rows`` (the onet_cbn rows the
-tracker's conditioning table and the mesher conditioned in the first
+None where the cell meshes nothing), ``cond_rows`` (the rows a conditioned
+family's (onet_cbn's, pigan_film's) tracker table and mesher conditioned in the first
 window: ``CondTable.cond_rows()``, ``MeshExtractor.cond_rows``; None for a
 decoder without one), ``spans`` (:func:`readings`; a number the cell has nothing for is
 None), ``by_name`` (:func:`by_name`), ``segment_ms`` (the tracker's
@@ -62,8 +62,8 @@ def _segment_ns(driver) -> Dict[str, int]:
 
 
 def _cond_rows(driver) -> Optional[int]:
-    """Rows conditioned so far by the tracker's onet_cbn table and the
-    driver's mesher, or None where neither conditions."""
+    """Rows conditioned so far by the tracker's conditioning table (onet_cbn,
+    pigan_film) and the driver's mesher, or None where neither conditions."""
     system = getattr(driver, "system", None)
     table = getattr(getattr(system, "tracker", None), "cond", None)
     mesher = getattr(driver, "mesher", None) or getattr(system, "mesher", None)
@@ -152,7 +152,7 @@ def readings(spans, first: Window, trace=None, offset_ns: Optional[int] = None,
     first (untraced) window, the tracker's GN loops on the device a frame,
     the live extract's median, the export's device waits an extract, and
     (given the traced window's trace and the clocks' offset) the share of
-    the traced window the card idled while the host worked; an onet_cbn
+    the traced window the card idled while the host worked; a conditioned
     decoder's conditioning: the table's refreshes (``map.cond``) a frame
     and the export's ``mesh.cond`` an extract."""
     win = [spans[k] for k in _inside(spans, first)]
